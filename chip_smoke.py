@@ -1,4 +1,4 @@
-"""Chip smoke test for repro_torch: the port's main path on one NVIDIA GPU.
+"""Chip smoke test for repro_torch: the port's main paths on one NVIDIA GPU.
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
@@ -10,29 +10,51 @@ Phases, one line each (any failure raises and exits non-zero):
             to build the CUDA kernels from ``src/repro_torch`` (one nvcc
             per source, started together).
 2. kernels  each kernel against its plain PyTorch version on the card at
-            the main path's shapes (values within the stated tolerance,
+            the main paths' shapes (values within the stated tolerance,
             indices exactly equal on planted ties and on separated rows),
             with its median time from CUDA events, its bound, the plain
-            version's time and a PyTorch library call's time.
+            version's time and a PyTorch library call's time. The two
+            selection kernels are held at d = 512 (resnet18 features) and
+            d = 4,096 (qwen3-8b-wide text features); flash attention over
+            32 masks/shapes and timed at the text path's shape.
 3. server   the ALaaS Fig. 2 loop over TCP: an ALServer with resnet18 on
             the GPU, a 50,000-image 32x32x3 pool pushed by ALClient, a
             10,000-image eval set, lc/mc/rc/es/kcg/dbal queries of 1,000,
             label + train_eval, a warm-started coreset query, and one
-            PSHEA ("auto") run of budget 2,000. Kernel launch counts are
-            zeroed just before this phase and read just after it; each
-            kernel must have launched.
+            PSHEA ("auto") run of budget 2,000. Every kernel's launch
+            count is zeroed just before this phase and read just after
+            it; each selection kernel must have launched, flash attention
+            not at all (ResNet has no attention).
 4. agree    k-center greedy (budget 1,000) over the server's own features
             through the kernel and through the plain version; prints the
             rounds before the first divergence.
+5. bitwise  the text encoder (qwen3-8b widths, 4 layers, flash kernel):
+            features of 64 sequences bit-identical at block sizes 96, 128
+            and 512 (on the card ``block`` reaches no kernel, so this holds
+            by construction; the kernels phase's check that a row's bytes
+            do not depend on the query rows launched is what can fail),
+            bit-identical when the sequences are batched with other
+            batchmates (a permutation), and within the stated tolerance
+            of the chunked path.
+6. text     text AL over TCP: an ALServer with that TransformerBackend, a
+            2,048-sequence token pool (lengths 256-512, vocab 151,936)
+            pushed 256 at a time, a 512-sequence eval set, lc/kcg/dbal/
+            coreset queries of 256, label 256 + train_eval. Launch counts
+            are zeroed just before and read just after; all three kernels
+            must have launched, flash attention once per layer per encoder
+            call (64 pool batches and the eval set's one call).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
-when there is no CUDA device or the package is not beside this file.
+The last three lines are the card's name and power limit as nvidia-smi
+gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+Exits non-zero, printing no result, when there is no CUDA device or the
+package is not beside this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +69,11 @@ HBM_BYTES_S = 3.35e12                    # H100 SXM HBM3
 FP32_FLOPS_S = 67e12                     # H100 SXM fp32, outside tensor cores
 ATOL = 1e-5                              # fp32 values, at O(1) sq-distances
 REPS = 25
+WIDE = 4_096                             # qwen3-8b d_model: text features
+FLASH_ATOL = 2e-5          # fp32 attention outputs, O(1) (means of N(0,1))
+FEAT_ATOL = 1e-4           # pooled O(1) text features, kernel vs chunked
+TEXT_POOL, TEXT_EVAL, TEXT_SEQ, TEXT_BUDGET = 2_048, 512, 512, 256
+TEXT_LAYERS, TEXT_BATCH, TEXT_PUSH = 4, 32, 256
 
 
 def log(phase, **kw):
@@ -74,6 +101,28 @@ def median_ms(fn, reps=REPS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def ptxas_report(logs):
+    """{kernel source: {"<function>[<template arg>]": [registers, spill
+    store bytes]}} from the build's ``-Xptxas -v`` logs."""
+    out = {}
+    for name, text in logs.items():
+        funcs, cur = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                f = re.search(r"([a-z_]+_kernel)(ILi(\d+)E)?", m.group(1))
+                cur = f.group(1) + (f"<{f.group(3)}>" if f.group(3) else "")
+                funcs[cur] = [None, None]
+            elif cur and "spill stores" in line:
+                funcs[cur][1] = int(re.search(r"(\d+) bytes spill stores",
+                                              line).group(1))
+            elif cur and "Used" in line and "registers" in line:
+                funcs[cur][0] = int(re.search(r"Used (\d+) registers",
+                                              line).group(1))
+        out[name] = funcs
+    return out
 
 
 def bound(nbytes: float, flops: float):
@@ -180,6 +229,127 @@ def time_argmin(ops, dev, rng):
     return ms, plain, library, bound(nbytes, 2.0 * n * m * D + 2.0 * (n + m) * D)
 
 
+def wide_inputs(rng, n, dev):
+    """(n, 4,096) rows scaled so squared distances stay O(1), as at d = 512."""
+    return torch.from_numpy((rng.standard_normal((n, WIDE)) * 0.05 /
+                             np.sqrt(WIDE / D)).astype(np.float32)).to(dev)
+
+
+def check_wide(ops, dev, rng):
+    """Both selection kernels at d = 4,096 (text features): greedy_round at
+    N = 2,048, R in {1, 8}, weighted or not, with a planted tie 256 rows
+    apart; pairwise_min_argmin at 2,048 x 256 with a planted center tie.
+    Then their times at those shapes."""
+    n, m = TEXT_POOL, TEXT_BUDGET
+    worst, cases = 0.0, 0
+    x = wide_inputs(rng, n, dev)
+    x[1024] = x[768] = x[768] * 3.0                   # tie: 768 must win
+    for r in (1, 8):
+        for weighted in (False, True):
+            mind = torch.full((n,), 3.4e38, device=dev)
+            sel = torch.arange(5, 5 + r, dtype=torch.int32, device=dev)
+            w = None
+            if weighted:
+                w = torch.rand(n, device=dev)
+                w[768] = w[1024] = 1.0
+            args = (x, mind, x[sel.long()], sel, w)
+            kn, ki, _ = ops.greedy_round(*args)
+            pn, pi, _ = ops.greedy_round(*args, impl="ref")
+            torch.cuda.synchronize()
+            err = float((kn - pn).abs().max())
+            assert err <= ATOL, ("wide greedy", r, weighted, err)
+            assert int(ki) == int(pi) == 768, (r, weighted, int(ki), int(pi))
+            worst, cases = max(worst, err), cases + 1
+    c = wide_inputs(rng, m, dev)
+    c[200] = c[3]
+    xa = x.clone()
+    xa[:50] = c[3] + 1e-3
+    km, ka = ops.pairwise_min_and_argmin(xa, c)
+    pm, pa = ops.pairwise_min_and_argmin(xa, c, impl="ref")
+    torch.cuda.synchronize()
+    a_err = float((km - pm).abs().max())
+    assert a_err <= ATOL, ("wide argmin", a_err)
+    top2 = torch.topk(ops.pairwise_sq_dists(xa, c), 2, dim=1,
+                      largest=False).values
+    sep = (top2[:, 1] - top2[:, 0]) > 10 * ATOL
+    sep[:50] = True
+    assert bool((ka[:50] == 3).all()) and torch.equal(ka[sep], pa[sep])
+
+    mind = torch.full((n,), 3.4e38, device=dev)
+    c1, s1 = x[7:8], torch.tensor([7], dtype=torch.int32, device=dev)
+    g_ms = median_ms(lambda: ops.greedy_round(x, mind, c1, s1))
+    g_plain = median_ms(lambda: ops.greedy_round(x, mind, c1, s1, impl="ref"))
+    nb = -(-n // 64)
+    g_bound = bound(4 * (n * WIDE + WIDE + 1 + 2 * n + 2 * nb),
+                    3.0 * n * WIDE)
+    a_ms = median_ms(lambda: ops.pairwise_min_and_argmin(x, c))
+    a_plain = median_ms(lambda: ops.pairwise_min_and_argmin(x, c, impl="ref"))
+    a_lib = median_ms(lambda: torch.cdist(x, c).min(1))
+    a_bound = bound(4 * ((n + m) * WIDE + 2 * n),
+                    2.0 * n * m * WIDE + 2.0 * (n + m) * WIDE)
+    return {"greedy_round": {"cases": cases, "max_abs_err": worst,
+                             "timed_shape": [n, WIDE, 1], "ms": g_ms,
+                             "plain_ms": g_plain, "bound_ms": g_bound[0],
+                             "bound_by": g_bound[1]},
+            "pairwise_min_argmin": {"max_abs_err": a_err,
+                                    "index_rows": int(sep.sum()),
+                                    "timed_shape": [n, m, WIDE], "ms": a_ms,
+                                    "plain_ms": a_plain, "library_ms": a_lib,
+                                    "bound_ms": a_bound[0],
+                                    "bound_by": a_bound[1]}}
+
+
+def check_flash(fa, dev, rng):
+    """flash_attention against its plain version (naive attention) over
+    D in {64, 128}, G in {1, 4}, S in {512, 500}, kv_block in {64, 128}
+    and window in {None, 128}, at B 2 and KH 2; each row must also come
+    out bit-identical when fewer query rows are launched."""
+    worst, cases = 0.0, 0
+    for hd in (64, 128):
+        for g in (1, 4):
+            for s in (512, 500):
+                q = torch.from_numpy(rng.standard_normal(
+                    (2, s, 2 * g, hd)).astype(np.float32)).to(dev)
+                k, v = (torch.from_numpy(rng.standard_normal(
+                    (2, s, 2, hd)).astype(np.float32)).to(dev)
+                    for _ in range(2))
+                for kb in (64, 128):
+                    for window in (None, 128):
+                        got = fa.flash_attention_auto(
+                            q, k, v, window=window, kv_chunk=kb)
+                        want = fa.flash_attention_auto(
+                            q, k, v, window=window, impl="ref")
+                        part = fa.flash_attention_auto(
+                            q[:, :300], k, v, window=window, kv_chunk=kb)
+                        torch.cuda.synchronize()
+                        err = float((got - want).abs().max())
+                        assert err <= FLASH_ATOL, (hd, g, s, kb, window, err)
+                        assert torch.equal(part, got[:, :300]), \
+                            ("query rows changed a row", hd, g, s, kb, window)
+                        worst, cases = max(worst, err), cases + 1
+    return worst, cases
+
+
+def time_flash(fa, dev):
+    """At the text path's shape: B 32, S 512, H 32, KH 8, D 128, causal,
+    kv_block 128. Bound: the two products, 4·B·H·D·S(S+1)/2 FLOP for the
+    causal half, against q, k, v read and out written once."""
+    import torch.nn.functional as F
+    b, s, h, kh, hd = TEXT_BATCH, TEXT_SEQ, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((b, s, h, hd), generator=g, device=dev)
+    k = torch.randn((b, s, kh, hd), generator=g, device=dev)
+    v = torch.randn((b, s, kh, hd), generator=g, device=dev)
+    ms = median_ms(lambda: fa.flash_attention_auto(q, k, v, kv_chunk=128))
+    plain = median_ms(lambda: fa.flash_attention_auto(q, k, v, impl="ref"))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    nbytes = 4.0 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+    return ms, plain, library, bound(nbytes, flops)
+
+
 # ---------------------------------------------------------------- server --
 YML = f"""
 name: "CIFAR10_RESNET18"
@@ -199,7 +369,10 @@ al_worker:
 """
 
 
-def run_server(ops):
+def run_server(counters):
+    """The image path over TCP. ``counters`` maps each kernel module's
+    reset to its LAUNCHES; returns this path's launch counts and the
+    pool's features."""
     from repro_torch.data.synthetic import image_pool
     from repro_torch.service.client import ALClient, serve_tcp
     from repro_torch.service.config import ALServiceConfig
@@ -214,7 +387,8 @@ def run_server(ops):
     try:
         xs, ys = image_pool(POOL, hw=HW, seed=3)
         ex, ey = image_pool(EVAL, hw=HW, seed=4)
-        ops.reset_launches()                 # the main path starts here
+        for reset in counters:
+            reset()                              # the main path starts here
         t = time.perf_counter()
         keys = []
         for s in range(0, POOL, 2_500):
@@ -246,7 +420,9 @@ def run_server(ops):
         auto = cli.query(budget=AUTO_BUDGET, strategy="auto")
         wall["query_auto"] = time.perf_counter() - t
         torch.cuda.synchronize()
-        launches = dict(ops.LAUNCHES)        # ... and ends here
+        launches = {}
+        for counts in counters.values():         # ... and ends here
+            launches.update(counts)
         stats = cli.stats()
     finally:
         cli.close()
@@ -254,8 +430,9 @@ def run_server(ops):
     assert np.isfinite(acc) and 0.0 <= acc <= 1.0
     assert auto["budget_spent"] > 0 and auto["rounds"] >= 1
     assert stats["pool"] == POOL and stats["labeled"] == BUDGET
-    for name, count in launches.items():
-        assert count > 0, f"{name} never launched on the main path"
+    for name in ("greedy_round", "pairwise_min_argmin"):
+        assert launches[name] > 0, f"{name} never launched on the main path"
+    assert launches["flash_attention"] == 0, launches
     feats = srv.session()._artifact_snapshot()[0]
     assert feats.shape == (POOL, D) and np.isfinite(feats).all()
     log("server", wall_s=wall, launches=launches,
@@ -286,28 +463,176 @@ def agreement(feats, dev):
         kernel_s=t_kernel, plain_s=t_plain)
 
 
+# ------------------------------------------------------------------ text --
+TEXT_YML = f"""
+name: "TEXT_AL_QWEN3_WIDTHS"
+active_learning:
+  strategy:
+    type: "lc"
+  model:
+    name: "transformer"
+    batch_size: {TEXT_BATCH}
+    block_size: 128
+    seq_len: {TEXT_SEQ}
+    pooling: mean
+    modality: text
+  device: cuda
+  target_accuracy: 0.99
+al_worker:
+  protocol: "tcp"
+  host: "127.0.0.1"
+  port: 0
+  replicas: 1
+"""
+
+
+def text_backend(cfg):
+    """TransformerBackend at qwen3-8b widths, depth cut to TEXT_LAYERS,
+    random weights from seed 11, the flash kernel (``"pallas"``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.service.backends import make_backend
+    arch = dataclasses.replace(get_config("qwen3_8b"), n_layers=TEXT_LAYERS)
+    return make_backend(cfg.model_name, config=cfg, cfg=arch, seed=11,
+                        kv_chunk=128, attention_impl="pallas")
+
+
+def text_bitwise(be):
+    """Features of 64 sequences: bit-identical at block sizes 96, 128 and
+    512, and when each sequence has other batchmates (the 64 permuted);
+    within FEAT_ATOL of the plain chunked attention path."""
+    from repro_torch.data.synthetic import text_pool
+    toks, _ = text_pool(64, seq_len=TEXT_SEQ, vocab=be.cfg.vocab, seed=5)
+    x = be.preprocess(toks)
+
+    def feats(block, impl="pallas", rows=x):
+        be.block_size, be.impl = block, impl
+        return np.concatenate([be.features(rows[i:i + TEXT_BATCH])
+                               for i in range(0, len(rows), TEXT_BATCH)])
+
+    t = time.perf_counter()
+    by_block = {b: feats(b) for b in (96, 128, 512)}
+    t_kernel = time.perf_counter() - t
+    perm = np.random.default_rng(6).permutation(len(x))
+    moved = int((perm // TEXT_BATCH != np.arange(len(x)) // TEXT_BATCH).sum())
+    shuffled = np.empty_like(by_block[128])
+    shuffled[perm] = feats(128, rows=x[perm])
+    t = time.perf_counter()
+    chunked = feats(128, "chunked")
+    t_chunked = time.perf_counter() - t
+    be.block_size, be.impl = 128, "pallas"
+    base = by_block[128]
+    assert base.shape == (64, be.feat_dim) and np.isfinite(base).all()
+    for b, f in by_block.items():
+        assert np.array_equal(f, base), f"block {b} changed feature bytes"
+    assert moved > 0 and np.array_equal(shuffled, base), \
+        "batchmates changed feature bytes"
+    err = float(np.abs(chunked - base).max())
+    assert err <= FEAT_ATOL, ("kernel vs chunked features", err)
+    log("bitwise", blocks=sorted(by_block), bit_identical=True,
+        batchmates_bit_identical=True, rows_in_another_batch=moved,
+        max_abs_err_vs_chunked=err, tolerance_abs=FEAT_ATOL,
+        feature_abs_max=float(np.abs(base).max()),
+        kernel_s_3_blocks=t_kernel, chunked_s=t_chunked)
+
+
+def run_text(cfg, be, counters):
+    """Text AL over TCP through the transformer backend. Returns the
+    launch counts of this path."""
+    from repro_torch.data.synthetic import text_pool
+    from repro_torch.service.client import ALClient, serve_tcp
+    from repro_torch.service.server import ALServer
+
+    srv = ALServer(cfg, backend=be)
+    assert srv.device.type == "cuda" and cfg.replicas == 1
+    rpc = serve_tcp(srv, cfg.host, cfg.port)
+    cli = ALClient(url=f"{cfg.host}:{rpc.port}")
+    wall = {}
+    try:
+        toks, ys = text_pool(TEXT_POOL, seq_len=TEXT_SEQ, vocab=be.cfg.vocab,
+                             seed=3)
+        etoks, eys = text_pool(TEXT_EVAL, seq_len=TEXT_SEQ,
+                               vocab=be.cfg.vocab, seed=4)
+        for reset in counters:
+            reset()                              # the text path starts here
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        keys = []
+        for s in range(0, TEXT_POOL, TEXT_PUSH):
+            keys += cli.push_data(list(toks[s:s + TEXT_PUSH]))
+        wall["push_pool"] = time.perf_counter() - t
+        key2y = dict(zip(keys, (int(y) for y in ys)))
+        t = time.perf_counter()
+        srv.attach_oracle(lambda ks: [key2y[k] for k in ks], etoks, eys)
+        wall["attach_oracle_eval"] = time.perf_counter() - t
+        picks = {}
+        for strategy in ("lc", "kcg", "dbal", "coreset"):
+            t = time.perf_counter()
+            res = cli.query(budget=TEXT_BUDGET, strategy=strategy,
+                            rng_seed=1)
+            wall[f"query_{strategy}"] = time.perf_counter() - t
+            assert len(set(res["keys"])) == TEXT_BUDGET, strategy
+            picks[strategy] = res["keys"]
+        t = time.perf_counter()
+        cli.label(picks["lc"], [key2y[k] for k in picks["lc"]])
+        wall["label"] = time.perf_counter() - t
+        t = time.perf_counter()
+        acc = cli.train_eval()
+        wall["train_eval"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = {}
+        for counts in counters.values():         # ... and ends here
+            launches.update(counts)
+        peak = torch.cuda.max_memory_allocated()
+        stats = cli.stats()
+    finally:
+        cli.close()
+        rpc.stop()
+    assert np.isfinite(acc) and 0.0 <= acc <= 1.0
+    assert stats["pool"] == TEXT_POOL and stats["labeled"] == TEXT_BUDGET
+    assert srv.embed_rows == TEXT_POOL
+    for name, count in launches.items():
+        assert count > 0, f"{name} never launched on the text path"
+    # once per layer per encoder call: the pool in canonical batches, the
+    # eval set in one call
+    calls = TEXT_POOL // TEXT_BATCH + 1
+    assert launches["flash_attention"] == TEXT_LAYERS * calls, launches
+    feats = srv.session()._artifact_snapshot()[0]
+    assert feats.shape == (TEXT_POOL, be.feat_dim) and \
+        np.isfinite(feats).all()
+    log("text", wall_s=wall, launches=launches, embed_rows=srv.embed_rows,
+        accuracy=acc, peak_allocated_gb=peak / 1e9,
+        encoder_calls=calls)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.pairwise import ops
+    from repro_torch.service.config import ALServiceConfig
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
     t = time.perf_counter()
-    build.build_all()
+    logs = build.build_all()
     build_s = time.perf_counter() - t
     log("env", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-        kernel_build_s=build_s)
+        kernel_build_s=build_s, kernels=sorted(build.SOURCES),
+        ptxas_registers_spills=ptxas_report(logs))
 
     rng = np.random.default_rng(0)
     g_err, g_cases, r_block = check_greedy(ops, dev, rng)
     g_ms, g_plain, (g_bound, g_by) = time_greedy(ops, dev, rng)
     a_err, a_rows = check_argmin(ops, dev, rng)
     a_ms, a_plain, a_lib, (a_bound, a_by) = time_argmin(ops, dev, rng)
+    wide = check_wide(ops, dev, rng)
+    f_err, f_cases = check_flash(fa, dev, rng)
+    f_ms, f_plain, f_lib, (f_bound, f_by) = time_flash(fa, dev)
     log("kernels", tolerance_abs=ATOL,
         greedy_round={"cases": g_cases, "max_abs_err": g_err,
                       "r_block": r_block, "timed_shape": [POOL, D, 1],
@@ -317,28 +642,54 @@ def main() -> int:
                              "timed_shape": [10 * BUDGET, BUDGET, D],
                              "ms": a_ms, "plain_ms": a_plain,
                              "bound_ms": a_bound, "bound_by": a_by,
-                             "library_ms": a_lib})
+                             "library_ms": a_lib},
+        d4096=wide,
+        flash_attention={"cases": f_cases, "max_abs_err": f_err,
+                         "tolerance_abs": FLASH_ATOL,
+                         "timed_shape": [TEXT_BATCH, TEXT_SEQ, 32, 8, 128],
+                         "kv_block": 128, "ms": f_ms, "plain_ms": f_plain,
+                         "bound_ms": f_bound, "bound_by": f_by,
+                         "library_ms": f_lib})
 
-    launches, feats = run_server(ops)
+    counters = {ops.reset_launches: ops.LAUNCHES,
+                fa.reset_launches: fa.LAUNCHES}
+    launches, feats = run_server(counters)
     agreement(feats, dev)
+    del feats
 
-    src = "src/repro_torch/kernels/pairwise/csrc/"
-    kernels = [
-        {"name": "greedy_round", "route": "cuda",
-         "source": src + "greedy_round.cu",
-         "replaces": "src/repro/kernels/pairwise/kernel.py:159",
-         "launches": launches["greedy_round"], "max_abs_err": g_err,
-         "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-         "bound_by": g_by, "library_ms": None},
-        {"name": "pairwise_min_argmin", "route": "cuda",
-         "source": src + "pairwise_min_argmin.cu",
-         "replaces": "src/repro/kernels/pairwise/kernel.py:87",
-         "launches": launches["pairwise_min_argmin"], "max_abs_err": a_err,
-         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": a_by, "library_ms": a_lib},
+    cfg = ALServiceConfig.from_yaml(TEXT_YML)
+    be = text_backend(cfg)
+    text_bitwise(be)
+    text_launches = run_text(cfg, be, counters)
+
+    def counts(name):
+        by_path = {"image": launches[name], "text": text_launches[name]}
+        return sum(by_path.values()), by_path
+
+    src = "src/repro_torch/kernels/"
+    rows = [
+        ("greedy_round", "pairwise/csrc/greedy_round.cu",
+         "src/repro/kernels/pairwise/kernel.py:159",
+         max(g_err, wide["greedy_round"]["max_abs_err"]), g_ms, g_plain,
+         g_bound, g_by, None),
+        ("pairwise_min_argmin", "pairwise/csrc/pairwise_min_argmin.cu",
+         "src/repro/kernels/pairwise/kernel.py:87",
+         max(a_err, wide["pairwise_min_argmin"]["max_abs_err"]), a_ms,
+         a_plain, a_bound, a_by, a_lib),
+        ("flash_attention", "flash_attention/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:70", f_err, f_ms,
+         f_plain, f_bound, f_by, f_lib),
     ]
-    print(json.dumps({"kernels": kernels}))
+    kernels = []
+    for name, source, replaces, err, ms, plain, bnd, by, lib in rows:
+        total, by_path = counts(name)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": src + source, "replaces": replaces,
+                        "launches": total, "launches_by_path": by_path,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bnd, "bound_by": by, "library_ms": lib})
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,6 +11,8 @@ numpy arrays only, so it needs nothing of the reference package:
   HWIO -> OIHW. The tree's ``head`` is not part of the feature trunk and is
   ignored, as the reference's features ignore it.
 * ``load_mlp``: an MLP backend's ``w1``/``w2``.
+* ``load_encoder``: an ``init_encoder`` tree into a TransformerBackend,
+  its stacked layer axis unstacked.
 * ``head_state`` / ``set_initial_head``: a softmax head (trained, or the
   reference's ``init_head()`` that every fit starts from).
 """
@@ -63,3 +65,43 @@ def head_state(w, b, device="cpu") -> HeadState:
 def set_initial_head(backend: FeatureBackend, w, b) -> None:
     """Make every ``fit_head`` of ``backend`` start from this head."""
     backend.initial_head = head_state(w, b, backend.device)
+
+
+def load_encoder(backend, params: Mapping[str, Any]) -> None:
+    """Copy a reference ``init_encoder`` tree into a port
+    ``TransformerBackend``'s encoder. The tree's ``layers`` carry a leading
+    layer axis (stacked ``(n_layers, ...)`` leaves), unstacked here; the
+    other keys (``embed`` or ``frame_proj``, ``final_norm``) copy as they
+    are. Every leaf of either side must have its counterpart."""
+    port = backend.encoder.params
+    dev = backend.device
+    n_layers = len(port["layers"])
+
+    def copy(dst, src, path):
+        if set(dst) != set(src):
+            raise ValueError(f"{path}: port keys {sorted(dst)} differ from "
+                             f"reference keys {sorted(src)}")
+        for key, val in src.items():
+            if isinstance(dst[key], torch.Tensor):
+                arr = np.asarray(val, np.float32)
+                if arr.shape != tuple(dst[key].shape):
+                    raise ValueError(f"{path}/{key}: shape {arr.shape}, "
+                                     f"port has {tuple(dst[key].shape)}")
+                with torch.no_grad():
+                    dst[key].copy_(_t(arr, dev))
+            else:
+                copy(dst[key], val, f"{path}/{key}")
+
+    def layer(tree, i):
+        return {k: (layer(v, i) if isinstance(v, Mapping)
+                    else np.asarray(v)[i]) for k, v in tree.items()}
+
+    stacked = params["layers"]
+    some = stacked["norm1"]["scale"]
+    if np.asarray(some).shape[0] != n_layers:
+        raise ValueError(f"{np.asarray(some).shape[0]} layers for an "
+                         f"encoder of {n_layers}")
+    for i in range(n_layers):
+        copy(port["layers"][i], layer(stacked, i), f"layers[{i}]")
+    copy({k: v for k, v in port.items() if k != "layers"},
+         {k: v for k, v in params.items() if k != "layers"}, "")

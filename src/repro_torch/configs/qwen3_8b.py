@@ -1,0 +1,26 @@
+# Copied from repro/configs/qwen3_8b.py; imports renamed, and smoke_config
+# without the q_chunk/kv_chunk knobs the port's ArchConfig does not carry.
+"""qwen3-8b — dense, GQA + qk_norm. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=12288,
+    vocab=151936,
+    head_dim=128,
+    qk_norm=True,
+    rope_theta=1000000.0,
+)
+
+
+def smoke_config() -> ArchConfig:
+    import dataclasses
+    return dataclasses.replace(
+        CONFIG, name="qwen3-smoke", n_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=2, d_ff=128, vocab=256, head_dim=16,
+    )

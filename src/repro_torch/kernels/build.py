@@ -26,6 +26,8 @@ SOURCES: Dict[str, Path] = {
     "greedy_round": KERNELS_DIR / "pairwise" / "csrc" / "greedy_round.cu",
     "pairwise_min_argmin":
         KERNELS_DIR / "pairwise" / "csrc" / "pairwise_min_argmin.cu",
+    "flash_attention":
+        KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -10,7 +10,9 @@ Every backend obeys the reference's batch-insensitivity contract:
 ``preprocess`` makes per-sample decisions only and ``features`` is
 row-local, so a sample's feature bytes do not depend on its batchmates.
 On the GPU that needs cuDNN's deterministic algorithms with autotuning
-off, and fp32 without TF32 (``strict_fp32``).
+off, and fp32 without TF32 (``strict_fp32``). TransformerBackend extends
+the contract to the sequence axis: its features are bit-identical at any
+block size (models/blockwise.py).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import blockwise as blockwise_lib
 from repro_torch.models import resnet as resnet_lib
 
 
@@ -161,22 +165,110 @@ class MLPBackend(FeatureBackend):
         return torch.tanh(torch.tanh(x @ self.w1) @ self.w2).cpu().numpy()
 
 
-def _transformer(**kw):
-    raise NotImplementedError(
-        "the transformer backend is not ported yet (ROADMAP queue A8)")
+class TransformerBackend(FeatureBackend):
+    """Text/audio scorer: frozen blockwise-chunked transformer encoder.
+
+    The forward (models/blockwise.py) runs attention block by block over
+    the query axis (the flash-attention kernel on the card, the chunked
+    online softmax on the CPU) and is bitwise-invisible in the block size.
+
+    ``modality="text"``: raw items are int token rows, -1 = right-padding;
+    ``modality="audio"``: raw items are (frames, input_dim) float frames.
+    ``preprocess`` pads/truncates every sample to ``seq_len`` per sample
+    (no cross-sample statistics). ``kv_chunk`` is clamped to ``seq_len``
+    so the online-softmax KV grid never varies with block padding.
+    ``attention_impl`` "pallas" (the configs' name) is the CUDA kernel on
+    the card and the chunked path on the CPU; "chunked" and "naive" are
+    the plain paths. Weights are drawn from ``seed``; the reference's come
+    over through ``bridge.load_encoder``.
+    """
+
+    def __init__(self, cfg: Optional[ArchConfig] = None, seed: int = 11,
+                 num_classes: int = 10, block_size: int = 64,
+                 seq_len: int = 128, pooling: str = "mean",
+                 modality: str = "text", input_dim: int = 0,
+                 kv_chunk: int = 128, attention_impl: Optional[str] = None,
+                 device="cuda"):
+        if modality not in ("text", "audio"):
+            raise ValueError(f"unknown modality {modality!r}")
+        if pooling not in ("mean", "last"):
+            raise ValueError(f"unknown pooling {pooling!r}")
+        if modality == "audio" and not input_dim:
+            raise ValueError("audio modality needs input_dim (frame features)")
+        self.device = torch.device(device)
+        strict_fp32()
+        self.cfg = cfg or blockwise_lib.tiny_encoder_config()
+        self.num_classes = num_classes
+        self.feat_dim = self.cfg.d_model
+        self.block_size = max(1, int(block_size))
+        self.seq_len = max(1, int(seq_len))
+        self.pooling = pooling
+        self.modality = modality
+        self.input_dim = int(input_dim)
+        self.kv_chunk = max(1, min(int(kv_chunk), self.seq_len))
+        self.impl = attention_impl or self.cfg.attention_impl
+        self.encoder = blockwise_lib.BlockwiseEncoder(
+            self.cfg, seed, self.input_dim if modality == "audio" else None,
+            self.device)
+
+    def preprocess(self, raw: np.ndarray) -> np.ndarray:
+        x = np.asarray(raw)
+        if self.modality == "text":
+            if x.ndim != 2:
+                raise ValueError(
+                    f"text preprocess expects (N, tokens) int rows; got "
+                    f"shape {x.shape}")
+            if not np.issubdtype(x.dtype, np.integer):
+                raise ValueError(
+                    f"text preprocess expects integer tokens; got {x.dtype}")
+            if x.size and int(x.max()) >= self.cfg.vocab:
+                raise ValueError(
+                    f"token id {int(x.max())} out of range for vocab "
+                    f"{self.cfg.vocab}")
+            out = np.full((x.shape[0], self.seq_len), -1, np.int32)
+            L = min(x.shape[1], self.seq_len)
+            out[:, :L] = x[:, :L]
+            return out
+        if x.ndim != 3 or x.shape[-1] != self.input_dim:
+            raise ValueError(
+                f"audio preprocess expects (N, frames, {self.input_dim}) "
+                f"float frames; got shape {x.shape}")
+        out = np.zeros((x.shape[0], self.seq_len, self.input_dim), np.float32)
+        L = min(x.shape[1], self.seq_len)
+        out[:, :L] = x[:, :L]
+        return out
+
+    def features(self, batch: np.ndarray) -> np.ndarray:
+        x = torch.as_tensor(np.asarray(batch), device=self.device)
+        return self.encoder(x, block=self.block_size, kv_chunk=self.kv_chunk,
+                            impl=self.impl, pooling=self.pooling).cpu().numpy()
+
+    def activation_accounting(self, batch: int,
+                              seq_len: Optional[int] = None) -> dict:
+        return blockwise_lib.activation_accounting(
+            self.cfg, batch, seq_len or self.seq_len, self.block_size,
+            self.kv_chunk)
 
 
 BACKENDS = {
     "resnet18": lambda **kw: ResNetBackend(resnet_lib.resnet18_config(), **kw),
     "synthetic_cnn": lambda **kw: ResNetBackend(**kw),
-    "transformer": _transformer,
+    "transformer": lambda **kw: TransformerBackend(**kw),
 }
 
 
 def make_backend(name: str, config=None, **kw) -> FeatureBackend:
-    """Build a registered backend on ``config.device`` (or ``device=``)."""
+    """Build a registered backend on ``config.device`` (or ``device=``);
+    ``config`` (ALServiceConfig) also supplies the transformer knobs
+    (block/seq-len/pooling/modality/input_dim)."""
     if name not in BACKENDS:
         raise KeyError(f"unknown backend {name!r}")
     if config is not None:
         kw.setdefault("device", config.device.lower())
+        if name == "transformer":
+            kw.setdefault("block_size", config.model_block_size)
+            kw.setdefault("seq_len", config.model_seq_len)
+            kw.setdefault("pooling", config.model_pooling)
+            kw.setdefault("modality", config.model_modality)
+            kw.setdefault("input_dim", config.model_input_dim)
     return BACKENDS[name](**kw)

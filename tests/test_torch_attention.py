@@ -1,0 +1,164 @@
+"""Port parity: repro_torch's attention (naive, chunked, and the flash
+wrapper's CPU path) against repro's ``naive_attention``,
+``chunked_attention`` and ``flash_attention_pallas(..., interpret=True)``.
+
+Inputs come from numpy seeds (standard normal q, k, v) and go through
+both packages as numpy arrays. Tolerance: fp32 outputs within atol 1e-5.
+The outputs are softmax-weighted means of O(1) values, and the packages
+sum in other orders, which moves them by a few 1e-7.
+
+The ``cuda`` tests hold the CUDA kernel against the port's plain version
+(naive attention) on the card at the text path's widths; they need no JAX
+and skip where there is no GPU.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.models.layers import attention as pattn
+
+ATOL = 1e-5
+H = 4
+CHUNK = 16
+
+
+@pytest.fixture(scope="module")
+def ref():
+    pytest.importorskip("jax")
+    from repro.kernels.flash_attention.kernel import flash_attention_pallas
+    from repro.models.layers import attention as rattn
+    return rattn, flash_attention_pallas
+
+
+def _qkv(seed, S, KH, D, B=2):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KH, D)).astype(np.float32)
+    return q, k, v
+
+
+def _t(*arrs):
+    return [torch.from_numpy(a) for a in arrs]
+
+
+# every S x KH, each with one (D, window) pair: both head dims and both
+# masks are covered at every shape without the full product's compiles
+CASES = [(S, KH, D, w) for S in (37, 64) for KH in (1, 2, 4)
+         for D, w in ((8, None), (16, 8))]
+
+
+@pytest.mark.parametrize("S,KH,D,window", CASES)
+def test_attention_matches_reference(ref, S, KH, D, window):
+    import jax
+    rattn, flash_pallas = ref
+    q, k, v = _qkv(S * 100 + KH * 10 + D, S, KH, D)
+    tq, tk, tv = _t(q, k, v)
+
+    def want(fn, **kw):       # jitted: one compile instead of op-by-op
+        return np.asarray(jax.jit(functools.partial(
+            fn, causal=True, window=window, **kw))(q, k, v))
+
+    got = pattn.naive_attention(tq, tk, tv, window=window).numpy()
+    np.testing.assert_allclose(got, want(rattn.naive_attention), rtol=0,
+                               atol=ATOL)
+    got = pattn.chunked_attention(tq, tk, tv, window=window, q_chunk=CHUNK,
+                                  kv_chunk=CHUNK).numpy()
+    np.testing.assert_allclose(
+        got, want(rattn.chunked_attention, q_chunk=CHUNK, kv_chunk=CHUNK),
+        rtol=0, atol=ATOL)
+    got = ops.flash_attention_auto(tq, tk, tv, window=window, q_chunk=CHUNK,
+                                   kv_chunk=CHUNK).numpy()
+    np.testing.assert_allclose(
+        got, want(flash_pallas, q_block=CHUNK, kv_block=CHUNK,
+                  interpret=True), rtol=0, atol=ATOL)
+
+
+def test_dispatcher_routes_like_the_reference():
+    q, k, v = _t(*_qkv(0, 40, 2, 8))
+    kw = dict(causal=True, q_chunk=8, kv_chunk=16)
+    assert torch.equal(pattn.attention(q, k, v, impl="naive", **kw),
+                       pattn.naive_attention(q, k, v))
+    chunked = pattn.chunked_attention(q, k, v, q_chunk=8, kv_chunk=16)
+    assert torch.equal(pattn.attention(q, k, v, impl="chunked", **kw),
+                       chunked)
+    assert torch.equal(pattn.attention(q, k, v, impl="pallas", **kw), chunked)
+    assert torch.equal(ops.flash_attention_auto(q, k, v, impl="ref"),
+                       pattn.naive_attention(q, k, v))
+    with pytest.raises(ValueError, match="impl"):
+        pattn.attention(q, k, v, impl="flash")
+    with pytest.raises(ValueError, match="impl"):
+        ops.flash_attention_auto(q, k, v, impl="interpret")
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention_auto(q, k, v, window=0)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.flash_attention_auto(*(t.to("meta") for t in (q, k, v)))
+
+
+@pytest.mark.parametrize("window", [None, 7])
+def test_query_tiling_is_bitwise_invisible(window):
+    """A row's output depends on the KV grid only: any q_chunk, and any
+    number of query rows, give the same bytes."""
+    q, k, v = _t(*_qkv(3, 50, 2, 16))
+    base = ops.flash_attention_auto(q, k, v, window=window, q_chunk=50,
+                                    kv_chunk=16)
+    for qc in (1, 5, 16, 64):
+        assert torch.equal(ops.flash_attention_auto(
+            q, k, v, window=window, q_chunk=qc, kv_chunk=16), base), qc
+    assert torch.equal(ops.flash_attention_auto(
+        q[:, :23], k, v, window=window, q_chunk=5, kv_chunk=16),
+        base[:, :23])
+
+
+def test_cpu_path_launches_nothing():
+    ops.reset_launches()
+    q, k, v = _t(*_qkv(4, 20, 1, 8))
+    ops.flash_attention_auto(q, k, v, q_chunk=8, kv_chunk=8)
+    assert ops.LAUNCHES == {"flash_attention": 0}
+
+
+# ------------------------------------------------------------ on the card --
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+CUDA_CASES = [(D, G, S, kb, w) for D in (64, 128) for G in (1, 4)
+              for S in (512, 500) for kb in (64, 128) for w in (None, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,G,S,kb,window", CUDA_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, D, G, S, kb, window):
+    rng = np.random.default_rng(D + G + S + kb)
+    KH = 2
+    q = torch.from_numpy(rng.standard_normal((2, S, KH * G, D)).astype(
+        np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.standard_normal((2, S, KH, D)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    got = ops.flash_attention_auto(q, k, v, window=window, kv_chunk=kb)
+    want = ops.flash_attention_auto(q, k, v, window=window, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    # a row's bytes do not depend on how many query rows were launched
+    part = ops.flash_attention_auto(q[:, :300], k, v, window=window,
+                                    kv_chunk=kb)
+    assert torch.equal(part, got[:, :300])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,kb", [(320, 64), (256, 1024)])
+def test_cuda_flash_attention_rejects_what_it_cannot_take(cuda, D, kb):
+    """The C entry refuses a head_dim over 256 and a carve larger than
+    the card's shared memory per block; the wrapper raises ValueError."""
+    q = torch.zeros((1, 1024, 2, D), device=cuda)
+    k = torch.zeros((1, 1024, 1, D), device=cuda)
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="does not take"):
+        ops.flash_attention_auto(q, k, k, kv_chunk=kb)
+    assert ops.LAUNCHES == {"flash_attention": 0}

@@ -150,5 +150,9 @@ def test_default_init_is_seeded():
 
 
 def test_transformer_backend_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A8"):
-        backends.make_backend("transformer")
+    """The registry's transformer entry, a NotImplementedError until
+    ROADMAP A8 landed, now builds the port's TransformerBackend."""
+    be = backends.make_backend("transformer", device="cpu", seq_len=16,
+                               block_size=4)
+    assert isinstance(be, backends.TransformerBackend)
+    assert (be.device.type, be.seq_len, be.block_size) == ("cpu", 16, 4)
