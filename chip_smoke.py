@@ -16,7 +16,15 @@ Phases, one line each (any failure raises and exits non-zero):
             version's time and a PyTorch library call's time. The two
             selection kernels are held at d = 512 (resnet18 features) and
             d = 4,096 (qwen3-8b-wide text features); flash attention over
-            32 masks/shapes and timed at the text path's shape.
+            32 masks/shapes and timed at the text path's shape, and at
+            bf16 at the serve path's prefill shape (bf16 out);
+            uncertainty_stats over 152,064-wide logits (N 1, 16, 4,096),
+            ragged V, bf16, scale-80 logits and planted top-2 ties (mc
+            exactly 0), timed at the decode shape (16 rows) and a
+            pool-scoring shape (4,096 rows); decode_attention over the
+            reference's four cases and the qwen3-8b decode shape (B 16,
+            cache 1,024, cur_len 577, bf16, window none and 128), timed
+            there.
 3. server   the ALaaS Fig. 2 loop over TCP: an ALServer with resnet18 on
             the GPU, a 50,000-image 32x32x3 pool pushed by ALClient, a
             10,000-image eval set, lc/mc/rc/es/kcg/dbal queries of 1,000,
@@ -44,6 +52,20 @@ Phases, one line each (any failure raises and exits non-zero):
             must have launched, flash attention once per layer per encoder
             call (64 pool batches and the eval set's one call).
 
+7. serve    LLM serving with per-step uncertainty scores:
+            ``run_serving("qwen3_8b", smoke=False)`` at full width and all
+            36 layers in bf16 (random weights from seed 0), batch 16,
+            512-token prompts, 64 greedy decode steps, cache 1,024. Launch
+            counts are zeroed just before and read just after: flash
+            attention once per layer (prefill), decode attention once per
+            layer per step, uncertainty_stats once per step, the selection
+            kernels never. Then prefill + 8 teacher-forced steps through
+            the kernel path and through the plain path
+            (``attention_impl="chunked"``, plain scores), same weights and
+            tokens, held within AGREE_TOL; and a torch.profiler window
+            over a prefill and 4 decode steps (device time by kernel
+            class: the device's busy share).
+
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -52,6 +74,7 @@ package is not beside this file.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -68,12 +91,29 @@ D = 512                                  # resnet18 feat_dim
 HBM_BYTES_S = 3.35e12                    # H100 SXM HBM3
 FP32_FLOPS_S = 67e12                     # H100 SXM fp32, outside tensor cores
 ATOL = 1e-5                              # fp32 values, at O(1) sq-distances
-REPS = 25
+REPS, INNER = 15, 10                     # timing samples, calls per sample
 WIDE = 4_096                             # qwen3-8b d_model: text features
 FLASH_ATOL = 2e-5          # fp32 attention outputs, O(1) (means of N(0,1))
 FEAT_ATOL = 1e-4           # pooled O(1) text features, kernel vs chunked
 TEXT_POOL, TEXT_EVAL, TEXT_SEQ, TEXT_BUDGET = 2_048, 512, 512, 256
 TEXT_LAYERS, TEXT_BATCH, TEXT_PUSH = 4, 32, 256
+BF16_FLOPS_S = 989e12                    # H100 SXM bf16 tensor cores, dense
+VOCAB = 152_064            # qwen3-8b padded vocab: the serving logits' width
+# uncertainty scores, kernel vs plain: |d| <= tol + tol * |plain| (the
+# reference's fp32 and scale-80 tolerances, tests/test_kernels.py). Both
+# sides upcast bf16 logits to fp32 before any arithmetic, so bf16 inputs
+# are held at the fp32 tolerance.
+UNC_TOL = {"fp32": 3e-5, "scale80": 1e-4}
+# decode / bf16 flash attention, kernel vs plain, as allclose(rtol=atol=tol):
+# the reference's tolerances at fp32 and, for flash, bf16. Decode at bf16
+# is held at 1e-2: its outputs at the qwen3 shape are ~0.07 (means of
+# N(0,1) values over 577 keys), so the reference's 3e-2 would be half
+# a typical value.
+ATT_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+DECODE_BF16_TOL = 1e-2
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 16, 512, 64, 1_024
+AGREE_STEPS = 8
+KINDS = ("lc", "mc", "rc", "es")
 
 
 def log(phase, **kw):
@@ -88,7 +128,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps=REPS) -> float:
+def median_ms(fn, reps=REPS, inner=INNER) -> float:
+    """Median over ``reps`` samples of the device time per call, each
+    sample ``inner`` calls back to back between two CUDA events, so the
+    host's launch time overlaps the device's work instead of adding to it
+    (one call between two events on an idle device also counts the
+    wrapper's Python before the launch)."""
     fn()                                         # warm-up
     torch.cuda.synchronize()
     times = []
@@ -96,10 +141,11 @@ def median_ms(fn, reps=REPS) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return float(np.median(times))
 
 
@@ -125,9 +171,17 @@ def ptxas_report(logs):
     return out
 
 
-def bound(nbytes: float, flops: float):
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / FP32_FLOPS_S
+def bound(nbytes: float, flops: float, flops_s: float = FP32_FLOPS_S):
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / flops_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def within(got, want, tol) -> float:
+    """max |got - want|, asserting |got - want| <= tol + tol * |want|."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    assert bool((d <= tol + tol * want.abs()).all()), float(d.max())
+    return float(d.max())
 
 
 # --------------------------------------------------------------- kernels --
@@ -350,6 +404,169 @@ def time_flash(fa, dev):
     return ms, plain, library, bound(nbytes, flops)
 
 
+def check_flash_bf16(fa, dev):
+    """The serve path's prefill: B 16, S 512, H 32, KH 8, D 128, causal,
+    bf16, kv_block 512 (the config's kv_chunk 1,024 clamped to S). Out
+    must be bf16 and within ATT_TOL of the plain version; then the times.
+    Bound: the two products at the bf16 peak against q, k, v, out in bf16."""
+    import torch.nn.functional as F
+    b, s, h, kh, hd = SERVE_BATCH, SERVE_PROMPT, 32, 8, 128
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((b, s, h, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, s, kh, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, s, kh, hd), generator=g, device=dev).bfloat16()
+    got = fa.flash_attention_auto(q, k, v, kv_chunk=s)
+    want = fa.flash_attention_auto(q, k, v, impl="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 == want.dtype, got.dtype
+    err = within(got, want, ATT_TOL[torch.bfloat16])
+    ms = median_ms(lambda: fa.flash_attention_auto(q, k, v, kv_chunk=s))
+    plain = median_ms(lambda: fa.flash_attention_auto(q, k, v, impl="ref"))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    flops = 4.0 * b * h * hd * s * (s + 1) / 2
+    nbytes = 2.0 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+    bnd, by = bound(nbytes, flops, BF16_FLOPS_S)
+    return {"max_abs_err": err, "out_dtype": str(got.dtype),
+            "tolerance": ATT_TOL[torch.bfloat16],
+            "timed_shape": [b, s, h, kh, hd], "kv_block": s, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library}
+
+
+def _logits(g, n, v, dev, scale=3.0):
+    return torch.randn((n, v), generator=g, device=dev) * scale
+
+
+def check_uncertainty(unc, dev):
+    """uncertainty_stats against its plain version: V = 152,064 at N 1,
+    16 and 4,096 (fp32), ragged V 37 and 300, bf16 logits, scale-80
+    logits, and rows with a planted top-2 tie (mc exactly 0, rc exactly
+    1). Returns the worst |d| of the cases held at the fp32 tolerance (fp32
+    and bf16 inputs) and the case count."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = [(1, VOCAB, torch.float32, 3.0, "fp32"),
+             (16, VOCAB, torch.float32, 3.0, "fp32"),
+             (4_096, VOCAB, torch.float32, 3.0, "fp32"),
+             (16, 37, torch.float32, 3.0, "fp32"),
+             (16, 300, torch.float32, 3.0, "fp32"),
+             (16, VOCAB, torch.bfloat16, 3.0, "fp32"),
+             (8, VOCAB, torch.float32, 80.0, "scale80")]
+    worst = 0.0
+    for n, v, dtype, scale, tol in cases:
+        x = _logits(g, n, v, dev, scale).to(dtype)
+        got = unc.uncertainty_stats(x)
+        want = unc.uncertainty_stats(x, impl="ref")
+        torch.cuda.synchronize()
+        for kind in KINDS:
+            err = within(got[kind], want[kind], UNC_TOL[tol])
+            if tol == "fp32":
+                worst = max(worst, err)
+        del x, got, want
+    x = torch.round(_logits(g, 16, VOCAB, dev) * 8) / 8    # a bf16 grid
+    a = torch.randint(0, VOCAB, (16,), generator=g, device=dev)
+    b = (a + torch.randint(1, VOCAB, (16,), generator=g, device=dev)) % VOCAB
+    top = x.amax(1) + 1.0
+    rows = torch.arange(16, device=dev)
+    x[rows, a] = top
+    x[rows, b] = top
+    x[0, :2] = top[0]                            # adjacent columns too
+    tied = unc.uncertainty_stats(x)
+    assert bool((tied["mc"] == 0).all()) and bool((tied["rc"] == 1).all())
+    return worst, len(cases) + 1
+
+
+def time_uncertainty(unc, dev):
+    """At the decode shape (16 x 152,064 fp32; 9.7 MB, which stays in the
+    50 MB L2 between launches as it does after the LM head's product) and
+    at a pool-scoring shape (4,096 x 152,064; 2.5 GB). Bound: one read of
+    the logits and the (4, N) write, against ~5 operations a logit. The
+    library yardstick is torch.logsumexp alone ("lse only"): no single
+    PyTorch call computes the four scores."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+    for n in (SERVE_BATCH, 4_096):
+        x = _logits(g, n, VOCAB, dev)
+        ms = median_ms(lambda: unc.uncertainty_stats(x))
+        plain = median_ms(lambda: unc.uncertainty_stats(x, impl="ref"))
+        library = median_ms(lambda: torch.logsumexp(x, -1))
+        bnd, by = bound(4.0 * n * VOCAB + 16.0 * n, 5.0 * n * VOCAB)
+        out[n] = {"timed_shape": [n, VOCAB], "ms": ms, "plain_ms": plain,
+                  "bound_ms": bnd, "bound_by": by, "library_ms": library,
+                  "library": "torch.logsumexp (lse only)"}
+        del x
+    return out
+
+
+DECODE_CASES = [dict(B=2, H=4, KH=2, D=32, S=128, cur=77, win=None),
+                dict(B=1, H=8, KH=1, D=64, S=96, cur=96, win=None),
+                dict(B=2, H=4, KH=4, D=16, S=64, cur=13, win=8),
+                dict(B=3, H=16, KH=2, D=64, S=200, cur=1, win=None)]
+QWEN3_DECODE = [dict(B=SERVE_BATCH, H=32, KH=8, D=128, S=SERVE_MAX, cur=577,
+                     win=w) for w in (None, 128)]
+
+
+def _decode_inputs(g, c, dtype, dev):
+    q = torch.randn((c["B"], 1, c["H"], c["D"]), generator=g, device=dev)
+    k = torch.randn((c["B"], c["S"], c["KH"], c["D"]), generator=g,
+                    device=dev)
+    v = torch.randn((c["B"], c["S"], c["KH"], c["D"]), generator=g,
+                    device=dev)
+    cur = torch.tensor(c["cur"], dtype=torch.int32, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype), cur
+
+
+def check_decode(da, dev):
+    """decode_attention against its plain version on the reference's four
+    cases (at its test's kv_block, 32: several KV blocks, skipped leading
+    ones under a window) and the qwen3-8b decode shape (window none and
+    128, kv_block 256), each at fp32 (ATT_TOL) and bf16 (DECODE_BF16_TOL);
+    cur_len read from the device."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    tol = {torch.float32: ATT_TOL[torch.float32],
+           torch.bfloat16: DECODE_BF16_TOL}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for c in DECODE_CASES + QWEN3_DECODE:
+        kb = 32 if c in DECODE_CASES else da.KV_BLOCK
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, cur = _decode_inputs(g, c, dtype, dev)
+            got = da.decode_attention_auto(q, k, v, cur, window=c["win"],
+                                           kv_block=kb)
+            want = da.decode_attention_auto(q, k, v, cur, window=c["win"],
+                                            impl="ref")
+            torch.cuda.synchronize()
+            assert got.dtype == dtype
+            worst[dtype] = max(worst[dtype],
+                               within(got, want, tol[dtype]))
+    return worst, 2 * len(DECODE_CASES + QWEN3_DECODE)
+
+
+def time_decode(da, dev):
+    """At the qwen3-8b decode shape (bf16, window none). Bound: the live
+    K/V (cur_len keys) read once, q read and out written, against the two
+    products at the bf16 peak. Library: scaled_dot_product_attention with
+    a length mask and enable_gqa."""
+    import torch.nn.functional as F
+    c = QWEN3_DECODE[0]
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, cur = _decode_inputs(g, c, torch.bfloat16, dev)
+    ms = median_ms(lambda: da.decode_attention_auto(q, k, v, cur))
+    plain = median_ms(lambda: da.decode_attention_auto(q, k, v, cur,
+                                                       impl="ref"))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (torch.arange(c["S"], device=dev) < cur)[None, None, None, :]
+    library = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    b, h, kh, hd, n = c["B"], c["H"], c["KH"], c["D"], c["cur"]
+    nbytes = 2.0 * (2 * b * n * kh * hd + 2 * b * h * hd)
+    bnd, by = bound(nbytes, 4.0 * b * h * hd * n, BF16_FLOPS_S)
+    return {"timed_shape": [b, c["S"], n, h, kh, hd],
+            "kv_block": da.KV_BLOCK,
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library}
+
+
 # ---------------------------------------------------------------- server --
 YML = f"""
 name: "CIFAR10_RESNET18"
@@ -432,7 +649,8 @@ def run_server(counters):
     assert stats["pool"] == POOL and stats["labeled"] == BUDGET
     for name in ("greedy_round", "pairwise_min_argmin"):
         assert launches[name] > 0, f"{name} never launched on the main path"
-    assert launches["flash_attention"] == 0, launches
+    for name in ("flash_attention", "decode_attention", "uncertainty_stats"):
+        assert launches[name] == 0, launches     # no LM on this path
     feats = srv.session()._artifact_snapshot()[0]
     assert feats.shape == (POOL, D) and np.isfinite(feats).all()
     log("server", wall_s=wall, launches=launches,
@@ -590,8 +808,10 @@ def run_text(cfg, be, counters):
     assert np.isfinite(acc) and 0.0 <= acc <= 1.0
     assert stats["pool"] == TEXT_POOL and stats["labeled"] == TEXT_BUDGET
     assert srv.embed_rows == TEXT_POOL
-    for name, count in launches.items():
-        assert count > 0, f"{name} never launched on the text path"
+    for name in ("greedy_round", "pairwise_min_argmin", "flash_attention"):
+        assert launches[name] > 0, f"{name} never launched on the text path"
+    for name in ("decode_attention", "uncertainty_stats"):
+        assert launches[name] == 0, launches     # an encoder, no decoding
     # once per layer per encoder call: the pool in canonical batches, the
     # eval set in one call
     calls = TEXT_POOL // TEXT_BATCH + 1
@@ -605,14 +825,196 @@ def run_text(cfg, be, counters):
     return launches
 
 
+# ----------------------------------------------------------------- serve --
+# The kernel path and the plain path of the same bf16 model, teacher-forced
+# on the same tokens. The kernels keep q, p and the flash products in fp32
+# where the plain path rounds them to bf16, and sum in other orders; over
+# 36 bf16 layers that moves the fp32 logits (O(1) here: random weights)
+# by up to ~0.1 (0.098 on an H100 80GB HBM3 at 700 W). Random weights
+# give near-uniform next-token distributions (p1 ~ 4e-4), where lc = 1 - p1
+# and mc = p2 - p1 cannot move by 1e-3 whatever the kernels do; so lc is
+# compared as log p1 = log(1 - lc) and mc as mc / p1 = mc / (1 - lc),
+# scales on which they vary with the logits. The logits' limit alone
+# would allow 0.4 on log p1 = m1 - lse and on log rc = m2 - m1 (each a
+# difference of two quantities that move by at most 0.2), so about 0.5 on
+# rc and mc / p1 = rc - 1 near rc = 1: the limits below test more than
+# it does. It also covers the argmax of every row whose top-2 gap exceeds
+# twice it; the share of rows whose argmax agrees is printed, not held.
+AGREE_TOL = {"logits": 0.2, "log_p1": 0.15, "mc_over_p1": 0.15, "rc": 0.15,
+             "es": 5e-3}
+PROFILE_STEPS = 4
+
+
+def run_serve(counters):
+    """``run_serving`` at qwen3-8b, full width and depth, bf16. Returns
+    this path's launch counts."""
+    from repro_torch.launch.serve import run_serving
+    for reset in counters:
+        reset()                                  # the serve path starts here
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = run_serving("qwen3_8b", smoke=False, batch=SERVE_BATCH,
+                      prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
+                      max_len=SERVE_MAX, seed=0, log=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {}
+    for counts in counters.values():             # ... and ends here
+        launches.update(counts)
+    peak = torch.cuda.max_memory_allocated()
+    from repro_torch.configs import get_config
+    n_layers = get_config("qwen3_8b").n_layers
+    assert launches["flash_attention"] == n_layers, launches
+    assert launches["decode_attention"] == n_layers * SERVE_STEPS, launches
+    assert launches["uncertainty_stats"] == SERVE_STEPS, launches
+    assert launches["greedy_round"] == launches["pairwise_min_argmin"] == 0
+    assert out["final_len"] == SERVE_PROMPT + SERVE_STEPS, out
+    assert 0.0 <= out["mean_lc"] <= 1.0, out
+    assert 0.0 <= out["mean_es"] <= float(np.log(VOCAB)) + 1e-3, out
+    log("serve", **out, run_serving_wall_s=wall,
+        peak_allocated_gb=peak / 1e9, launches=launches,
+        shape={"batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+               "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX,
+               "layers": n_layers, "dtype": "bfloat16"})
+    return launches
+
+
+def _kernel_class(name: str) -> str:
+    for key, label in (("decode_attention", "decode_attention"),
+                       ("flash_fwd", "flash_attention"),
+                       ("uncertainty_stats", "uncertainty_stats")):
+        if key in name:
+            return label
+    if any(k in name.lower() for k in ("gemm", "gemv", "xmma", "nvjet",
+                                       "cutlass", "cublas")):
+        return "matmul (cuBLAS)"
+    return "other (norms, rope, casts, copies, elementwise)"
+
+
+def profile_device(fn):
+    """Device time by kernel class over one call of ``fn`` under
+    torch.profiler, and the host wall time of that (profiled) call."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    by_class, kernels = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        label = _kernel_class(ev.key)
+        by_class[label] = by_class.get(label, 0.0) + us / 1e3
+        kernels += ev.count
+    return by_class, kernels, wall
+
+
+def serve_checks(dev):
+    """On the same weights (seed 0): (1) prefill + AGREE_STEPS
+    teacher-forced decode steps through the kernel path and the plain
+    path (``attention_impl="chunked"``, plain scores), max |d| of the
+    logits and of the four scores, on the scales of AGREE_TOL, against
+    it; (2) a torch.profiler
+    window over the kernel path's prefill and over PROFILE_STEPS decode
+    steps: device time by kernel class, for the device's busy share."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_pool
+    from repro_torch.kernels.uncertainty import ops as unc
+    from repro_torch.models.transformer import Model
+    cfg = get_config("qwen3_8b")
+    prompt = torch.from_numpy(lm_pool(SERVE_BATCH, SERVE_PROMPT, cfg.vocab,
+                                      seed=0)[0]).to(dev)
+    feed = torch.from_numpy(lm_pool(SERVE_BATCH, AGREE_STEPS, cfg.vocab,
+                                    seed=1)[0].T.copy()).to(dev)
+    params = Model(cfg).init(0, dev)
+    runs = {}
+    for impl, score_impl in (("pallas", "auto"), ("chunked", "ref")):
+        model = Model(dataclasses.replace(cfg, attention_impl=impl))
+        cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + AGREE_STEPS,
+                                 dev)
+        t = time.perf_counter()
+        cache, logits = model.prefill(params, {"tokens": prompt}, cache)
+        outs, scores = [logits], []
+        for step in range(AGREE_STEPS):
+            logits, cache = model.decode_step(params, cache,
+                                              feed[step][:, None])
+            s = unc.uncertainty_stats(logits, impl=score_impl)
+            outs.append(logits)
+            scores.append(torch.stack([s[k] for k in KINDS]))
+        torch.cuda.synchronize()
+        runs[impl] = (torch.stack(outs), torch.stack(scores, 1),
+                      time.perf_counter() - t)
+        del cache
+    (lk, sk, tk), (lp, sp, tp) = runs["pallas"], runs["chunked"]
+    del runs
+    same = lk.argmax(-1) == lp.argmax(-1)
+
+    def compared(s):                             # (4, steps, B) -> by name
+        lc, mc, rc, es = s
+        return {"log_p1": torch.log(1.0 - lc), "mc_over_p1": mc / (1.0 - lc),
+                "rc": rc, "es": es}
+    ck, cp = compared(sk), compared(sp)
+    res = {"logits": float((lk - lp).abs().max())}
+    res.update({k: float((ck[k] - cp[k]).abs().max()) for k in ck})
+    spread = {k: [float(cp[k].min()), float(cp[k].max())] for k in cp}
+    finite = bool(torch.isfinite(lk).all() and torch.isfinite(sk).all()
+                  and all(torch.isfinite(v).all() for v in ck.values()))
+    log("serve_agree", steps=AGREE_STEPS, rows=int(same.numel()),
+        max_abs_diff=res, tolerance=AGREE_TOL, finite=finite,
+        logits_abs_max=float(lp.abs().max()), plain_range=spread,
+        argmax_agree_all_rows=float(same.float().mean()),
+        kernel_path_s=tk, plain_path_s=tp)
+    assert finite, res
+    for key in AGREE_TOL:
+        assert res[key] <= AGREE_TOL[key], (key, res)
+    del lk, lp, sk, sp
+
+    model = Model(dataclasses.replace(cfg, attention_impl="pallas"))
+    n_steps = 2 + PROFILE_STEPS
+    cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + n_steps, dev)
+    state = {}
+
+    def prefill():
+        state["cache"], state["logits"] = model.prefill(
+            params, {"tokens": prompt}, cache)
+
+    def steps(n):
+        for _ in range(n):
+            tok = torch.argmax(state["logits"], -1).to(torch.int32)
+            state["logits"], state["cache"] = model.decode_step(
+                params, state["cache"], tok[:, None])
+            unc.uncertainty_stats(state["logits"])
+
+    pre, pre_kernels, pre_wall = profile_device(prefill)
+    steps(2)                                     # warm
+    dec, dec_kernels, dec_wall = profile_device(lambda: steps(PROFILE_STEPS))
+    per_step = {k: v / PROFILE_STEPS for k, v in dec.items()}
+    log("serve_profile", prefill_device_ms=pre,
+        prefill_device_busy_ms=sum(pre.values()),
+        prefill_kernels=pre_kernels, prefill_profiled_wall_s=pre_wall,
+        decode_steps=PROFILE_STEPS, decode_device_ms_per_step=per_step,
+        decode_device_busy_ms_per_step=sum(per_step.values()),
+        decode_kernels_per_step=dec_kernels / PROFILE_STEPS,
+        decode_profiled_wall_ms_per_step=dec_wall / PROFILE_STEPS * 1e3)
+    del params, cache, state
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.pairwise import ops
+    from repro_torch.kernels.uncertainty import ops as unc
     from repro_torch.service.config import ALServiceConfig
 
     dev = torch.device("cuda")
@@ -633,6 +1035,11 @@ def main() -> int:
     wide = check_wide(ops, dev, rng)
     f_err, f_cases = check_flash(fa, dev, rng)
     f_ms, f_plain, f_lib, (f_bound, f_by) = time_flash(fa, dev)
+    f_bf16 = check_flash_bf16(fa, dev)
+    u_err, u_cases = check_uncertainty(unc, dev)
+    u_times = time_uncertainty(unc, dev)
+    d_err, d_cases = check_decode(da, dev)
+    d_time = time_decode(da, dev)
     log("kernels", tolerance_abs=ATOL,
         greedy_round={"cases": g_cases, "max_abs_err": g_err,
                       "r_block": r_block, "timed_shape": [POOL, D, 1],
@@ -649,10 +1056,22 @@ def main() -> int:
                          "timed_shape": [TEXT_BATCH, TEXT_SEQ, 32, 8, 128],
                          "kv_block": 128, "ms": f_ms, "plain_ms": f_plain,
                          "bound_ms": f_bound, "bound_by": f_by,
-                         "library_ms": f_lib})
+                         "library_ms": f_lib, "bf16_prefill": f_bf16},
+        uncertainty_stats={"cases": u_cases, "max_abs_err_fp32": u_err,
+                           "tolerance": UNC_TOL,
+                           "decode_shape": u_times[SERVE_BATCH],
+                           "pool_scoring_shape": u_times[4_096]},
+        decode_attention={"cases": d_cases,
+                          "max_abs_err": {"fp32": d_err[torch.float32],
+                                          "bf16": d_err[torch.bfloat16]},
+                          "tolerance": {"fp32": ATT_TOL[torch.float32],
+                                        "bf16": DECODE_BF16_TOL},
+                          **d_time})
 
     counters = {ops.reset_launches: ops.LAUNCHES,
-                fa.reset_launches: fa.LAUNCHES}
+                fa.reset_launches: fa.LAUNCHES,
+                unc.reset_launches: unc.LAUNCHES,
+                da.reset_launches: da.LAUNCHES}
     launches, feats = run_server(counters)
     agreement(feats, dev)
     del feats
@@ -661,9 +1080,16 @@ def main() -> int:
     be = text_backend(cfg)
     text_bitwise(be)
     text_launches = run_text(cfg, be, counters)
+    del be
+    gc.collect()
+    torch.cuda.empty_cache()                 # free the text encoder
+
+    serve_launches = run_serve(counters)
+    serve_checks(dev)
 
     def counts(name):
-        by_path = {"image": launches[name], "text": text_launches[name]}
+        by_path = {"image": launches[name], "text": text_launches[name],
+                   "serve": serve_launches[name]}
         return sum(by_path.values()), by_path
 
     src = "src/repro_torch/kernels/"
@@ -679,6 +1105,15 @@ def main() -> int:
         ("flash_attention", "flash_attention/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:70", f_err, f_ms,
          f_plain, f_bound, f_by, f_lib),
+        ("uncertainty_stats", "uncertainty/csrc/uncertainty_stats.cu",
+         "src/repro/kernels/uncertainty/kernel.py:77", u_err,
+         *(u_times[SERVE_BATCH][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms"))),
+        ("decode_attention", "decode_attention/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention/kernel.py:62",
+         max(d_err.values()),
+         *(d_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms"))),
     ]
     kernels = []
     for name, source, replaces, err, ms, plain, bnd, by, lib in rows:

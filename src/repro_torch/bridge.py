@@ -13,6 +13,8 @@ numpy arrays only, so it needs nothing of the reference package:
 * ``load_mlp``: an MLP backend's ``w1``/``w2``.
 * ``load_encoder``: an ``init_encoder`` tree into a TransformerBackend,
   its stacked layer axis unstacked.
+* ``load_model``: a ``Model.init`` tree of the dense LM into the port's
+  ``models.transformer`` tree, every dtype kept (bf16 stays bf16).
 * ``head_state`` / ``set_initial_head``: a softmax head (trained, or the
   reference's ``init_head()`` that every fit starts from).
 """
@@ -105,3 +107,39 @@ def load_encoder(backend, params: Mapping[str, Any]) -> None:
         copy(port["layers"][i], layer(stacked, i), f"layers[{i}]")
     copy({k: v for k, v in port.items() if k != "layers"},
          {k: v for k, v in params.items() if k != "layers"}, "")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array as a torch tensor of the same dtype on ``device``;
+    a bfloat16 array (numpy's ``ml_dtypes`` extension type) is carried
+    over bit for bit."""
+    a = np.array(a)                      # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def load_model(params: Mapping[str, Any], device="cpu"):
+    """The port's parameter tree for a reference ``Model.init`` tree of
+    the dense LM, given as numpy arrays. A segment of ``count > 1`` units
+    carries a leading ``layer`` axis on every leaf, unstacked here into a
+    list of ``count`` units; a segment of one unit has none. Every leaf
+    keeps its dtype."""
+    def tree(node, pick):
+        if isinstance(node, Mapping):
+            return {k: tree(v, pick) for k, v in node.items()}
+        return _tensor(pick(np.asarray(node)), device)
+
+    out = {k: tree(v, lambda a: a) for k, v in params.items()
+           if k != "segments"}
+    out["segments"] = []
+    for seg in params["segments"]:
+        stacked = np.asarray(seg["0"]["norm1"]["scale"]).ndim == 2
+        count = np.asarray(seg["0"]["norm1"]["scale"]).shape[0] \
+            if stacked else 1
+        out["segments"].append([
+            tree(seg, (lambda a, i=i: a[i]) if stacked else (lambda a: a))
+            for i in range(count)])
+    return out

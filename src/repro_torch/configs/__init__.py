@@ -1,6 +1,9 @@
 # The registry of repro/configs/__init__.py, cut to the configs ported so
 # far (the rest wait for ROADMAP A12).
-"""Arch config registry: ``get_config(name)``."""
+"""Arch config registry: ``get_config(name)`` / ``get_smoke_config(name)``.
+
+A name is the module's (``"qwen3_8b"``) or the reference's canonical id
+(``"qwen3-8b"``)."""
 from __future__ import annotations
 
 import importlib
@@ -9,10 +12,23 @@ from repro_torch.configs.base import ArchConfig, pad_to  # noqa: F401
 
 ARCH_IDS = ["qwen3_8b"]
 
+# canonical ids -> module names
+ALIASES = {"qwen3-8b": "qwen3_8b"}
+
+
+def _module(name: str):
+    mod = ALIASES.get(name, name)
+    if mod not in ARCH_IDS:
+        raise KeyError(f"unknown or unported arch {name!r}; ported: "
+                       f"{ARCH_IDS} (the others wait for ROADMAP A12)")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
 
 def get_config(name: str) -> ArchConfig:
     """The full-size ``CONFIG`` of a ported arch."""
-    if name not in ARCH_IDS:
-        raise KeyError(f"unknown or unported arch {name!r}; ported: "
-                       f"{ARCH_IDS}")
-    return importlib.import_module(f"repro_torch.configs.{name}").CONFIG
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ArchConfig:
+    """The CPU-sized ``smoke_config()`` of a ported arch."""
+    return _module(name).smoke_config()

@@ -1,10 +1,12 @@
 # Copied from repro/configs/base.py: ArchConfig, pad_to and the two
-# properties the encoder uses (hd, padded_vocab). Dropped: the MoE, MLA,
-# RWKV and Griffin sub-configs, tie_embeddings, n_params, tp_friendly,
-# active_params and the dry-run shapes, which only the TPU dry run and the
-# LLM stack use (ROADMAP A12); and the q_chunk, kv_chunk and remat knobs,
-# which the encoder takes from its backend's arguments or has no use for
-# in inference.
+# properties the encoder and the dense decode stack use (hd,
+# padded_vocab), with the fields the dense stack reads: q_chunk and
+# kv_chunk (prefill attention). The LM head is always untied and uncapped:
+# tie_embeddings and logits_soft_cap come back with the first config that
+# sets them (ROADMAP A12). Dropped: the MoE, MLA, RWKV and Griffin sub-configs, the enc-dec, patch
+# and MTP fields, n_params, tp_friendly, active_params and the dry-run
+# shapes, which only the TPU dry run and the rest of the LLM stack use
+# (ROADMAP A12); and the remat knob, which inference has no use for.
 """Architecture configuration.
 
 One ``ArchConfig`` describes a backbone; each arch file under
@@ -37,6 +39,9 @@ class ArchConfig:
     norm: str = "rms"             # rms | ln
     mlp: str = "swiglu"           # swiglu | gelu
     norm_eps: float = 1e-6
+    # runtime knobs
+    q_chunk: int = 512
+    kv_chunk: int = 1024
     attention_impl: str = "chunked"   # chunked | naive | pallas
 
     @property

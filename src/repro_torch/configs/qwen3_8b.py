@@ -1,5 +1,4 @@
-# Copied from repro/configs/qwen3_8b.py; imports renamed, and smoke_config
-# without the q_chunk/kv_chunk knobs the port's ArchConfig does not carry.
+# Copied from repro/configs/qwen3_8b.py; imports renamed.
 """qwen3-8b — dense, GQA + qk_norm. [hf:Qwen/Qwen3-8B; hf]"""
 from repro_torch.configs.base import ArchConfig
 
@@ -22,5 +21,5 @@ def smoke_config() -> ArchConfig:
     import dataclasses
     return dataclasses.replace(
         CONFIG, name="qwen3-smoke", n_layers=2, d_model=64, n_heads=4,
-        n_kv_heads=2, d_ff=128, vocab=256, head_dim=16,
+        n_kv_heads=2, d_ff=128, vocab=256, head_dim=16, q_chunk=16, kv_chunk=16,
     )

@@ -6,8 +6,10 @@ repro/core/strategies/uncertainty.py).
   RC  ratio confidence      p(2) / p(1)               (ratio near 1 = pick)
   ES  entropy sampling      -sum p log p
 
-They score probs with plain tensor code, as the reference does with jnp;
-the fused logits path (the uncertainty kernel) is not on this path.
+They score probs with plain tensor code, as the reference does with jnp.
+``scores_from_logits`` is the fused logits path (``kernels/uncertainty``:
+one streaming pass over the class/vocab axis, no softmax materialised),
+the serving hot spot when the scorer is an LLM with a 100k-256k vocab.
 """
 from __future__ import annotations
 
@@ -37,6 +39,13 @@ def es_scores(probs):
 
 SCORE_FNS = {"lc": lc_scores, "mc": mc_scores, "rc": rc_scores,
              "es": es_scores}
+
+
+def scores_from_logits(logits, kind: str, impl: str = "auto"):
+    """Fused logits -> (N,) scores of ``kind`` (the kernel on a CUDA
+    tensor, the plain version on a CPU tensor; see kernels/uncertainty)."""
+    from repro_torch.kernels.uncertainty import ops
+    return ops.uncertainty_scores(logits, kind, impl=impl)
 
 
 def _make(kind: str) -> Strategy:

@@ -28,6 +28,10 @@ SOURCES: Dict[str, Path] = {
         KERNELS_DIR / "pairwise" / "csrc" / "pairwise_min_argmin.cu",
     "flash_attention":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "uncertainty_stats":
+        KERNELS_DIR / "uncertainty" / "csrc" / "uncertainty_stats.cu",
+    "decode_attention":
+        KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu",
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

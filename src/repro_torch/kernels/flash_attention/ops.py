@@ -12,6 +12,9 @@ The kernel's KV tile is ``kv_chunk`` (clamped to Skv), the grid the
 chunked path and the reference's interpret lane use. The reference's own
 kernel branch drops ``kv_chunk`` and takes its default of 128; the port
 passes it, so a row's online-softmax trajectory is the chunked path's.
+The kernel computes in fp32: bf16 inputs are cast up for it and its
+output is cast back, so every path returns ``q.dtype``, as the chunked
+path and the reference's kernel do.
 ``LAUNCHES`` counts kernel launches, one per call that reaches the card.
 """
 from __future__ import annotations
@@ -63,10 +66,11 @@ def _flash_cuda(q, k, v, *, causal: bool, window: Optional[int],
     if k.shape[0] != B or k.shape[3] != D or H % KH:
         raise ValueError(f"q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
     kb = max(1, min(int(kv_block), Skv))
+    dtype = q.dtype
     q, k, v = (t.to(torch.float32).contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
-        return out
+        return out.to(dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, Sq, Skv, H, KH, D, kb, int(causal),
@@ -79,7 +83,7 @@ def _flash_cuda(q, k, v, *, causal: bool, window: Optional[int],
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out.to(dtype)
 
 
 def flash_attention_auto(q, k, v, *, causal: bool = True,

@@ -1,6 +1,6 @@
 """Blockwise-chunked transformer encoder for ingest embedding (port of
-repro/models/blockwise.py; the dense (norm1, attn, norm2, mlp) layer unit
-of repro/models/transformer.py, whose other layers wait for ROADMAP A12).
+repro/models/blockwise.py; its layers are the dense (norm1, attn, norm2,
+mlp) unit of ``models/transformer.py``).
 
 Per layer, attention runs in tiles of query rows: on a CPU tensor the
 chunked online-softmax loop, in tiles of ``block`` rows; on a CUDA tensor
@@ -32,9 +32,10 @@ from torch import nn
 from repro_torch.common.param import ParamDecl, init_params
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn_lib
-from repro_torch.models.layers.mlp import mlp_apply, mlp_decls
+from repro_torch.models.layers.mlp import mlp_apply
 from repro_torch.models.layers.norms import apply_norm, norm_decls
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.transformer import layer_decls
 
 # flattened (batch x sequence) rows per FFN matrix product: bounds the
 # (rows, d_ff) intermediates; a fixed count, so the shapes never follow
@@ -49,20 +50,6 @@ def tiny_encoder_config(vocab: int = 512) -> ArchConfig:
         n_layers=2, d_model=32, n_heads=4, n_kv_heads=2, d_ff=64,
         vocab=vocab, norm="rms", mlp="swiglu",
         attention_impl="pallas")   # the kernel on the card, chunked on CPU
-
-
-def layer_decls(cfg: ArchConfig):
-    """The dense unit of repro/models/transformer.py ``_layer_decls``
-    (``_mixer_decls`` / ``_mlp_decls`` for attn + dense)."""
-    return {
-        "norm1": norm_decls(cfg.norm, cfg.d_model),
-        "norm2": norm_decls(cfg.norm, cfg.d_model),
-        "mixer": attn_lib.attn_decls(cfg.d_model, cfg.n_heads,
-                                     cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
-                                     cfg.qk_norm, out_bias=(cfg.norm == "ln")),
-        "mlp": mlp_decls(cfg.d_model, cfg.d_ff, cfg.mlp,
-                         bias=(cfg.norm == "ln")),
-    }
 
 
 def encoder_decls(cfg: ArchConfig, input_dim: Optional[int] = None):

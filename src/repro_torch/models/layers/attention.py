@@ -1,10 +1,14 @@
-"""GQA attention: naive and chunked (online softmax in plain PyTorch), and
-the dispatcher (port of repro/models/layers/attention.py; the decode
-functions wait for ROADMAP A12).
+"""GQA attention: naive, chunked (online softmax in plain PyTorch), the
+dispatcher, and single-token decode over a KV cache (port of
+repro/models/layers/attention.py; ``decode_attention_pos``, the ring
+buffer of local attention, waits for ROADMAP A12).
 
 Layouts are the reference's: q (B, Sq, H, D), k and v (B, Skv, KH, D);
 query head h reads KV head h // G, G = H / KH. Weights stay 2-D
-(d_model, n * head_dim).
+(d_model, n * head_dim). Every function returns ``q.dtype``. Products
+accumulate in fp32 over operands in their storage dtype, as the
+reference's ``einsum_f32`` does (bf16 x bf16 products are exact in fp32,
+so casting the operands to fp32 first computes the same sums).
 """
 from __future__ import annotations
 
@@ -122,20 +126,51 @@ def chunked_attention(q, k, v, *, causal: bool = True,
         acc = torch.zeros((B, KH, G, qc, D), device=dev)
         for ki in range(nk):
             k_pos = ki * kc + torch.arange(kc, device=dev)
-            s = torch.einsum("bqkgd,bskd->bkgqs", qch, kb[:, ki]) * scale
+            s = torch.einsum("bqkgd,bskd->bkgqs", qch.float(),
+                             kb[:, ki].float()) * scale
             s = torch.where(_mask(q_pos, k_pos, causal=causal, window=window,
                                   kv_valid=valid), s, NEG_INF)
             m_cur = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_cur[..., None])
             corr = torch.exp(m - m_cur)
             l = l * corr + torch.sum(p, dim=-1)
-            pv = torch.einsum("bkgqs,bskd->bkgqd", p, vb[:, ki])
+            # p rounded to the V dtype before its product, as the reference
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vb.dtype).float(),
+                              vb[:, ki].float())
             acc = acc * corr[..., None] + pv
             m = m_cur
         out = acc / torch.clamp_min(l, 1e-30)[..., None]    # (B,KH,G,qc,D)
         outs.append(out.permute(0, 3, 1, 2, 4))             # (B,qc,KH,G,D)
     out = torch.cat(outs, dim=1).reshape(B, nq * qc, H, D)[:, :Sq]
     return out.to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cur_len, *,
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None):
+    """Single-step decode. q: (B,1,H,D); caches: (B,Smax,KH,D).
+
+    cur_len: int or 0-d int tensor (on the caches' device: no host sync)
+    -- the number of valid cache entries *including* the current token
+    (already written into the cache). q is rounded to the cache dtype and
+    the probabilities to the V dtype before their products, as in the
+    reference.
+    """
+    B, _, H, D = q.shape
+    KH = k_cache.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, KH, G, D).to(k_cache.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
+    k_pos = torch.arange(k_cache.shape[1], device=q.device)
+    ok = k_pos < cur_len
+    if window is not None:
+        ok &= k_pos > cur_len - 1 - window
+    s = torch.where(ok[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
 
 
 def attention(q, k, v, *, impl: str = "chunked", **kw):

@@ -149,7 +149,7 @@ def test_default_init_is_seeded():
     assert abs(std - 1 / np.sqrt(9 * 16)) < 0.02
 
 
-def test_transformer_backend_is_not_ported():
+def test_transformer_backend_builds():
     """The registry's transformer entry, a NotImplementedError until
     ROADMAP A8 landed, now builds the port's TransformerBackend."""
     be = backends.make_backend("transformer", device="cpu", seq_len=16,

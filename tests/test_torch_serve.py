@@ -1,0 +1,361 @@
+"""Port parity: repro_torch's dense LM (``models/transformer.py``) and its
+serving entry point (``launch/serve.py``) against repro's, on the qwen3
+smoke config (2 layers, d_model 64, vocab 256), with the reference's
+weights carried over by ``bridge.load_model``.
+
+(a) fp32: the reference's params and cache cast to fp32 (every reference
+    cast follows its input dtype, so it then computes in fp32). prefill,
+    8 teacher-forced decode steps, ``last_logits`` and ``embed_pool``
+    agree within 1e-4 (the two sum in other orders: the largest difference
+    seen is 2.4e-6, at logits up to 4.3), and greedy tokens are equal.
+(b) bf16, as the reference serves: the reference's own decode-vs-forward
+    bar (tests/test_models.py): argmax agreement >= 0.99, rtol = atol =
+    0.08 (the largest logit difference seen is 0.043). Also the port's
+    prefill + decode_step against its own last_logits over S+1 tokens.
+(c) End to end: the port's ``run_serving(smoke=True, device="cpu")``
+    against the reference's at the same seed, batch, lengths and weights,
+    with the reference's fed tokens replayed so that a near-tie cannot
+    fork the runs: the same ``final_len``, means within 1e-2, and every
+    step's scores within SCORE_TOL. In bf16 the logits differ by a few
+    1e-2, and rc, a ratio of two probabilities, moves most (2.7e-2 seen).
+
+The ``cuda`` tests need no JAX and skip where there is no GPU.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import bridge, configs
+from repro_torch.configs import qwen3_8b
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.uncertainty import ops as unc_ops
+from repro_torch.launch import serve
+from repro_torch.models import transformer
+from repro_torch.models.transformer import Model
+
+B, S, T, MAX_LEN = 2, 12, 8, 24
+KINDS = ("lc", "mc", "rc", "es")
+SCORE_TOL = {"lc": 1e-2, "mc": 1e-2, "rc": 6e-2, "es": 1e-2}
+
+
+def _port_cfg(impl="pallas"):
+    return dataclasses.replace(configs.get_smoke_config("qwen3-8b"),
+                               attention_impl=impl)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_smoke_config
+    from repro.models.transformer import Model as RefModel
+    cfg = get_smoke_config("qwen3-8b")
+    model = RefModel(cfg)
+    return {"jax": jax, "cfg": cfg, "model": model,
+            "params": model.init(jax.random.PRNGKey(0)),
+            "prefill": jax.jit(model.prefill),
+            "decode": jax.jit(model.decode_step)}
+
+
+@pytest.fixture(scope="module")
+def toks():
+    return np.random.default_rng(1).integers(0, 256, (B, S + T)).astype(
+        np.int32)
+
+
+def _np_tree(jax, tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _ref_run(ref, params, toks, cache_dtype=None, greedy=False):
+    """Reference prefill + T decode steps (teacher-forced on ``toks``, or
+    greedy); returns (list of logits, fed tokens)."""
+    import jax.numpy as jnp
+    from repro.common.param import init_params
+    jax, model = ref["jax"], ref["model"]
+    cache = init_params(model.cache_decls(B, MAX_LEN), jax.random.PRNGKey(1))
+    if cache_dtype is not None:
+        cache = jax.tree.map(lambda a: a.astype(cache_dtype)
+                             if a.dtype == jnp.bfloat16 else a, cache)
+    cache, logits = ref["prefill"](params, {"tokens": toks[:, :S]}, cache)
+    out, fed = [np.asarray(logits)], []
+    for t in range(T):
+        tok = (jnp.argmax(logits, -1)[:, None].astype(jnp.int32) if greedy
+               else jnp.asarray(toks[:, S + t:S + t + 1]))
+        fed.append(np.asarray(tok)[:, 0])
+        logits, cache = ref["decode"](params, cache, tok)
+        out.append(np.asarray(logits))
+    assert int(cache["len"]) == S + T
+    return out, np.stack(fed)
+
+
+def _port_run(cfg, params, toks, dtype, greedy=False):
+    model = Model(cfg)
+    cache = model.init_cache(B, MAX_LEN, "cpu", dtype)
+    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
+        toks[:, :S])}, cache)
+    out, fed = [logits.numpy()], []
+    for t in range(T):
+        tok = (torch.argmax(logits, -1)[:, None].to(torch.int32) if greedy
+               else torch.from_numpy(toks[:, S + t:S + t + 1]))
+        fed.append(tok[:, 0].numpy())
+        logits, cache = model.decode_step(params, cache, tok)
+        out.append(logits.numpy())
+    assert cache["len"].dtype == torch.int32 and int(cache["len"]) == S + T
+    return out, np.stack(fed)
+
+
+def test_fp32_model_parity(ref, toks):
+    import jax.numpy as jnp
+    jax = ref["jax"]
+    rp = jax.tree.map(lambda a: a.astype(jnp.float32), ref["params"])
+    pp = bridge.load_model(_np_tree(jax, rp))
+    assert pp["embed"].dtype == torch.float32
+    want, _ = _ref_run(ref, rp, jnp.asarray(toks), cache_dtype=jnp.float32)
+    got, _ = _port_run(_port_cfg(), pp, toks, torch.float32)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    # on a CPU tensor the kernel path ("pallas") is the chunked path, bit
+    # for bit
+    plain, _ = _port_run(_port_cfg("chunked"), pp, toks, torch.float32)
+    for a, b in zip(got, plain):
+        np.testing.assert_array_equal(a, b)
+    want, want_fed = _ref_run(ref, rp, jnp.asarray(toks),
+                              cache_dtype=jnp.float32, greedy=True)
+    got, got_fed = _port_run(_port_cfg(), pp, toks, torch.float32,
+                             greedy=True)
+    np.testing.assert_array_equal(got_fed, want_fed)
+    for w, g in zip(want, got):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    model, batch = Model(_port_cfg()), {"tokens": torch.from_numpy(toks)}
+    rbatch = {"tokens": jnp.asarray(toks)}
+    np.testing.assert_allclose(
+        model.last_logits(pp, batch).numpy(),
+        np.asarray(ref["model"].last_logits(rp, rbatch)), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(
+        model.embed_pool(pp, batch).numpy(),
+        np.asarray(ref["model"].embed_pool(rp, rbatch)), rtol=0, atol=1e-4)
+
+
+def test_bf16_model_parity(ref, toks):
+    import jax.numpy as jnp
+    pp = bridge.load_model(_np_tree(ref["jax"], ref["params"]))
+    assert pp["embed"].dtype == torch.bfloat16
+    assert pp["segments"][0][1]["0"]["mixer"]["w_q"].dtype == torch.bfloat16
+    want, _ = _ref_run(ref, ref["params"], jnp.asarray(toks))
+    got, _ = _port_run(_port_cfg(), pp, toks, torch.bfloat16)
+    for w, g in zip(want, got):
+        assert np.mean(np.argmax(w, -1) == np.argmax(g, -1)) >= 0.99
+        np.testing.assert_allclose(g, w, rtol=0.08, atol=0.08)
+    got = Model(_port_cfg()).last_logits(pp, {"tokens": torch.from_numpy(
+        toks)}).numpy()
+    want = np.asarray(ref["model"].last_logits(ref["params"], {
+        "tokens": jnp.asarray(toks)}))
+    assert np.mean(np.argmax(want, -1) == np.argmax(got, -1)) >= 0.99
+    np.testing.assert_allclose(got, want, rtol=0.08, atol=0.08)
+
+
+def test_decode_matches_full_forward(toks):
+    """Port twin of the reference's test_decode_matches_full_forward:
+    prefill(S) + decode(token S) equals last_logits over S+1 tokens."""
+    model = Model(_port_cfg())
+    params = model.init(0, "cpu")
+    full = model.last_logits(params, {"tokens": torch.from_numpy(
+        toks[:, :S + 1])}).numpy()
+    cache = model.init_cache(B, S + 4, "cpu")
+    cache, _ = model.prefill(params, {"tokens": torch.from_numpy(
+        toks[:, :S])}, cache)
+    dec, cache = model.decode_step(params, cache, torch.from_numpy(
+        toks[:, S:S + 1]))
+    assert int(cache["len"]) == S + 1
+    assert np.mean(np.argmax(full, -1) == np.argmax(dec.numpy(), -1)) >= 0.99
+    np.testing.assert_allclose(dec.numpy(), full, rtol=0.08, atol=0.08)
+
+
+def _ref_serving_replica(ref, seed, batch, prompt_len, steps, max_len):
+    """The body of repro's run_serving (same jitted functions, same
+    inputs), keeping what its dict throws away: the fed tokens and every
+    step's scores."""
+    import jax.numpy as jnp
+    from repro.common.param import init_params
+    from repro.data.synthetic import lm_pool
+    from repro.kernels.uncertainty import ops as runc
+    jax, model = ref["jax"], ref["model"]
+    params = model.init(jax.random.PRNGKey(seed))
+    prompt, _ = lm_pool(batch, prompt_len, ref["cfg"].vocab, seed=seed)
+    cache = init_params(model.cache_decls(batch, max_len),
+                        jax.random.PRNGKey(1))
+    cache, logits = ref["prefill"](params, {"tokens": jnp.asarray(prompt)},
+                                   cache)
+    fed, scores = [], []
+    tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    for _ in range(steps):
+        fed.append(np.asarray(tok)[:, 0])
+        logits, cache = ref["decode"](params, cache, tok)
+        s = runc.uncertainty_stats(logits)
+        scores.append(np.stack([np.asarray(s[k]) for k in KINDS]))
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    return params, np.stack(fed), np.stack(scores, 1), int(cache["len"])
+
+
+def test_run_serving_matches_reference(ref):
+    from repro.launch.serve import run_serving as ref_run_serving
+    kw = dict(batch=2, prompt_len=8, decode_steps=4, max_len=16, seed=0)
+    want = ref_run_serving("qwen3-8b", smoke=True, log=False, **kw)
+    rparams, fed, rscores, rlen = _ref_serving_replica(
+        ref, kw["seed"], kw["batch"], kw["prompt_len"], kw["decode_steps"],
+        kw["max_len"])
+    assert rlen == want["final_len"]
+    np.testing.assert_allclose(rscores[0].mean(), want["mean_lc"], rtol=1e-6)
+    np.testing.assert_allclose(rscores[3].mean(), want["mean_es"], rtol=1e-6)
+
+    params = bridge.load_model(_np_tree(ref["jax"], rparams))
+    got = serve.run_serving("qwen3-8b", smoke=True, log=False, device="cpu",
+                            params=params, tokens=torch.from_numpy(fed), **kw)
+    assert got["arch"] == want["arch"] == "qwen3-smoke"
+    assert got["final_len"] == want["final_len"] == 12
+    for key in ("mean_lc", "mean_es"):
+        assert abs(got[key] - want[key]) <= 1e-2, key
+    for key in ("prefill_s", "decode_s_per_step", "tokens_per_s"):
+        assert got[key] > 0
+
+    # every step's scores, through the same replay
+    from repro_torch.data.synthetic import lm_pool
+    model = Model(_port_cfg())
+    prompt, _ = lm_pool(kw["batch"], kw["prompt_len"], 256, seed=kw["seed"])
+    cache = model.init_cache(kw["batch"], kw["max_len"], "cpu")
+    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
+        prompt)}, cache)
+    scores, pfed = serve.serve_steps(model, params, cache, logits,
+                                     kw["decode_steps"],
+                                     feed=torch.from_numpy(fed))
+    assert scores.shape == (4, kw["decode_steps"], kw["batch"])
+    np.testing.assert_array_equal(pfed.numpy(), fed)
+    for i, k in enumerate(KINDS):
+        np.testing.assert_allclose(scores[i].numpy(), rscores[i], rtol=0,
+                                   atol=SCORE_TOL[k], err_msg=k)
+
+
+def test_run_serving_greedy_on_cpu():
+    out = serve.run_serving(batch=3, prompt_len=5, decode_steps=4,
+                            max_len=9, device="cpu", log=False)
+    assert out["arch"] == "qwen3-smoke" and out["final_len"] == 9
+    assert 0.0 <= out["mean_lc"] <= 1.0 and np.isfinite(out["mean_es"])
+    with pytest.raises(ValueError, match="max_len"):
+        serve.run_serving(prompt_len=5, decode_steps=5, max_len=9,
+                          device="cpu", log=False)
+    for counts in (fa_ops.LAUNCHES, da_ops.LAUNCHES, unc_ops.LAUNCHES):
+        assert set(counts.values()) == {0}       # the CPU launches none
+
+
+def test_run_serving_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the cuda path runs")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.run_serving(log=False)
+
+
+@pytest.mark.parametrize("family", ["moe", "hybrid", "ssm", "audio", "vlm"])
+def test_non_dense_configs_raise(family):
+    cfg = dataclasses.replace(qwen3_8b.smoke_config(), family=family)
+    with pytest.raises(NotImplementedError, match="A12"):
+        Model(cfg)
+    with pytest.raises(NotImplementedError, match="A12"):
+        transformer.build_segments(cfg)
+
+
+def test_registry_and_declarations():
+    assert configs.get_smoke_config("qwen3-8b") == \
+        configs.get_smoke_config("qwen3_8b") == qwen3_8b.smoke_config()
+    assert configs.get_config("qwen3-8b") is qwen3_8b.CONFIG
+    with pytest.raises(KeyError, match="A12"):
+        configs.get_config("deepseek-v3-671b")
+    cfg = qwen3_8b.smoke_config()
+    assert (cfg.q_chunk, cfg.kv_chunk) == (16, 16)
+    model = Model(cfg)
+    params = model.init(3, "cpu")
+    assert len(params["segments"]) == 1 and len(params["segments"][0]) == 2
+    assert {t.dtype for t in (params["embed"], params["lm_head"],
+                              params["final_norm"]["scale"])} == \
+        {torch.bfloat16}
+    cache = model.init_cache(2, 10, "cpu")
+    assert cache["len"].shape == () and cache["len"].dtype == torch.int32
+    k = cache["segments"][0]["0"]["k"]
+    assert k.shape == (2, 2, 10, 2 * 16) and k.dtype == torch.bfloat16
+    assert not k.any()
+    # the blockwise encoder keeps its fp32 weights
+    from repro_torch.models.blockwise import init_encoder
+    enc = init_encoder(cfg, device="cpu")
+    assert enc["embed"].dtype == torch.float32
+
+
+def test_reference_registry_fields():
+    pytest.importorskip("jax")
+    from repro.configs import get_smoke_config
+    ours = configs.get_smoke_config("qwen3_8b")
+    theirs = get_smoke_config("qwen3-8b")
+    for field in dataclasses.fields(ours):
+        assert getattr(ours, field.name) == getattr(theirs, field.name), \
+            field.name
+
+
+# ------------------------------------------------------------- on the card --
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_flash_kernel_keeps_bf16(gpu):
+    """bf16 in gives bf16 out, within the bf16 tolerance of the plain
+    path (the prefill shape's widths, causal, GQA)."""
+    g = torch.Generator(device=gpu).manual_seed(0)
+    q = torch.randn((2, 96, 8, 128), generator=g, device=gpu).bfloat16()
+    k = torch.randn((2, 96, 2, 128), generator=g, device=gpu).bfloat16()
+    v = torch.randn((2, 96, 2, 128), generator=g, device=gpu).bfloat16()
+    got = fa_ops.flash_attention_auto(q, k, v, kv_chunk=64)
+    want = fa_ops.flash_attention_auto(q, k, v, impl="ref")
+    assert got.dtype == want.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_serving_on_the_card_runs_every_kernel(gpu):
+    """The smoke config served on the card: every kernel of the path
+    launches as often as the path says, and the means stay within 1e-2 of
+    the CPU run on the same weights and fed tokens."""
+    model = Model(_port_cfg())
+    params = model.init(0, "cpu")
+    kw = dict(batch=3, prompt_len=8, decode_steps=5, max_len=16, log=False)
+    cpu = serve.run_serving(device="cpu", params=params, **kw)
+    from repro_torch.data.synthetic import lm_pool
+    prompt, _ = lm_pool(3, 8, 256, seed=0)
+    cache = model.init_cache(3, 16, "cpu")
+    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
+        prompt)}, cache)
+    _, fed = serve.serve_steps(model, params, cache, logits, 5)
+    on_card = _to(params, gpu)
+    for ops in (fa_ops, da_ops, unc_ops):
+        ops.reset_launches()
+    out = serve.run_serving(device="cuda", params=on_card, tokens=fed, **kw)
+    torch.cuda.synchronize()
+    layers = model.cfg.n_layers
+    assert fa_ops.LAUNCHES["flash_attention"] == layers
+    assert da_ops.LAUNCHES["decode_attention"] == layers * 5
+    assert unc_ops.LAUNCHES["uncertainty_stats"] == 5
+    assert out["final_len"] == cpu["final_len"] == 13
+    for key in ("mean_lc", "mean_es"):
+        assert abs(out[key] - cpu[key]) <= 1e-2, key
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, list):
+        return [_to(t, dev) for t in tree]
+    return {k: _to(v, dev) for k, v in tree.items()}

@@ -1,0 +1,161 @@
+"""Port parity: repro_torch's fused uncertainty scoring (the plain version
+the CPU takes, and ``scores_from_logits``) against repro's
+``uncertainty_stats_ref`` and ``uncertainty_stats_pallas(...,
+interpret=True)``, on the reference's own cases (tests/test_kernels.py)
+at its tolerances: 3e-5 fp32, 2e-2 bf16, 1e-4 for scale-80 logits.
+
+Inputs are numpy normals; bf16 inputs are rounded to bf16 by JAX and
+carried over exactly. A tied top-2 must give mc == 0 and rc == 1 exactly.
+
+The ``cuda`` tests hold the CUDA kernel against the plain version on the
+card; they need no JAX and skip where there is no GPU.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.strategies import uncertainty as punc
+from repro_torch.kernels.uncertainty import ops
+
+KINDS = ("lc", "mc", "rc", "es")
+SHAPES = [(16, 128), (5, 300), (64, 1024), (1, 37)]
+
+
+@pytest.fixture(scope="module")
+def ref():
+    pytest.importorskip("jax")
+    from repro.kernels.uncertainty import ref as rref
+    from repro.kernels.uncertainty.kernel import uncertainty_stats_pallas
+    return rref, uncertainty_stats_pallas
+
+
+def _logits(seed, shape, dtype, scale=3.0):
+    """(numpy input for JAX, torch tensor of the same values)."""
+    x = (np.random.default_rng(seed).normal(size=shape) * scale).astype(
+        np.float32)
+    if dtype == "bf16":
+        import jax.numpy as jnp
+        xj = jnp.asarray(x, jnp.bfloat16)
+        return xj, torch.from_numpy(np.asarray(xj, np.float32)).to(
+            torch.bfloat16)
+    return x, torch.from_numpy(x)
+
+
+def _ties(n=6, v=300, seed=3):
+    """Logits on the bf16 grid with the top two of every row tied, at
+    random columns (the leftmost of the pair first or second)."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.normal(size=(n, v)) * 8) / 8
+    for r in range(n):
+        a, b = rng.choice(v, 2, replace=False)
+        x[r, a] = x[r, b] = x[r].max() + 1.0
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_reference(ref, shape, dtype):
+    rref, pallas = ref
+    seed = shape[0] * 1000 + shape[1]
+    xj, xt = _logits(seed, shape, dtype)
+    got = ops.uncertainty_stats(xt)
+    want = rref.uncertainty_stats_ref(xj)
+    kern = np.asarray(pallas(xj, row_block=8, v_block=128, interpret=True))
+    tol = 3e-5 if dtype == "fp32" else 2e-2
+    for i, k in enumerate(KINDS):
+        assert got[k].dtype == torch.float32 and got[k].shape == (shape[0],)
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=tol, atol=tol, err_msg=k)
+        np.testing.assert_allclose(got[k].numpy(), kern[i], rtol=tol,
+                                   atol=tol, err_msg=k)
+
+
+def test_extreme_logits(ref):
+    """Scale-80 logits: the online statistics must not overflow."""
+    rref, pallas = ref
+    xj, xt = _logits(7, (8, 512), "fp32", scale=80.0)
+    got = ops.uncertainty_stats(xt)
+    want = rref.uncertainty_stats_ref(xj)
+    kern = np.asarray(pallas(xj, interpret=True))
+    for i, k in enumerate(KINDS):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+        np.testing.assert_allclose(got[k].numpy(), kern[i], rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+
+
+def test_tied_top2_is_exact(ref):
+    rref, pallas = ref
+    x = _ties()
+    got = ops.uncertainty_stats(x)
+    assert torch.all(got["mc"] == 0) and torch.all(got["rc"] == 1)
+    kern = np.asarray(pallas(x.numpy(), row_block=8, v_block=128,
+                             interpret=True))
+    assert (kern[1] == 0).all() and (kern[2] == 1).all()
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_scores_from_logits_matches_reference(kind):
+    pytest.importorskip("jax")
+    from repro.core.strategies import uncertainty as runc
+    xj, xt = _logits(11, (32, 256), "fp32", scale=2.0)
+    np.testing.assert_allclose(
+        punc.scores_from_logits(xt, kind).numpy(),
+        np.asarray(runc.scores_from_logits(xj, kind, impl="ref")),
+        rtol=3e-5, atol=3e-5)
+
+
+def test_dispatch():
+    x = _logits(2, (4, 50), "fp32")[1]
+    a = ops.uncertainty_stats(x)
+    b = ops.uncertainty_stats(x, impl="ref")
+    for k in KINDS:
+        assert torch.equal(a[k], b[k])
+        assert torch.equal(ops.uncertainty_scores(x, k), a[k])
+    with pytest.raises(ValueError, match="impl"):
+        ops.uncertainty_stats(x, impl="pallas")
+    with pytest.raises(ValueError, match="kind"):
+        ops.uncertainty_scores(x, "bald")
+    assert ops.LAUNCHES["uncertainty_stats"] == 0   # the CPU launches none
+
+
+# ------------------------------------------------------------- on the card --
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 152_064), (1, 37), (7, 300),
+                                   (64, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_kernel_matches_plain(gpu, shape, dtype):
+    x = _logits(shape[0] + shape[1], shape, "fp32")[1].to(gpu, dtype)
+    before = ops.LAUNCHES["uncertainty_stats"]
+    got = ops.uncertainty_stats(x)
+    want = ops.uncertainty_stats(x, impl="ref")
+    assert ops.LAUNCHES["uncertainty_stats"] == before + 1
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    for k in KINDS:
+        torch.testing.assert_close(got[k], want[k], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_kernel_extreme_ties_and_rows(gpu):
+    x = _logits(5, (8, 512), "fp32", scale=80.0)[1].to(gpu)
+    got, want = ops.uncertainty_stats(x), ops.uncertainty_stats(x, impl="ref")
+    for k in KINDS:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-4)
+    t = ops.uncertainty_stats(_ties().to(gpu))
+    assert torch.all(t["mc"] == 0) and torch.all(t["rc"] == 1)
+    # a row's scores do not depend on the rows launched with it
+    big = _logits(9, (64, 4096), "fp32")[1].to(gpu)
+    whole = ops.uncertainty_stats(big)
+    one = ops.uncertainty_stats(big[17:18])
+    for k in KINDS:
+        assert torch.equal(whole[k][17:18], one[k])
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        ops.uncertainty_stats(big.double())
