@@ -18,6 +18,11 @@ Phases, one line each (any failure raises and exits non-zero):
             d = 4,096 (qwen3-8b-wide text features); flash attention over
             32 masks/shapes and timed at the text path's shape, and at
             bf16 at the serve path's prefill shape (bf16 out);
+            gated_greedy_round at 50,000 x 512, n_block 256 (ragged last
+            block): live share all / ~10 % / none, pending zeros and
+            seeded, R 1 and 8, weights or not, planted ties across two
+            live blocks, dead rows bit for bit, all-live R 8 equal to
+            greedy_round bit for bit; timed at 100 % and ~10 % live;
             uncertainty_stats over 152,064-wide logits (N 1, 16, 4,096),
             ragged V, bf16, scale-80 logits and planted top-2 ties (mc
             exactly 0), timed at the decode shape (16 rows) and a
@@ -25,18 +30,43 @@ Phases, one line each (any failure raises and exits non-zero):
             reference's four cases and the qwen3-8b decode shape (B 16,
             cache 1,024, cur_len 577, bf16, window none and 128), timed
             there.
-3. server   the ALaaS Fig. 2 loop over TCP: an ALServer with resnet18 on
+3. picker   the block picker on the card: ``autotune_blocks(50,000, 512,
+            measure=True)`` for the plain round and the gated round, into a
+            temporary cache directory; each candidate ``n_block``'s time
+            and the winner; then a lookup after clearing the in-memory
+            cache must read the disk entry and launch nothing. Launch
+            counts zeroed before and read after: the gated measurement
+            must have launched gated_greedy_round.
+4. server   the ALaaS Fig. 2 loop over TCP: an ALServer with resnet18 on
             the GPU, a 50,000-image 32x32x3 pool pushed by ALClient, a
             10,000-image eval set, lc/mc/rc/es/kcg/dbal queries of 1,000,
             label + train_eval, a warm-started coreset query, and one
             PSHEA ("auto") run of budget 2,000. Every kernel's launch
             count is zeroed just before this phase and read just after
             it; each selection kernel must have launched, flash attention
-            not at all (ResNet has no attention).
-4. agree    k-center greedy (budget 1,000) over the server's own features
+            not at all (ResNet has no attention). A badge query too (the
+            sharded phase compares it).
+5. agree    k-center greedy (budget 1,000) over the server's own features
             through the kernel and through the plain version; prints the
             rounds before the first divergence.
-5. bitwise  the text encoder (qwen3-8b widths, 4 layers, flash kernel):
+6. sharded  the image pool (resnet18, 50,000 images, budget 1,000) on
+            servers with ``replicas: 3`` (thread lanes), pushed in-process
+            with ALClient(local=...): lc/kcg/dbal/badge and a warm coreset
+            (the labeled set of phase 4) select keys equal to phase 4's
+            ``replicas: 1`` server; with ``prefilter: true`` at slack 1e6
+            (every cluster live) lc/kcg/coreset equal ``prefilter:
+            false``'s; at the default slack 0.05 lc equal, kcg/coreset's
+            key agreement and their ``pool_rows`` against the full scan
+            printed; with ``strategy_state_cache: false`` the warm
+            coreset (min-dists from scratch) equals the persisted state's
+            keys. Then the reference benchmark's clumped pool (12,288 x
+            192 vectors, 97 % near-duplicates in 48 clumps, MLP backend)
+            at ``replicas: 3``: prefilter off, on at slack 0.05 and at
+            1e9; gated lc/es/coreset/kcg keys equal the full scan's, and
+            at 0.05 lc and coreset touch >= 10x fewer pool rows (the
+            gate prunes clusters here). Launch counts zeroed before each
+            server, read after.
+7. bitwise  the text encoder (qwen3-8b widths, 4 layers, flash kernel):
             features of 64 sequences bit-identical at block sizes 96, 128
             and 512 (on the card ``block`` reaches no kernel, so this holds
             by construction; the kernels phase's check that a row's bytes
@@ -44,15 +74,14 @@ Phases, one line each (any failure raises and exits non-zero):
             bit-identical when the sequences are batched with other
             batchmates (a permutation), and within the stated tolerance
             of the chunked path.
-6. text     text AL over TCP: an ALServer with that TransformerBackend, a
+8. text     text AL over TCP: an ALServer with that TransformerBackend, a
             2,048-sequence token pool (lengths 256-512, vocab 151,936)
             pushed 256 at a time, a 512-sequence eval set, lc/kcg/dbal/
             coreset queries of 256, label 256 + train_eval. Launch counts
             are zeroed just before and read just after; all three kernels
             must have launched, flash attention once per layer per encoder
             call (64 pool batches and the eval set's one call).
-
-7. serve    LLM serving with per-step uncertainty scores:
+9. serve    LLM serving with per-step uncertainty scores:
             ``run_serving("qwen3_8b", smoke=False)`` at full width and all
             36 layers in bf16 (random weights from seed 0), batch 16,
             512-token prompts, 64 greedy decode steps, cache 1,024. Launch
@@ -78,8 +107,10 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -236,6 +267,136 @@ def time_greedy(ops, dev, rng):
     nb = -(-POOL // 64)
     nbytes = 4 * (POOL * D + D + 1 + 2 * POOL + 2 * nb)
     return ms, plain, bound(nbytes, 3.0 * POOL * D)
+
+
+GATED_NB = 256                            # the reference's default gate block
+
+
+def _gated_case(ops, dev, rng, x, live_share, pending, r, weighted):
+    """One gated round at (x.shape, n_block GATED_NB) against its plain
+    version: min-dists within ATOL, dead rows bit for bit, the index
+    exactly equal where the plain version's top two scores are separated
+    by more than 10 * ATOL (else the kernel's pick must score within ATOL
+    of the max). Returns max |d|."""
+    n = x.shape[0]
+    nn = -(-n // GATED_NB)
+    live = (torch.ones(nn, dtype=torch.int32) if live_share == 1.0 else
+            torch.from_numpy((rng.uniform(size=nn) < live_share)
+                             .astype(np.int32)))
+    pend = (torch.zeros(nn, dtype=torch.int32) if not pending else
+            torch.from_numpy(rng.integers(0, r + 1, nn).astype(np.int32)))
+    live, pend = live.to(dev), pend.to(dev)
+    mind = torch.from_numpy((np.abs(rng.standard_normal(n)) * 3.0).astype(
+        np.float32)).to(dev)
+    mind[torch.from_numpy(rng.choice(n, 500, replace=False)).to(dev)] = -1.0
+    c = x[torch.from_numpy(rng.choice(n, r, replace=False)).to(dev)]
+    w = torch.rand(n, device=dev) if weighted else None
+    kn, ki, ks = ops.gated_greedy_round(x, mind, c, live, pend, w,
+                                        n_block=GATED_NB)
+    pn, pi, ps = ops.gated_greedy_round(x, mind, c, live, pend, w,
+                                        n_block=GATED_NB, impl="ref")
+    torch.cuda.synchronize()
+    err = float((kn - pn).abs().max())
+    assert err <= ATOL, ("gated", live_share, pending, r, weighted, err)
+    dead = torch.repeat_interleave(live == 0, GATED_NB)[:n]
+    assert torch.equal(kn[dead], mind[dead]), "dead rows not copied"
+    score = ops.masked_weighted_score(pn, w)
+    score = torch.where(torch.repeat_interleave(live > 0, GATED_NB)[:n],
+                        score, -3.4e38)
+    top2 = torch.topk(score, 2).values
+    if float(top2[0] - top2[1]) > 10 * ATOL:
+        assert int(ki) == int(pi), ("gated index", int(ki), int(pi))
+    else:
+        assert abs(float(score[int(ki)]) - float(top2[0])) <= ATOL
+    assert abs(float(ks) - float(ps)) <= ATOL * max(1.0, abs(float(ps)))
+    return err
+
+
+def check_gated(ops, dev, rng):
+    """gated_greedy_round at N = 50,000 (ragged last block of 80 rows), d =
+    512, n_block 256: live share all / ~10 % / none x pending zeros or
+    seeded in [0, R] x R in {1, 8} x weights or not; planted exact ties
+    across two live blocks (the lower index must win); all-live,
+    zero-pending R = 8 against greedy_round, bit for bit."""
+    x = torch.from_numpy((rng.standard_normal((POOL, D)) * 0.05).astype(
+        np.float32)).to(dev)
+    worst, cases = 0.0, 0
+    for live_share in (1.0, 0.1, 0.0):
+        for pending in (False, True):
+            for r in (1, 8):
+                for weighted in (False, True):
+                    worst = max(worst, _gated_case(
+                        ops, dev, rng, x, live_share, pending, r, weighted))
+                    cases += 1
+    # planted ties: two identical far rows in blocks 4 and 100, both live
+    nn = -(-POOL // GATED_NB)
+    tie = (4 * GATED_NB + 17, 100 * GATED_NB + 17)
+    xt = x.clone()
+    xt[tie[1]] = xt[tie[0]] = xt[tie[0]] * 3.0
+    live = torch.from_numpy((rng.uniform(size=nn) < 0.1).astype(
+        np.int32)).to(dev)
+    live[4] = live[100] = 1
+    pend = torch.zeros(nn, dtype=torch.int32, device=dev)
+    mind = torch.full((POOL,), 3.4e38, device=dev)
+    for r in (1, 8):
+        c = xt[:r]
+        for weighted in (False, True):
+            w = None
+            if weighted:
+                w = torch.rand(POOL, device=dev)
+                w[tie[0]] = w[tie[1]] = 1.0
+            _, ki, _ = ops.gated_greedy_round(xt, mind, c, live, pend, w,
+                                              n_block=GATED_NB)
+            _, pi, _ = ops.gated_greedy_round(xt, mind, c, live, pend, w,
+                                              n_block=GATED_NB, impl="ref")
+            assert int(ki) == int(pi) == tie[0], (r, weighted, int(ki),
+                                                  int(pi))
+            cases += 1
+    # all live, nothing pending, R = 8: the plain fused round's floats
+    ones = torch.ones(nn, dtype=torch.int32, device=dev)
+    c8 = x[1000:1008]
+    for w in (None, torch.rand(POOL, device=dev)):
+        gn, gi, gs = ops.gated_greedy_round(x, mind, c8, ones, pend, w,
+                                            n_block=GATED_NB)
+        bn, bi, bs = ops.greedy_round(
+            x, mind, c8, torch.full((8,), -1, dtype=torch.int32, device=dev),
+            w)
+        torch.cuda.synchronize()
+        assert torch.equal(gn, bn) and int(gi) == int(bi) and \
+            float(gs) == float(bs), "all-live gated != greedy_round"
+        cases += 1
+    return worst, cases
+
+
+def time_gated(ops, dev, rng):
+    """R = 1, zero pending, unweighted, n_block 256, at 100 % and ~10 %
+    live. Bound by bytes, each stream the timed call moves once: the live
+    rows of x, mind in and out (N each), the R centers, block_live and
+    block_pending in and the (max, index) partials out (nn each), all 4
+    bytes: 4 * (live rows * d + 2 * N + R * d + 4 * nn). No weights."""
+    x = torch.from_numpy((rng.standard_normal((POOL, D)) * 0.05).astype(
+        np.float32)).to(dev)
+    mind = torch.full((POOL,), 3.4e38, device=dev)
+    nn = -(-POOL // GATED_NB)
+    pend = torch.zeros(nn, dtype=torch.int32, device=dev)
+    c = x[7:8]
+    out = {}
+    for share in (1.0, 0.1):
+        live = (torch.ones(nn, dtype=torch.int32) if share == 1.0 else
+                torch.from_numpy((rng.uniform(size=nn) < share).astype(
+                    np.int32))).to(dev)
+        lv = live.cpu().numpy().nonzero()[0]
+        rows = int(sum(min(GATED_NB, POOL - b * GATED_NB) for b in lv))
+        ms = median_ms(lambda: ops.gated_greedy_round(
+            x, mind, c, live, pend, n_block=GATED_NB))
+        plain = median_ms(lambda: ops.gated_greedy_round(
+            x, mind, c, live, pend, n_block=GATED_NB, impl="ref"))
+        bnd, by = bound(4.0 * (rows * D + 2 * POOL + D + 4 * nn),
+                        3.0 * rows * D)
+        out[share] = {"live_blocks": len(lv), "blocks": nn, "live_rows": rows,
+                      "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                      "bound_by": by}
+    return out
 
 
 def check_argmin(ops, dev, rng):
@@ -588,8 +749,9 @@ al_worker:
 
 def run_server(counters):
     """The image path over TCP. ``counters`` maps each kernel module's
-    reset to its LAUNCHES; returns this path's launch counts and the
-    pool's features."""
+    reset to its LAUNCHES; returns this path's launch counts, the pool's
+    features, the server's backend and its selections (the sharded phase
+    holds its servers against them)."""
     from repro_torch.data.synthetic import image_pool
     from repro_torch.service.client import ALClient, serve_tcp
     from repro_torch.service.config import ALServiceConfig
@@ -616,7 +778,7 @@ def run_server(counters):
         srv.attach_oracle(lambda ks: [key2y[k] for k in ks], ex, ey)
         wall["attach_oracle_eval"] = time.perf_counter() - t
         picks = {}
-        for strategy in ("lc", "mc", "rc", "es", "kcg", "dbal"):
+        for strategy in ("lc", "mc", "rc", "es", "kcg", "dbal", "badge"):
             t = time.perf_counter()
             res = cli.query(budget=BUDGET, strategy=strategy, rng_seed=1)
             wall[f"query_{strategy}"] = time.perf_counter() - t
@@ -633,6 +795,7 @@ def run_server(counters):
         wall["query_coreset_warm"] = time.perf_counter() - t
         assert len(set(res["keys"])) == BUDGET
         assert not set(res["keys"]) & set(picks["lc"])
+        picks["coreset"] = res["keys"]
         t = time.perf_counter()
         auto = cli.query(budget=AUTO_BUDGET, strategy="auto")
         wall["query_auto"] = time.perf_counter() - t
@@ -651,13 +814,15 @@ def run_server(counters):
         assert launches[name] > 0, f"{name} never launched on the main path"
     for name in ("flash_attention", "decode_attention", "uncertainty_stats"):
         assert launches[name] == 0, launches     # no LM on this path
-    feats = srv.session()._artifact_snapshot()[0]
+    feats = srv.session()._artifact_snapshot()[0][0]
     assert feats.shape == (POOL, D) and np.isfinite(feats).all()
     log("server", wall_s=wall, launches=launches,
         embed_rows=srv.embed_rows, accuracy=acc,
+        strategy_state=stats["strategy_state"],
         auto={k: auto[k] for k in ("strategy", "accuracy", "stop_reason",
                                    "rounds", "eliminated", "budget_spent")})
-    return launches, feats
+    return {"launches": launches, "feats": feats, "backend": srv.backend,
+            "picks": picks, "key2y": key2y}
 
 
 def agreement(feats, dev):
@@ -679,6 +844,276 @@ def agreement(feats, dev):
     log("agree", rounds_before_divergence=first, budget=BUDGET,
         same_set=bool(set(a.tolist()) == set(b.tolist())),
         kernel_s=t_kernel, plain_s=t_plain)
+
+
+# ---------------------------------------------------------------- picker --
+def run_picker(dev, counters, tune_dir):
+    """``autotune_blocks(POOL, D, measure=True)`` for both round variants
+    into a fresh cache directory (the kernels phase's calls already tuned
+    some shapes into the run's first one; the later phases use this one);
+    each candidate's time and the winner; then the disk entry must serve a
+    lookup after the in-memory cache is cleared, launching nothing.
+    Returns the launch counts and the winners."""
+    from repro_torch.kernels.pairwise import autotune, ops
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE_DIR"] = os.path.join(tune_dir,
+                                                                "picker")
+    autotune.clear_cache()
+    for reset in counters:
+        reset()                                  # the picker path starts here
+    picks = {}
+    for variant in autotune.VARIANTS:
+        t = time.perf_counter()
+        ch = autotune.autotune_blocks(POOL, D, measure=True, variant=variant,
+                                      device=dev)
+        picks[variant] = {"n_block": ch.n_block, "r_block": ch.r_block,
+                          "source": ch.source, "ms": ch.wall_s * 1e3,
+                          "ms_by_n_block": {nb: s * 1e3 for nb, s in ch.timed},
+                          "tune_wall_s": time.perf_counter() - t}
+        assert ch.source == "measured" and len(ch.timed) == len(
+            autotune.N_BLOCK_CANDIDATES), ch
+        assert ch.r_block == autotune.model_blocks(POOL, D).r_block
+    torch.cuda.synchronize()
+    launches = {}
+    for counts in counters.values():             # ... and ends here
+        launches.update(counts)
+    assert launches["gated_greedy_round"] > 0, launches
+    assert launches["greedy_round"] > 0, launches
+    before = dict(ops.LAUNCHES)
+    autotune.clear_cache()                       # as a fresh process
+    for variant in autotune.VARIANTS:
+        again = autotune.autotune_blocks(POOL, D, measure=True,
+                                         variant=variant, device=dev)
+        assert again.source == "measured" and \
+            again.n_block == picks[variant]["n_block"], (variant, again)
+        assert os.path.exists(os.path.join(
+            autotune.cache_dir(), f"n{POOL}_d{D}_float32_{variant}.json"))
+    assert ops.LAUNCHES == before, "a disk hit must not measure again"
+    log("picker", shape=[POOL, D], cache_dir=autotune.cache_dir(),
+        winners=picks, launches=launches, disk_reread=True)
+    return launches, picks
+
+
+# --------------------------------------------------------------- sharded --
+SHARDED_STRATEGIES = ("lc", "kcg", "dbal", "badge")
+# k-center depth on the prefilter servers. On this pool's unclumped
+# features the gate prunes no cluster, so each slot folds every segment
+# of every shard, one launch each (~0.9 ms a fold from Python on the
+# H100): budget 1,000 took ~170 s a query. Greedy picks are a prefix
+# property (slot j depends only on slots < j), so the first PF_BUDGET
+# keys are held against the full-depth server's first PF_BUDGET.
+PF_BUDGET = 200
+
+
+def run_sharded(base, counters):
+    """Servers at ``replicas: 3`` over the image pool, pushed in-process:
+    (a) prefilter off, (b) prefilter off with ``strategy_state_cache:
+    false`` (warm coreset only: from-scratch min-dists against the
+    persisted state), (c) prefilter on at slack 1e6, (d) prefilter on at
+    the default slack. Each repeats the image phase's selections (rng 1
+    before labels; label its lc picks, train_eval, warm coreset at rng 2)
+    and is held against the ``replicas: 1`` server's keys ``base``; the
+    prefilter servers' k-center queries run to PF_BUDGET and are held
+    against the first PF_BUDGET keys. As in the reference's prefilter
+    benchmark, a budget-1 lc query (and a budget-1 coreset query after
+    labeling) builds the artifact columns, the centroid summaries and the
+    persisted k-center state outside the ``pool_rows`` windows."""
+    from repro_torch.data.synthetic import image_pool
+    from repro_torch.kernels.pairwise import ops
+    from repro_torch.service.client import ALClient
+    from repro_torch.service.config import ALServiceConfig
+    from repro_torch.service.server import ALServer
+    picks, key2y = base["picks"], base["key2y"]
+    xs, _ = image_pool(POOL, hw=HW, seed=3)
+    full = {s: BUDGET for s in SHARDED_STRATEGIES + ("coreset",)}
+    gated = {"lc": BUDGET, "kcg": PF_BUDGET, "coreset": PF_BUDGET}
+    runs = (("replicas3", {}, full),
+            # the from-scratch oracle of the persisted k-center state: its
+            # warm coreset must equal the state-backed servers' keys
+            ("replicas3_no_state", dict(strategy_state_cache=False),
+             {"coreset": BUDGET}),
+            ("prefilter_loose", dict(prefilter=True, prefilter_slack=1e6),
+             gated),
+            ("prefilter_default", dict(prefilter=True), gated))
+    out, all_launches = {}, {}
+    for name, extra, budgets in runs:
+        cfg = dataclasses.replace(ALServiceConfig.from_yaml(YML), replicas=3,
+                                  **extra)
+        srv = ALServer(cfg, backend=base["backend"])
+        cli = ALClient(local=srv)
+        wall, rows, keys_of = {}, {}, {}
+        try:
+            for reset in counters:
+                reset()                          # this server's path starts
+            t = time.perf_counter()
+            keys = []
+            for s in range(0, POOL, 2_500):
+                keys += cli.push_data(list(xs[s:s + 2_500]))
+            wall["push_pool"] = time.perf_counter() - t
+            assert keys == list(key2y)
+
+            def query(strategy, seed, budget, tag=None):
+                tag = tag or strategy
+                t = time.perf_counter()
+                with ops.track_ops() as st:
+                    res = cli.query(budget=budget, strategy=strategy,
+                                    rng_seed=seed)
+                wall[f"query_{tag}"] = time.perf_counter() - t
+                rows[tag] = st["pool_rows"]
+                keys_of[tag] = res["keys"]
+
+            t = time.perf_counter()
+            cli.query(budget=1, strategy="lc")   # columns and summaries
+            wall["warm_lc_budget1"] = time.perf_counter() - t
+            for strategy in SHARDED_STRATEGIES:
+                if strategy in budgets:
+                    query(strategy, 1, budgets[strategy])
+            if name == "replicas3":              # the gated runs' baseline
+                query("kcg", 1, PF_BUDGET, f"kcg_{PF_BUDGET}")
+            t = time.perf_counter()
+            cli.label(picks["lc"], [key2y[k] for k in picks["lc"]])
+            cli.train_eval()
+            cli.query(budget=1, strategy="coreset")   # persisted state
+            wall["label_train_eval_warm_coreset"] = time.perf_counter() - t
+            query("coreset", 2, budgets["coreset"])
+            if name == "replicas3":
+                query("coreset", 2, PF_BUDGET, f"coreset_{PF_BUDGET}")
+            torch.cuda.synchronize()
+            launches = {}
+            for counts in counters.values():     # ... and ends here
+                launches.update(counts)
+            stats = srv.stats()
+        finally:
+            cli.close()
+            srv.close()
+        assert stats["replicas"] == 3 and stats["workers"]["lanes"] == 3
+        assert launches["greedy_round"] > 0, (name, launches)
+        assert stats["strategy_state"]["enabled"] == (
+            name != "replicas3_no_state"), (name, stats["strategy_state"])
+        # every selection against replicas 1's keys at the same depth
+        want = {s: picks[s.split("_")[0]][:len(keys_of[s])] for s in keys_of}
+        equal = {s: keys_of[s] == want[s] for s in keys_of}
+        agree = {s: len(set(keys_of[s]) & set(want[s])) / len(want[s])
+                 for s in keys_of}
+        out[name] = {"keys": keys_of, "rows": rows}
+        all_launches[name] = launches
+        base_rows = out["replicas3"]["rows"]
+        ratio = ({s: base_rows[s if budgets[s] == BUDGET
+                               else f"{s}_{PF_BUDGET}"] / max(rows[s], 1)
+                  for s in rows} if name != "replicas3" else None)
+        log("sharded", server=name, replicas=3, wall_s=wall,
+            keys_equal=equal, key_agreement_with_replicas1=agree,
+            pool_rows=rows, pool_rows_ratio_full_over_this=ratio,
+            launches=launches, workers={k: stats["workers"][k] for k in
+                                        ("tasks", "restarts",
+                                         "straggler_events")},
+            summary_builds=stats["artifacts"]["summary_builds"],
+            strategy_state=stats["strategy_state"])
+        if name == "prefilter_default":
+            assert equal["lc"], "gated top-k must equal the full scan"
+        else:
+            assert all(equal.values()), (name, equal)
+    all_launches.update(run_clumped(counters))
+    total = {}
+    for launches in all_launches.values():
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+# The reference's prefilter benchmark (benchmarks/table2_pipeline.py,
+# ``_prefilter_gated``): a redundancy-heavy 12,288 x 192 vector pool, an
+# MLP backend (feat_dim 32), replicas 3, 128 clusters a shard, 4 labeled
+# members per clump, budgets lc/es 16 and coreset/kcg 48; it asserts
+# gated == full-scan keys and >= 10x fewer pool rows for lc and coreset.
+CLUMP_N, CLUMP_K, CLUMP_D = 12_288, 48, 192
+CLUMP_QUERIES = (("lc", 16), ("es", 16), ("coreset", 48), ("kcg", 48))
+
+
+def dupe_pool(n, clumps, d, seed=11):
+    """97 % of rows near-duplicates inside ``clumps`` tight clusters, 3 %
+    spread wide, shuffled (the reference benchmark's recipe)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(clumps, d)) * 6.0
+    n_dupe = int(n * 0.97)
+    assign = rng.integers(0, clumps, size=n_dupe)
+    dup = centers[assign] + 0.03 * rng.normal(size=(n_dupe, d))
+    spread = 8.0 * rng.normal(size=(n - n_dupe, d))
+    x = np.concatenate([dup, spread]).astype(np.float32)
+    clump_of = np.concatenate([assign, np.full(n - n_dupe, -1)])
+    perm = rng.permutation(n)
+    return x[perm], clump_of[perm]
+
+
+def run_clumped(counters, device="cuda"):
+    """The prefilter where it prunes: the reference benchmark's clumped
+    pool on three ``replicas: 3`` servers (prefilter off, on at the
+    default slack, on at slack 1e9). Gated keys must equal the full
+    scan's at both slacks, and at the default slack lc and the warm
+    coreset must touch >= 10x fewer pool rows, as the reference asserts.
+    Launch counts zeroed before each server, read after; returns them."""
+    from repro_torch.kernels.pairwise import ops
+    from repro_torch.service.backends import MLPBackend
+    from repro_torch.service.config import ALServiceConfig
+    from repro_torch.service.server import ALServer
+    x, clump_of = dupe_pool(CLUMP_N, CLUMP_K, CLUMP_D)
+    lab = [int(m) for c in range(CLUMP_K)
+           for m in np.nonzero(clump_of == c)[0][:4]]
+    runs = (("clumped_full", {}),
+            ("clumped_default", dict(prefilter=True)),
+            ("clumped_loose", dict(prefilter=True, prefilter_slack=1e9)))
+    picks, rows, out = {}, {}, {}
+    for name, extra in runs:
+        if extra:
+            extra.update(prefilter_clusters=128, prefilter_min_rows=64)
+        srv = ALServer(ALServiceConfig(device=device, batch_size=64,
+                                       replicas=3, **extra),
+                       backend=MLPBackend(in_dim=CLUMP_D, feat_dim=32,
+                                          device=device))
+        wall = {}
+        try:
+            for reset in counters:
+                reset()                          # this server's path starts
+            t = time.perf_counter()
+            keys = srv.push_data(list(x))
+            wall["push_pool"] = time.perf_counter() - t
+            srv.label([keys[i] for i in lab],
+                      [i % 4 for i in range(len(lab))])
+            srv.train_and_eval()
+            t = time.perf_counter()
+            srv.query(budget=1, strategy="lc")   # columns, summaries
+            srv.query(budget=1, strategy="coreset")   # persisted state
+            wall["warm_lc_coreset_budget1"] = time.perf_counter() - t
+            for strategy, budget in CLUMP_QUERIES:
+                t = time.perf_counter()
+                with ops.track_ops() as st:
+                    picks[name, strategy] = srv.query(
+                        budget=budget, strategy=strategy,
+                        rng_seed=7)["keys"]
+                wall[f"query_{strategy}"] = time.perf_counter() - t
+                rows[name, strategy] = st["pool_rows"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = {}
+            for counts in counters.values():     # ... and ends here
+                launches.update(counts)
+            builds = srv.stats()["artifacts"]["summary_builds"]
+        finally:
+            srv.close()
+        equal = {s: picks[name, s] == picks["clumped_full", s]
+                 for s, _ in CLUMP_QUERIES}
+        ratio = {s: rows["clumped_full", s] / max(rows[name, s], 1)
+                 for s, _ in CLUMP_QUERIES}
+        log("sharded", server=name, replicas=3,
+            pool=[CLUMP_N, CLUMP_D], clumps=CLUMP_K, labeled=len(lab),
+            wall_s=wall, keys_equal=equal,
+            pool_rows={s: rows[name, s] for s, _ in CLUMP_QUERIES},
+            pool_rows_ratio_full_over_this=ratio, launches=launches,
+            summary_builds=builds)
+        assert all(equal.values()), (name, equal)
+        if name == "clumped_default":
+            assert ratio["lc"] >= 10 and ratio["coreset"] >= 10, ratio
+        out[name] = launches
+    return out
 
 
 # ------------------------------------------------------------------ text --
@@ -816,7 +1251,7 @@ def run_text(cfg, be, counters):
     # eval set in one call
     calls = TEXT_POOL // TEXT_BATCH + 1
     assert launches["flash_attention"] == TEXT_LAYERS * calls, launches
-    feats = srv.session()._artifact_snapshot()[0]
+    feats = srv.session()._artifact_snapshot()[0][0]
     assert feats.shape == (TEXT_POOL, be.feat_dim) and \
         np.isfinite(feats).all()
     log("text", wall_s=wall, launches=launches, embed_rows=srv.embed_rows,
@@ -1010,6 +1445,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # the block picker's winners go to a directory of this run's own
+    tune_dir = tempfile.mkdtemp(prefix="repro-torch-autotune-")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE_DIR"] = tune_dir
+    try:
+        return run(tune_dir)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def run(tune_dir) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1040,6 +1485,8 @@ def main() -> int:
     u_times = time_uncertainty(unc, dev)
     d_err, d_cases = check_decode(da, dev)
     d_time = time_decode(da, dev)
+    gt_err, gt_cases = check_gated(ops, dev, rng)
+    gt_time = time_gated(ops, dev, rng)
     log("kernels", tolerance_abs=ATOL,
         greedy_round={"cases": g_cases, "max_abs_err": g_err,
                       "r_block": r_block, "timed_shape": [POOL, D, 1],
@@ -1066,15 +1513,24 @@ def main() -> int:
                                           "bf16": d_err[torch.bfloat16]},
                           "tolerance": {"fp32": ATT_TOL[torch.float32],
                                         "bf16": DECODE_BF16_TOL},
-                          **d_time})
+                          **d_time},
+        gated_greedy_round={"cases": gt_cases, "max_abs_err": gt_err,
+                            "timed_shape": [POOL, D, 1], "n_block": GATED_NB,
+                            "live_100": gt_time[1.0],
+                            "live_10": gt_time[0.1]})
 
     counters = {ops.reset_launches: ops.LAUNCHES,
                 fa.reset_launches: fa.LAUNCHES,
                 unc.reset_launches: unc.LAUNCHES,
                 da.reset_launches: da.LAUNCHES}
-    launches, feats = run_server(counters)
-    agreement(feats, dev)
-    del feats
+    picker_launches, _ = run_picker(dev, counters, tune_dir)
+    base = run_server(counters)
+    launches = base["launches"]
+    agreement(base.pop("feats"), dev)
+    sharded_launches = run_sharded(base, counters)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = ALServiceConfig.from_yaml(TEXT_YML)
     be = text_backend(cfg)
@@ -1088,7 +1544,9 @@ def main() -> int:
     serve_checks(dev)
 
     def counts(name):
-        by_path = {"image": launches[name], "text": text_launches[name],
+        by_path = {"picker": picker_launches[name], "image": launches[name],
+                   "sharded": sharded_launches.get(name, 0),
+                   "text": text_launches[name],
                    "serve": serve_launches[name]}
         return sum(by_path.values()), by_path
 
@@ -1098,6 +1556,10 @@ def main() -> int:
          "src/repro/kernels/pairwise/kernel.py:159",
          max(g_err, wide["greedy_round"]["max_abs_err"]), g_ms, g_plain,
          g_bound, g_by, None),
+        ("gated_greedy_round", "pairwise/csrc/gated_greedy_round.cu",
+         "src/repro/kernels/pairwise/kernel.py:263", gt_err,
+         *(gt_time[1.0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")), None),
         ("pairwise_min_argmin", "pairwise/csrc/pairwise_min_argmin.cu",
          "src/repro/kernels/pairwise/kernel.py:87",
          max(a_err, wide["pairwise_min_argmin"]["max_abs_err"]), a_ms,

@@ -9,14 +9,18 @@ pairwise min/argmin kernel (``ops.pairwise_argmin``).
 
 The reference's ``fori_loop``s are Python loops here that keep the
 running state (``nxt``, the selection) on the device: no round reads a
-value back to the host.
+value back to the host. The replica-sharded paths (``sharded_k_center``
+and the ``_*_sharded`` functions) run the same rounds per shard and merge
+proposals on the host (``core.selection``).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.common import rng as rnglib
-from repro_torch.core.strategies.base import Strategy, unit_weights
+from repro_torch.core.strategies.base import (Strategy, shard_tensor,
+                                              unit_weights)
 from repro_torch.core.strategies.uncertainty import lc_scores
 
 
@@ -152,7 +156,116 @@ def _random_select(rng, budget, *, probs=None):
     return rnglib.permutation(rng, n)[:budget].to(probs.device)
 
 
-k_center = Strategy("kcg", ("embeddings",), _kcg_select)
-core_set = Strategy("coreset", ("embeddings",), _coreset_select)
-dbal = Strategy("dbal", ("probs", "embeddings"), _dbal_select)
-random_sampling = Strategy("random", ("probs",), _random_select)
+# ------------------------------------------------- replica-sharded paths --
+def sharded_k_center(rng, budget: int, shards, *, init_centers=None,
+                     weights_list=None, executor=None, impl: str = "auto",
+                     prefilter=None, state=None):
+    """Replica-sharded ``k_center_greedy``: per-shard fused rounds +
+    cross-shard (value, global index) merges — selections bit-identical to
+    the single-pool path for every shard count (see core.selection).
+
+    ``prefilter`` routes the UNWEIGHTED geometry (kcg/coreset) through the
+    centroid-gated engine (core.prefilter) when any shard carries a
+    summary; weighted rounds rank by ``min_dist * weight``, which the
+    distance-only triangle bound cannot cap, so they take the full path.
+
+    ``state`` (a ``core.selection.KCenterState``) replaces the warm-start
+    fold on the warm path: the persisted pool-level min-dists are gathered
+    down to the view rows instead of streaming every row against every
+    labeled center. Ignored on the seeded path."""
+    from repro_torch.core import selection
+    from repro_torch.kernels.pairwise import ops
+    warm = init_centers is not None and init_centers.shape[0] > 0
+    if prefilter is not None and weights_list is None \
+            and any(s.summary is not None for s in shards):
+        from repro_torch.core import prefilter as pf
+        return pf.gated_greedy_select(
+            rng, budget, shards, init_centers=init_centers,
+            slack=prefilter.slack, executor=executor, impl=impl,
+            state=state if warm else None)
+    N = selection.replica_total(shards)
+    emb_list = [shard_tensor(s, s.feats) for s in shards]
+    sel = np.zeros((budget,), np.int64)
+    if weights_list is None:
+        def weight_for_slot(slot, i):
+            return None
+    else:
+        def weight_for_slot(slot, i):
+            return weights_list[i]
+    capture = None
+    if warm:
+        if state is not None:
+            mind = state.view_minds(shards)
+            capture = state.capture
+        else:
+            mind = [ops.warm_start_min_dist(
+                emb_list[i], init_centers.float().to(emb_list[i].device),
+                impl=impl) if s.n else None
+                for i, s in enumerate(shards)]
+        start = 0
+    else:
+        # the random seed IS the first returned center, as in the single
+        # path (same draw over the same N)
+        first = rnglib.randint(rng, 0, N)
+        mind = selection.replica_seed_min_dist(shards, emb_list, first)
+        sel[0] = first
+        start = 1
+    return selection.replica_greedy_select(
+        shards, emb_list, budget, mind_list=mind, sel=sel, start=start,
+        weight_for_slot=weight_for_slot, executor=executor, impl=impl,
+        capture=capture)
+
+
+def _kcg_sharded(rng, budget, shards, *, labeled_embeddings=None,
+                 executor=None, prefilter=None, state=None):
+    # kcg never warm-starts, so the persisted state has nothing to save
+    return sharded_k_center(rng, budget, shards, executor=executor,
+                            prefilter=prefilter)
+
+
+def _coreset_sharded(rng, budget, shards, *, labeled_embeddings=None,
+                     executor=None, prefilter=None, state=None):
+    return sharded_k_center(rng, budget, shards,
+                            init_centers=labeled_embeddings,
+                            executor=executor, prefilter=prefilter,
+                            state=state)
+
+
+def _dbal_sharded(rng, budget, shards, *, labeled_embeddings=None,
+                  executor=None, beta: int = 10, prefilter=None, state=None):
+    """Sharded DBAL: shards propose their local LC top-(beta*budget), the
+    merged prefilter subset is gathered to the coordinator, and the k-means
+    + weighted matching tail is the exact single-pool code over it."""
+    from repro_torch.core import selection
+    from repro_torch.core.strategies.base import unit_weights_parts
+    scores = selection.replica_map(
+        lambda s: lc_scores(shard_tensor(s, s.probs)), shards, executor)
+    N = selection.replica_total(shards)
+    m = min(beta * budget, N)
+    top_idx, top_scores = selection.replica_top_k(shards, scores, m,
+                                                  executor)
+    dev = shards[0].device
+    x = torch.as_tensor(selection.gather_rows(shards, top_idx),
+                        dtype=torch.float32, device=dev)
+    mw = torch.as_tensor(selection.gather_rows(
+        shards, top_idx, arrays=unit_weights_parts(scores)),
+        dtype=torch.float32, device=dev)
+    sel = _dbal_match(rng, budget, x, torch.as_tensor(top_scores,
+                                                      device=dev),
+                      torch.as_tensor(top_idx, device=dev), match_weights=mw)
+    return sel.cpu().numpy()
+
+
+def _random_sharded(rng, budget, shards, *, labeled_embeddings=None,
+                    executor=None, prefilter=None, state=None):
+    from repro_torch.core import selection
+    n = selection.replica_total(shards)
+    return rnglib.permutation(rng, n)[:budget].numpy()
+
+
+k_center = Strategy("kcg", ("embeddings",), _kcg_select, _kcg_sharded)
+core_set = Strategy("coreset", ("embeddings",), _coreset_select,
+                    _coreset_sharded)
+dbal = Strategy("dbal", ("probs", "embeddings"), _dbal_select, _dbal_sharded)
+random_sampling = Strategy("random", ("probs",), _random_select,
+                           _random_sharded)

@@ -12,11 +12,17 @@ Core-Set warm start when labeled embeddings are attached).
 """
 from __future__ import annotations
 
+import threading
+
+import numpy as np
 import torch
 
 from repro_torch.common import rng as rnglib
-from repro_torch.core.strategies.base import Strategy, unit_weights
-from repro_torch.core.strategies.diversity import _row, k_center_greedy
+from repro_torch.core.strategies.base import (Strategy, shard_tensor,
+                                              unit_weights,
+                                              unit_weights_parts)
+from repro_torch.core.strategies.diversity import (_row, k_center_greedy,
+                                                   sharded_k_center)
 from repro_torch.core.strategies.uncertainty import lc_scores, mc_scores
 
 
@@ -81,8 +87,110 @@ def _weighted_kcenter_select(rng, budget, *, probs, embeddings,
                            init_centers=labeled_embeddings, weights=w)
 
 
-badge = Strategy("badge", ("probs", "embeddings"), _badge_select)
+# ------------------------------------------------- replica-sharded paths --
+def sharded_kmeans_pp(rng, x_list, shards, k: int, executor=None,
+                      impl: str = "auto"):
+    """Replica-sharded ``kmeans_pp_sample``: the per-slot Gumbel weights are
+    drawn over the FULL (N,) pool from the same key schedule as the single
+    path and sliced per shard by global position, so each D² draw is the
+    identical categorical sample."""
+    from repro_torch.core import selection
+    N = selection.replica_total(shards)
+    keys = rnglib.split(rng, k + 1)
+    first = rnglib.randint(keys[0], 0, N)
+    mind = selection.replica_seed_min_dist(shards, x_list, first)
+    sel = np.zeros((k,), np.int64)
+    sel[0] = first
+    dev = shards[0].device
+    gumbel = {}                        # slot -> full (N,) weight draw
+    gumbel_lock = threading.Lock()     # shards race on a slot's first use
+
+    def weight_for_slot(slot, i):
+        with gumbel_lock:
+            if slot not in gumbel:
+                # slots advance monotonically: older draws are dead
+                for old in [s for s in gumbel if s < slot]:
+                    del gumbel[old]
+                gumbel[slot] = torch.exp(rnglib.gumbel(keys[slot], N, dev))
+            w = gumbel[slot]
+        rows = torch.as_tensor(shards[i].gidx, device=w.device)
+        return w[rows].to(x_list[i].device)
+
+    return selection.replica_greedy_select(
+        shards, x_list, k, mind_list=mind, sel=sel, start=1,
+        weight_for_slot=weight_for_slot, executor=executor, impl=impl)
+
+
+def _badge_sharded(rng, budget, shards, *, labeled_embeddings=None,
+                   executor=None, prefilter=None, state=None):
+    # prefilter accepted and ignored: D² sampling draws fresh Gumbel
+    # weights per slot, which no distance-only centroid bound can cap.
+    # state likewise: BADGE's geometry is the uncertainty-scaled gradient
+    # embedding, not the raw feats the persisted min-dists were folded over
+    from repro_torch.core import selection
+    g_list = selection.replica_map(
+        lambda s: (lc_scores(shard_tensor(s, s.probs))[:, None]
+                   * shard_tensor(s, s.feats)),
+        shards, executor)
+    return sharded_kmeans_pp(rng, g_list, shards, budget, executor=executor)
+
+
+def density_scores_sharded(rng, shards, executor=None, n_ref: int = 256):
+    """Sharded ``density_scores``: one global reference draw + gather, then
+    per-shard mean-sq-dist rows and a global min/max normalize."""
+    from repro_torch.core import selection
+    from repro_torch.core.strategies.base import global_min_max
+    from repro_torch.kernels.pairwise import ops
+    N = selection.replica_total(shards)
+    n_ref = min(n_ref, N)
+    ridx = rnglib.choice(rng, N, n_ref).numpy()
+    ref_rows = selection.gather_rows(shards, ridx)
+    d_list = selection.replica_map(
+        lambda s: ops.pairwise_sq_dists(
+            shard_tensor(s, s.feats), shard_tensor(s, ref_rows)).mean(-1)
+        if s.n else torch.zeros((0,), dtype=torch.float32, device=s.device),
+        shards, executor)
+    lo, hi = global_min_max(d_list)
+    return [1.0 - (d - lo.to(d.device))
+            / torch.clamp_min(hi - lo, 1e-9).to(d.device) for d in d_list]
+
+
+def _margin_density_sharded(rng, budget, shards, *, labeled_embeddings=None,
+                            executor=None, prefilter=None, state=None):
+    # prefilter accepted and ignored: weighted rounds (see
+    # sharded_k_center); state too: margin_density never warm-starts
+    from repro_torch.core import selection
+    k_ref, k_sel = rnglib.split(rng, 2)
+    mc_list = selection.replica_map(
+        lambda s: mc_scores(shard_tensor(s, s.probs)), shards, executor)
+    m_list = unit_weights_parts(mc_list)
+    dens_list = density_scores_sharded(k_ref, shards, executor)
+    w_list = unit_weights_parts([m * d for m, d in zip(m_list, dens_list)])
+    return sharded_k_center(k_sel, budget, shards, weights_list=w_list,
+                            executor=executor)
+
+
+def _weighted_kcenter_sharded(rng, budget, shards, *,
+                              labeled_embeddings=None, executor=None,
+                              prefilter=None, state=None):
+    # prefilter accepted and ignored: weighted rounds. state IS forwarded:
+    # the warm-start min-dist fold is unweighted (weights only rank the
+    # per-slot argmax), so the persisted vectors are the exact floats this
+    # strategy's warm fold would recompute
+    from repro_torch.core import selection
+    lc_list = selection.replica_map(
+        lambda s: lc_scores(shard_tensor(s, s.probs)), shards, executor)
+    w_list = unit_weights_parts(lc_list)
+    return sharded_k_center(rng, budget, shards,
+                            init_centers=labeled_embeddings,
+                            weights_list=w_list, executor=executor,
+                            state=state)
+
+
+badge = Strategy("badge", ("probs", "embeddings"), _badge_select,
+                 _badge_sharded)
 margin_density = Strategy("margin_density", ("probs", "embeddings"),
-                          _margin_density_select)
+                          _margin_density_select, _margin_density_sharded)
 weighted_kcenter = Strategy("weighted_kcenter", ("probs", "embeddings"),
-                            _weighted_kcenter_select)
+                            _weighted_kcenter_select,
+                            _weighted_kcenter_sharded)

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.strategies.base import Strategy, top_k_select
+from repro_torch.core.strategies.base import (Strategy, shard_tensor,
+                                              top_k_select)
 
 
 def lc_scores(probs):
@@ -54,7 +55,30 @@ def _make(kind: str) -> Strategy:
         ops.record_pool_rows(int(probs.shape[0]))
         return top_k_select(SCORE_FNS[kind](probs), budget)
 
-    return Strategy(kind, ("probs",), select_fn)
+    def sharded_fn(rng, budget, shards, *, labeled_embeddings=None,
+                   executor=None, prefilter=None, state=None):
+        # ``state`` (persisted k-center min-dists) accepted and ignored:
+        # uncertainty scoring is stateless per row
+        from repro_torch.core import selection
+        if prefilter is not None:
+            # cap-gated cluster scan: bit-identical to the full scan by
+            # the strictly-below stopping rule (core.prefilter)
+            from repro_torch.core import prefilter as pf
+            idx, _ = pf.gated_top_k(shards, kind, budget, executor)
+            return idx
+        # per-shard scoring (scores are per-row, so shard slices produce
+        # the floats of the full matrix) + partial top-k merge
+        from repro_torch.kernels.pairwise import ops
+
+        def score(s):
+            ops.record_pool_rows(s.n)
+            return SCORE_FNS[kind](shard_tensor(s, s.probs))
+
+        scores = selection.replica_map(score, shards, executor)
+        idx, _ = selection.replica_top_k(shards, scores, budget, executor)
+        return idx
+
+    return Strategy(kind, ("probs",), select_fn, sharded_fn)
 
 
 least_confidence = _make("lc")

@@ -1,8 +1,9 @@
 """AL Strategy Zoo (port of repro/core/strategies/zoo.py).
 
-Every strategy's ``select`` runs over one pool on one device. The
-replica-sharded paths (``select_sharded``) are not ported yet: they raise
-``NotImplementedError`` (ROADMAP queue A5).
+Every strategy ships two implementations with bit-identical selections:
+``select`` over one pool on one device, and ``select_sharded`` over the
+serving layer's replica shards (core.selection's local-propose /
+global-merge machinery), the contract ``SHARDED_COMPLETE`` asserts.
 """
 from __future__ import annotations
 
@@ -31,6 +32,11 @@ PAPER_SEVEN = ["lc", "mc", "rc", "es", "kcg", "coreset", "dbal"]
 
 # the hybrids every agent may additionally race
 HYBRIDS = ["badge", "margin_density", "weighted_kcenter"]
+
+# replica sharding only works if NO strategy silently lacks a sharded path
+SHARDED_COMPLETE = all(s.sharded_fn is not None for s in ZOO.values())
+assert SHARDED_COMPLETE, sorted(
+    n for n, s in ZOO.items() if s.sharded_fn is None)
 
 
 def get_strategy(name: str) -> Strategy:

@@ -4,14 +4,17 @@ Each ``csrc/<name>.cu`` compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/kernels/<name>-<hash of the source>.so`` under the checkout
 (``.gitignore`` lists ``build/``), at first use, and is loaded with
-``ctypes``. A source edit changes the hash, so a stale library is never
-loaded. ``build_all`` starts one ``nvcc`` per source at once.
+``ctypes``. The hash covers the source and every local header it
+includes (``#include "..."``, followed recursively), so an edit to either
+changes the path and a stale library is never loaded. ``build_all``
+starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +27,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 SOURCES: Dict[str, Path] = {
     "greedy_round": KERNELS_DIR / "pairwise" / "csrc" / "greedy_round.cu",
+    "gated_greedy_round":
+        KERNELS_DIR / "pairwise" / "csrc" / "gated_greedy_round.cu",
     "pairwise_min_argmin":
         KERNELS_DIR / "pairwise" / "csrc" / "pairwise_min_argmin.cu",
     "flash_attention":
@@ -46,9 +51,28 @@ def nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _hashed_files(source: Path) -> list:
+    """``source`` and the local headers it includes, recursively, each
+    resolved against the including file's directory."""
+    seen, todo = [], [source.resolve()]
+    while todo:
+        f = todo.pop()
+        if f in seen or not f.exists():
+            continue
+        seen.append(f)
+        for inc in _LOCAL_INCLUDE.findall(f.read_bytes()):
+            todo.append((f.parent / inc.decode()).resolve())
+    return seen
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1()
+    for f in _hashed_files(SOURCES[name]):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

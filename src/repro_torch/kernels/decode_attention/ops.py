@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels.decode_attention import ref
 
 LAUNCHES = {"decode_attention": 0}
@@ -39,7 +40,7 @@ _CUDA_ERROR_INVALID_VALUE = 1
 
 
 def reset_launches() -> None:
-    LAUNCHES["decode_attention"] = 0
+    launches.reset(LAUNCHES)
 
 
 _FN = []
@@ -101,7 +102,7 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window: Optional[int],
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["decode_attention"] += 1
+    launches.bump(LAUNCHES, "decode_attention")
     return out
 
 

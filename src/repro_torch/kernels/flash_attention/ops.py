@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels.flash_attention import ref
 
 LAUNCHES = {"flash_attention": 0}
@@ -34,7 +35,7 @@ _CUDA_ERROR_INVALID_VALUE = 1
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    launches.reset(LAUNCHES)
 
 
 _FN = []
@@ -82,7 +83,7 @@ def _flash_cuda(q, k, v, *, causal: bool, window: Optional[int],
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["flash_attention"] += 1
+    launches.bump(LAUNCHES, "flash_attention")
     return out.to(dtype)
 
 

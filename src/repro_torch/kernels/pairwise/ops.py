@@ -9,36 +9,47 @@ passes it.
 
 Besides dispatch, this layer does the reference's op accounting: inside
 ``track_ops()`` every wrapper records the full (N, d) pool reads and (N,)
-vector streams it issues. ``LAUNCHES`` counts kernel launches per kernel,
-one per wrapper call that reaches the card.
+vector streams it issues (a gated round only its live rows).
+``LAUNCHES`` counts kernel launches per kernel, one per wrapper call that
+reaches the card. Replica lanes call these wrappers from several threads,
+so both tallies update under locks.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import threading
 
+import numpy as np
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels.pairwise import autotune, ref
 from repro_torch.kernels.pairwise.ref import BIG
 
 # ------------------------------------------------------- op accounting ----
+# ``pool_rows`` counts POOL ROWS TOUCHED: rows whose feature vector (or
+# probs row) a selection pass actually read or scored. The centroid
+# prefilter's savings are stated in these units.
 _STATS = {"embedding_reads": 0, "vector_streams": 0, "hbm_bytes": 0,
           "pool_rows": 0}
 _TRACKING = [False]
+_STATS_LOCK = threading.Lock()
 
 # kernel launches on the card, by kernel; plain-version calls add nothing
-LAUNCHES = {"greedy_round": 0, "pairwise_min_argmin": 0}
+LAUNCHES = {"greedy_round": 0, "pairwise_min_argmin": 0,
+            "gated_greedy_round": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    launches.reset(LAUNCHES)
 
 
 def reset_op_stats() -> None:
-    for k in _STATS:
-        _STATS[k] = 0
+    with _STATS_LOCK:
+        for k in _STATS:
+            _STATS[k] = 0
+
 
 
 @contextlib.contextmanager
@@ -52,21 +63,29 @@ def track_ops():
         _TRACKING[0] = False
 
 
+def _add(embedding_reads=0, vector_streams=0, hbm_bytes=0,
+         pool_rows=0) -> None:
+    with _STATS_LOCK:
+        _STATS["embedding_reads"] += embedding_reads
+        _STATS["vector_streams"] += vector_streams
+        _STATS["hbm_bytes"] += hbm_bytes
+        _STATS["pool_rows"] += pool_rows
+
+
 def _record(x, emb_reads: int = 0, vec_streams: int = 0) -> None:
     if not _TRACKING[0]:
         return
     n, d = x.shape
-    _STATS["embedding_reads"] += emb_reads
-    _STATS["vector_streams"] += vec_streams
-    _STATS["hbm_bytes"] += 4 * (emb_reads * n * d + vec_streams * n)
-    _STATS["pool_rows"] += emb_reads * n
+    _add(emb_reads, vec_streams, 4 * (emb_reads * n * d + vec_streams * n),
+         emb_reads * n)
 
 
 def record_pool_rows(n: int) -> None:
     """Explicit pool-rows-touched tally for passes that do not flow through
-    an (N, d) wrapper here (uncertainty scoring over probs rows)."""
+    an (N, d) wrapper here (uncertainty scoring over probs rows, gated
+    cluster scans)."""
     if _TRACKING[0]:
-        _STATS["pool_rows"] += int(n)
+        _add(pool_rows=int(n))
 
 
 # ------------------------------------------------------------ dispatch ----
@@ -96,6 +115,9 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+# Each launch below runs under ``torch.cuda.device(<the tensors' device>)``:
+# a ctypes launch goes to the current device, which a worker lane pinned
+# to another card (distributed.worker) may have switched.
 def _check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -113,10 +135,10 @@ def _lib(name: str):
         p, i = ctypes.c_void_p, ctypes.c_int
         if name == "greedy_round":
             fn = lib.greedy_round_f32
-            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
-            lib.greedy_round_rows_per_block.argtypes = []
-            lib.greedy_round_rows_per_block.restype = i
-            fn.rows_per_block = int(lib.greedy_round_rows_per_block())
+            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+        elif name == "gated_greedy_round":
+            fn = lib.gated_greedy_round_f32
+            fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
         else:
             fn = lib.pairwise_min_argmin_f32
             fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
@@ -138,9 +160,11 @@ def _pairwise_min_and_argmin_cuda(x, c):
     c2 = torch.empty((m,), dtype=torch.float32, device=dev)
     out_min = torch.empty((n,), dtype=torch.float32, device=dev)
     out_arg = torch.empty((n,), dtype=torch.int32, device=dev)
-    _check(fn(_ptr(x), _ptr(c), _ptr(x2), _ptr(c2), _ptr(out_min),
-              _ptr(out_arg), n, m, d, _stream(dev)), "pairwise_min_argmin")
-    LAUNCHES["pairwise_min_argmin"] += 1
+    with torch.cuda.device(dev):
+        _check(fn(_ptr(x), _ptr(c), _ptr(x2), _ptr(c2), _ptr(out_min),
+                  _ptr(out_arg), n, m, d, _stream(dev)),
+               "pairwise_min_argmin")
+    launches.bump(LAUNCHES, "pairwise_min_argmin")
     return out_min, out_arg
 
 
@@ -178,7 +202,7 @@ def masked_weighted_score(mind, weights=None):
     return torch.where(mind < 0.0, -BIG, score)
 
 
-def _greedy_round_cuda(x, mind, centers, sel_idx, weights):
+def _greedy_round_cuda(x, mind, centers, sel_idx, weights, n_block: int):
     dev = x.device
     x, mind, centers = _f32(x, dev), _f32(mind, dev), _f32(centers, dev)
     w = None if weights is None else _f32(weights, dev)
@@ -189,21 +213,38 @@ def _greedy_round_cuda(x, mind, centers, sel_idx, weights):
             (w is not None and w.shape != (n,)):
         raise ValueError("greedy_round: shapes do not match the (N, d) pool")
     fn = _lib("greedy_round")
-    nb = -(-n // fn.rows_per_block)
+    rows = min(int(n_block), n)
+    nb = -(-n // rows)
     nmind = torch.empty((n,), dtype=torch.float32, device=dev)
     bmax = torch.empty((nb,), dtype=torch.float32, device=dev)
     barg = torch.empty((nb,), dtype=torch.int32, device=dev)
-    _check(fn(_ptr(x), _ptr(mind), _ptr(centers), _ptr(sel), _ptr(w),
-              _ptr(nmind), _ptr(bmax), _ptr(barg), n, d, r, _stream(dev)),
-           "greedy_round")
-    LAUNCHES["greedy_round"] += 1
+    with torch.cuda.device(dev):
+        _check(fn(_ptr(x), _ptr(mind), _ptr(centers), _ptr(sel), _ptr(w),
+                  _ptr(nmind), _ptr(bmax), _ptr(barg), n, d, r, rows,
+                  _stream(dev)), "greedy_round")
+    launches.bump(LAUNCHES, "greedy_round")
     # the first block holding the max owns the lowest tied index
     win = torch.argmax(bmax)
     return nmind, barg[win], bmax[win]
 
 
+# Rows per CTA of the fused round when the caller names none: the block
+# picker's winner for both variants at 50,000 x 512 on the H100
+# (chip_smoke.py's picker phase). Serving never measures; a caller that
+# wants a per-shape pick asks ``autotuned_blocks`` for it.
+ROWS_PER_CTA = 64
+
+
+def autotuned_blocks(n: int, d: int, dtype=torch.float32, device=None,
+                     variant: str = "round"):
+    """The block picker's cached (n_block, r_block) winner for this shape
+    (measured on the card when ``device`` is a CUDA device)."""
+    return autotune.autotune_blocks(n, d, dtype, device=device,
+                                    variant=variant)
+
+
 def greedy_round(x, mind, centers, sel_idx, weights=None,
-                 impl: str = "auto"):
+                 impl: str = "auto", n_block: int = ROWS_PER_CTA):
     """One fused greedy round: one (N, d) pool read folds the (R, d) queued
     ``centers`` into ``mind``, masks ``sel_idx`` (-1 = no mask), and
     returns the next (weighted) farthest point.
@@ -211,23 +252,93 @@ def greedy_round(x, mind, centers, sel_idx, weights=None,
 
     ``weights`` (optional (N,), non-negative) scale the argmax score only,
     never the returned min-dist. Selected rows (new or carried-in -1)
-    score -BIG, and exact score ties go to the lowest pool index."""
+    score -BIG, and exact score ties go to the lowest pool index.
+    ``n_block`` (rows per CTA on the card) changes no result: it only
+    sizes the kernel's blocks, which the plain version does not have."""
     if sel_idx.shape[0] != centers.shape[0]:
         raise ValueError(
             f"sel_idx must mask exactly the queued centers: got "
             f"{sel_idx.shape[0]} indices for {centers.shape[0]} centers")
     _record(x, emb_reads=1, vec_streams=2)
     if _use_kernel(x, impl):
-        return _greedy_round_cuda(x, mind, centers, sel_idx, weights)
+        return _greedy_round_cuda(x, mind, centers, sel_idx, weights,
+                                  n_block)
     return ref.greedy_round_ref(x, mind, centers, sel_idx, weights)
+
+
+def _gated_greedy_round_cuda(x, mind, centers, live, pend, weights,
+                             n_block: int):
+    dev = x.device
+    x, mind, centers = _f32(x, dev), _f32(mind, dev), _f32(centers, dev)
+    w = None if weights is None else _f32(weights, dev)
+    n, d = x.shape
+    r = centers.shape[0]
+    if centers.shape[1] != d or mind.shape != (n,) or \
+            (w is not None and w.shape != (n,)):
+        raise ValueError("gated_greedy_round: shapes do not match the "
+                         "(N, d) pool")
+    nb = -(-n // min(int(n_block), n))
+    live = live.to(device=dev, dtype=torch.int32).contiguous()
+    pend = pend.to(device=dev, dtype=torch.int32).contiguous()
+    if live.shape != (nb,) or pend.shape != (nb,):
+        raise ValueError(f"block vectors must have one entry per row block: "
+                         f"got {live.shape[0]}/{pend.shape[0]} for {nb}")
+    fn = _lib("gated_greedy_round")
+    nmind = torch.empty((n,), dtype=torch.float32, device=dev)
+    bmax = torch.empty((nb,), dtype=torch.float32, device=dev)
+    barg = torch.empty((nb,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _check(fn(_ptr(x), _ptr(mind), _ptr(centers), _ptr(live),
+                  _ptr(pend), _ptr(w), _ptr(nmind), _ptr(bmax), _ptr(barg),
+                  n, d, r, int(n_block), _stream(dev)), "gated_greedy_round")
+    launches.bump(LAUNCHES, "gated_greedy_round")
+    win = torch.argmax(bmax)
+    return nmind, barg[win], bmax[win]
+
+
+def _int_vector(v) -> torch.Tensor:
+    return (v.to(torch.int32) if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v), dtype=torch.int32))
+
+
+def gated_greedy_round(x, mind, centers, block_live, block_pending,
+                       weights=None, impl: str = "auto", n_block: int = 256):
+    """The BLOCK-MASKED round variant behind the centroid prefilter.
+
+    Folds queued ``centers`` (R, d) into ``mind`` for LIVE row blocks only:
+    block ``b`` (rows ``[b*n_block, (b+1)*n_block)``) is touched iff
+    ``block_live[b]``, and folds only centers ``[block_pending[b]:R)``.
+    Dead blocks pass ``mind`` through untouched and emit -BIG partials, so
+    the returned argmax ranges over live rows only. Winner masking stays
+    with the caller (set the winner's ``mind`` slot to -1.0).
+
+    Returns ``(new_mind, next_idx, next_score)`` like ``greedy_round``.
+    Accounting: only live-block rows count as pool rows touched."""
+    nb = int(n_block)
+    N = x.shape[0]
+    nn = -(-N // min(nb, max(N, 1)))
+    live = _int_vector(block_live)
+    pend = _int_vector(block_pending)
+    if live.shape[0] != nn:
+        raise ValueError(f"block_live has {live.shape[0]} entries for "
+                         f"{nn} blocks of {nb} rows over {N}")
+    if _TRACKING[0]:
+        live_blocks = np.nonzero(live.cpu().numpy())[0]
+        rows = int(sum(min(nb, N - b * nb) for b in live_blocks))
+        _add(1 if rows else 0, 2, 4 * (rows * x.shape[1] + 2 * N), rows)
+    if _use_kernel(x, impl):
+        return _gated_greedy_round_cuda(x, mind, centers, live, pend,
+                                        weights, nb)
+    return ref.gated_greedy_round_ref(x, mind, centers, live, pend, weights,
+                                      n_block=nb)
 
 
 def warm_start_min_dist(x, centers, impl: str = "auto",
                         r_block: int | None = None):
     """Min sq-dist from every pool row to ANY of (M, d) ``centers`` — the
     Core-Set warm start. Folds ``r_block`` centers per fused pass, chunked
-    exactly as the reference chunks on the CPU (``autotune.model_blocks``),
-    since a one-center chunk takes the difference form."""
+    exactly as the reference chunks (``autotune.model_blocks``, on every
+    device), since a one-center chunk takes the difference form."""
     if r_block is None:
         r_block = autotune.model_blocks(x.shape[0], x.shape[1]).r_block
     N = x.shape[0]

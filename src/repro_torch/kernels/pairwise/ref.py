@@ -51,3 +51,26 @@ def greedy_round_ref(x, mind, centers, sel_idx, weights=None):
     score = torch.where(nm < 0.0, -BIG, score)
     nxt = torch.argmax(score)
     return nm, nxt.to(torch.int32), score[nxt]
+
+
+def gated_greedy_round_ref(x, mind, centers, block_live, block_pending,
+                           weights=None, *, n_block: int = 256):
+    """Plain version of the block-masked round (contract in ``ops``),
+    vectorized over ALL rows with block/column masking: it touches the
+    whole pool, so it is the kernel's yardstick, not a sublinear path.
+    The matmul form holds at every R, R = 1 included."""
+    N = x.shape[0]
+    R = centers.shape[0]
+    dev = x.device
+    d2 = pairwise_sq_dists_ref(x, centers)                    # (N, R)
+    blk = torch.arange(N, device=dev) // n_block
+    live = block_live.to(dev)[blk] > 0                        # (N,)
+    pend = block_pending.to(dev)[blk]                         # (N,)
+    col = torch.arange(R, device=dev)[None, :]
+    d2 = torch.where(col >= pend[:, None], d2, BIG)           # catch-up mask
+    fold = torch.minimum(mind.float(), torch.amin(d2, dim=-1))
+    nm = torch.where(live, fold, mind.float())
+    score = nm if weights is None else nm * weights.float()
+    score = torch.where(live & ~(nm < 0.0), score, -BIG)
+    nxt = torch.argmax(score)
+    return nm, nxt.to(torch.int32), score[nxt]

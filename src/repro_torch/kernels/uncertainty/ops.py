@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import launches
 from repro_torch.kernels.uncertainty import ref
 
 KINDS = ("lc", "mc", "rc", "es")
@@ -25,7 +26,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def reset_launches() -> None:
-    LAUNCHES["uncertainty_stats"] = 0
+    launches.reset(LAUNCHES)
 
 
 _FN = []
@@ -62,7 +63,7 @@ def _stats_cuda(logits: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"uncertainty_stats kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["uncertainty_stats"] += 1
+    launches.bump(LAUNCHES, "uncertainty_stats")
     return out
 
 

@@ -38,6 +38,10 @@ def strict_fp32() -> None:
     torch.backends.cudnn.benchmark = False
 
 
+# rows per head-forward chunk (FeatureBackend.probs)
+PROBS_ROWS = 1024
+
+
 @dataclasses.dataclass
 class HeadState:
     w: torch.Tensor      # (feat_dim, num_classes)
@@ -97,8 +101,24 @@ class FeatureBackend:
         return HeadState(w=w.detach(), b=b.detach())
 
     def probs(self, feats: np.ndarray, head: HeadState) -> np.ndarray:
-        logits = self._tensor(feats) @ head.w + head.b
-        return torch.softmax(logits, dim=-1).cpu().numpy()
+        """Class probabilities, computed in canonical chunks of
+        ``PROBS_ROWS`` rows (the last one zero-padded): every call runs the
+        one (PROBS_ROWS, d) x (d, C) product, so a row's probabilities do
+        not depend on how many rows share the call (a shard, a delta, the
+        whole pool) even where the product's kernel would change with M."""
+        x = self._tensor(feats)
+        n = x.shape[0]
+        out = []
+        for s in range(0, n, PROBS_ROWS):
+            chunk = x[s:s + PROBS_ROWS]
+            m = chunk.shape[0]
+            if m < PROBS_ROWS:
+                chunk = torch.cat([chunk, chunk.new_zeros(
+                    (PROBS_ROWS - m, x.shape[1]))])
+            out.append(torch.softmax(chunk @ head.w + head.b, dim=-1)[:m])
+        if not out:
+            return np.zeros((0, self.num_classes), np.float32)
+        return torch.cat(out).cpu().numpy()
 
     def evaluate(self, feats: np.ndarray, labels: np.ndarray,
                  head: HeadState) -> float:

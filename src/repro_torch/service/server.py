@@ -1,11 +1,11 @@
 """ALServer — the paper's AL-as-a-service backend (Fig. 1), multi-tenant
-(port of repro/service/server.py, at ``replicas: 1``).
+(port of repro/service/server.py).
 
 One ``ALServer`` owns the *shared* resources — scorer backend on one
-device, the content-addressed ``EmbeddingCache``, config — and hosts many
-independent ``ALSession`` objects (one per client/tenant). A session
-carries the pool key list, raw copies, labels, the trained head, the
-oracle, and an incremental pool-artifact column.
+device, the content-addressed ``EmbeddingCache``, config, the shard-worker
+lanes — and hosts many independent ``ALSession`` objects (one per
+client/tenant). A session carries the pool key list, raw copies, labels,
+the trained head, the oracle, and incremental per-shard artifact columns.
 
 Data path (stage-level pipeline, Fig. 3c):
   fetch (URI/bytes -> raw)  ->  preprocess  ->  infer (batched features via
@@ -18,16 +18,26 @@ Query path:
   strategy == "auto": run the PSHEA agent (performance predictor +
   successive halving) against the attached oracle, per paper Alg. 1.
 
+Replica sharding (config ``replicas: N``): each session's pool is
+hash-partitioned by content key across N shards, each with its own
+artifact columns. Artifacts are built per shard on the shard-worker lanes
+(``distributed.worker``, thread lanes: supervised, straggler-timed,
+restartable), every query strategy runs its replica-sharded path (local
+propose, global merge — core.selection), and selections are bit-identical
+to ``replicas: 1``. ``prefilter: true`` gates the uncertainty top-k and the
+unweighted k-center lineage through per-shard centroid summaries
+(core.prefilter), and warm-started k-center queries reuse the session's
+persisted min-dist vectors (``KCenterStateCache``); both ride the sharded
+path, so either routes a query through it even at ``replicas: 1``.
+
 The server computes on ``config.device``: "cuda" (the default) or "cpu".
 A cuda server on a machine without a GPU raises; it never carries on on
 the CPU. Random draws go through the draw seam (``common.rng``); ``draws=``
 swaps in another implementation of it.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``replicas > 1`` and standing queries (A5), ``prefilter: true``
-(A6), the process worker backend (A7). Every query takes the single-pool
-path, which the reference's own oracle makes bit-identical to its
-persisted k-center state path, so that state cache is reported inactive.
+item): standing queries (A5, standing queries) and the process worker
+backend (A7, process lanes).
 """
 from __future__ import annotations
 
@@ -39,15 +49,20 @@ import threading
 import time
 import uuid
 import zlib
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.common import rng as rnglib
 from repro_torch.core.agent.controller import run_pshea
-from repro_torch.core.selection import ColumnSpill, ShardColumns, grow_append
+from repro_torch.core.prefilter import PrefilterConfig, maintain_summary
+from repro_torch.core.selection import (ColumnSpill, KCenterStateCache,
+                                        ShardColumns, ShardView, grow_append,
+                                        replica_map, replica_of)
 from repro_torch.core.strategies.zoo import HYBRIDS, PAPER_SEVEN, get_strategy
+from repro_torch.distributed.worker import (PhaseFailureInjector,
+                                            ShardWorkerPool)
 from repro_torch.service.backends import (FeatureBackend, HeadState,
                                           make_backend)
 from repro_torch.service.batcher import DynamicBatcher
@@ -58,6 +73,10 @@ from repro_torch.service.pipeline import Stage, StagePipeline
 
 DEFAULT_SESSION = "default"
 
+# strategies whose sharded path starts from a warm (labeled-centers)
+# min-dist fold — the ones the persisted KCenterStateCache can feed
+_WARM_STATE_STRATEGIES = frozenset({"coreset", "weighted_kcenter"})
+
 
 def _strategy_seed(strategy: str, round_index: int) -> int:
     """Deterministic per-(strategy, round) rng stream. Independent of how
@@ -67,8 +86,7 @@ def _strategy_seed(strategy: str, round_index: int) -> int:
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue {item})")
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class PushTicket:
@@ -119,11 +137,12 @@ class PushTicket:
 
 
 class ALSession:
-    """Per-tenant AL state: pool, labels, head, oracle, artifact column."""
+    """Per-tenant AL state: pool, labels, head, oracle, artifact columns."""
 
     def __init__(self, server: "ALServer", session_id: str):
         self.server = server
         self.session_id = session_id
+        self.replicas = max(int(server.config.replicas), 1)
         self._keys: List[str] = []
         self._raw: Dict[str, np.ndarray] = {}
         self._labels: Dict[str, int] = {}
@@ -133,9 +152,11 @@ class ALSession:
         self._oracle: Optional[Callable[[Sequence[str]], Sequence[int]]] = None
         self._lock = threading.RLock()
         self.last_pipeline_stats = None
-        # -- incremental pool-artifact engine (one shard) -----------------
-        #   rows appended -> rows_epoch moves; refresh embeds ONLY the
-        #     appended rows into the growable feats buffer;
+        # -- incremental pool-artifact engine ---------------------------
+        # One ShardColumns per replica shard (ONE shard at replicas=1),
+        # epoch-stamped and refreshed incrementally:
+        #   rows appended -> only the touched shards' rows_epoch moves;
+        #     refresh embeds ONLY the appended rows (growable buffers);
         #   train_and_eval -> head_version moves; refresh re-runs the head
         #     over cached feats, ZERO re-embeds;
         #   label -> labels_version moves; artifacts untouched.
@@ -154,9 +175,26 @@ class ALSession:
             self._spill = ColumnSpill(
                 os.path.join(base, f"{os.getpid()}-{uuid.uuid4().hex[:8]}"),
                 int(cfg.shard_ram_bytes))
-        self._col = ShardColumns(self._spill)
-        self._index: Dict[str, int] = {}           # key -> row
+        # centroid prefilter (core.prefilter): summaries are maintained
+        # alongside the columns when enabled; None = ungated full scans
+        self._prefilter_cfg: Optional[PrefilterConfig] = None
+        if cfg.prefilter:
+            self._prefilter_cfg = PrefilterConfig(
+                slack=float(cfg.prefilter_slack),
+                clusters=int(cfg.prefilter_clusters),
+                min_rows=int(cfg.prefilter_min_rows))
+        self._columns = [ShardColumns(self._spill)
+                         for _ in range(self.replicas)]
+        self._index: Dict[str, Tuple[int, int]] = {}  # key -> (shard, row)
+        # RLock: the worker runtime's on_death recovery hook resets a
+        # shard's columns from INSIDE a refresh (which already holds the
+        # lock on the supervising thread) as well as from query threads
         self._artifact_lock = threading.RLock()
+        # worker deaths whose on_death hook reset this session's columns
+        self.shard_recoveries = 0
+        # persisted k-center strategy state (strategy_state_cache): per-
+        # shard min-dist vectors delta-extended on push, dropped on retrain
+        self._kstate = KCenterStateCache()
         # -- async ingest queue -----------------------------------------
         self._ingest_queue: List[tuple] = []
         self._ingest_cv = threading.Condition()
@@ -194,19 +232,24 @@ class ALSession:
 
     def _append_rows(self, keys: Sequence[str],
                      items: Sequence[np.ndarray]) -> None:
-        """Append the new (key, raw) rows; ONE rows_epoch and pool_version
-        tick per appending event. Caller holds ``self._lock``."""
-        appended = False
+        """Append the new (key, raw) rows to the pool and stamp the shards
+        they land on: ONE rows_epoch tick per touched shard and ONE
+        pool_version tick per appending event. Caller holds
+        ``self._lock``."""
+        touched = set()
         for k, it in zip(keys, items):
             if k in self._raw:
                 continue
             self._raw[k] = it
             self._keys.append(k)
-            self._index[k] = len(self._col.keys)
-            self._col.keys.append(k)
-            appended = True
-        if appended:
-            self._col.rows_epoch += 1
+            si = 0 if self.replicas == 1 else replica_of(k, self.replicas)
+            col = self._columns[si]
+            self._index[k] = (si, len(col.keys))
+            col.keys.append(k)
+            touched.add(si)
+        if touched:
+            for si in touched:
+                self._columns[si].rows_epoch += 1
             self.pool_version += 1
 
     # ----------------------------------------------------- async ingest --
@@ -331,8 +374,9 @@ class ALSession:
                 self._ingest_cv.notify_all()
 
     def _integrate(self, batch: List[tuple]) -> None:
-        """Embed + append ONE drained ingest batch; pool_version bumps once
-        for the whole batch."""
+        """Embed + append ONE drained ingest batch: the un-cached items are
+        grouped by replica shard and embedded in parallel; pool_version
+        bumps once for the whole batch."""
         todo, seen = [], set()
         for keys, items, _ in batch:
             for k, it in zip(keys, items):
@@ -341,8 +385,7 @@ class ALSession:
                 seen.add(k)
                 todo.append((k, it))
         if todo:
-            self.last_pipeline_stats = self.server._process(
-                todo, pipelined=True)
+            self.last_pipeline_stats = self.server._process_replicated(todo)
         with self._lock:
             self._append_rows(
                 [k for keys, _, _ in batch for k in keys],
@@ -413,6 +456,18 @@ class ALSession:
                 self.labels_version += 1
 
     # --------------------------------------------------------- artifacts --
+    def _recover_shard(self, si: int) -> None:
+        """Worker-death recovery hook (distributed.worker ``on_death``):
+        drop the shard's artifact columns entirely. The retried task then
+        rebuilds them through ``_feats_for`` (re-embedding from raw +
+        content keys in canonical batches, so the rebuilt bytes and every
+        later selection are bit-identical to the no-failure run); the
+        lineage bump ``reset()`` performs also invalidates the persisted
+        k-center state derived from the lost columns."""
+        with self._artifact_lock:
+            self._columns[si % self.replicas].reset()
+            self.shard_recoveries += 1
+
     def _feats_for(self, keys: Sequence[str]) -> np.ndarray:
         """Features for ``keys``, recomputing entries the EmbeddingCache
         evicted from the session's raw copies, in the CANONICAL batch shape
@@ -443,83 +498,135 @@ class ALSession:
         return np.stack([out[k] for k in keys])
 
     def _refresh_artifacts(self):
-        """Bring the (feats, probs) column up to date, O(change): appended
-        rows are embedded and appended; a head bump recomputes probs from
-        cached feats (zero re-embeds); rows appended at an unchanged head
-        get probs for just the new rows. Caller holds _artifact_lock."""
+        """Bring every shard's (feats, probs) columns up to date, touched
+        shards in parallel on the worker lanes. Caller holds
+        _artifact_lock. Per shard, O(change): appended rows are embedded
+        and appended; a head bump recomputes probs from cached feats (zero
+        re-embeds); rows appended at an unchanged head get probs for just
+        the new rows. An untouched shard is a pure cache hit."""
         backend = self.server.backend
-        with self._lock:
-            rows, epoch = len(self._col.keys), self._col.rows_epoch
+        incremental = self.server.config.incremental_artifacts
+        with self._lock:   # consistent (row count, epoch) per shard
+            targets = [(len(c.keys), c.rows_epoch) for c in self._columns]
             head = self._head
             head_v = self.head_version
         if head is None:
             head = backend.init_head()
-        col = self._col
-        if col.feats_epoch == epoch and col.probs_head_epoch == head_v:
+        work = [(si, rows, epoch) for si, (rows, epoch) in enumerate(targets)
+                if self._columns[si].feats_epoch != epoch
+                or self._columns[si].probs_head_epoch != head_v]
+        if not work:
             return
-        if not self.server.config.incremental_artifacts:
-            col.reset()          # debugging fallback: O(pool) rebuilds
-        kind = None
-        if col.feats_epoch != epoch:
-            if col.feats_rows < rows:
-                kind = "full" if col.feats_rows == 0 else "delta"
-                new = self._feats_for(col.keys[col.feats_rows:rows])
-                col.feats, col.feats_rows = grow_append(
-                    col.feats, col.feats_rows, new, col.spill)
-            col.feats_epoch = epoch
-        if col.probs_head_epoch != head_v:
-            old = col.probs
-            newp = (np.asarray(backend.probs(col.feats[:col.feats_rows],
-                                             head))
+
+        def refresh(item):
+            si, rows, epoch = item
+            col = self._columns[si]
+            if not incremental:
+                col.reset()          # debugging fallback: O(shard) rebuilds
+            kind = None
+            if col.feats_epoch != epoch:
+                if col.feats_rows < rows:    # every epoch tick appends rows
+                    kind = "full" if col.feats_rows == 0 else "delta"
+                    new = self._feats_for(col.keys[col.feats_rows:rows])
+                    col.feats, col.feats_rows = grow_append(
+                        col.feats, col.feats_rows, new, col.spill)
+                col.feats_epoch = epoch
+            if col.probs_head_epoch != head_v:
+                # head-only refresh: fresh buffer (pinned snapshots keep
+                # their rows), computed from cached feats — zero embeds
+                old = col.probs
+                newp = (np.asarray(backend.probs(
+                    col.feats[:col.feats_rows], head))
                     if col.feats_rows else None)
-            if newp is not None and col.spill is not None:
-                newp = col.spill.adopt(newp)
-            col.probs = newp
-            if col.spill is not None and old is not None:
-                col.spill.release(old)
-            col.probs_rows = col.feats_rows
-            col.probs_head_epoch = head_v
-            kind = kind or "probs"
-        elif col.probs_rows < col.feats_rows:
-            newp = np.asarray(backend.probs(
-                col.feats[col.probs_rows:col.feats_rows], head))
-            col.probs, col.probs_rows = grow_append(
-                col.probs, col.probs_rows, newp, col.spill)
-        col.builds += 1
-        self.full_builds += kind == "full"
-        self.delta_builds += kind == "delta"
-        self.probs_refreshes += kind == "probs"
+                if newp is not None and col.spill is not None:
+                    newp = col.spill.adopt(newp)
+                col.probs = newp
+                if col.spill is not None and old is not None:
+                    col.spill.release(old)
+                col.probs_rows = col.feats_rows
+                col.probs_head_epoch = head_v
+                kind = kind or "probs"
+            elif col.probs_rows < col.feats_rows:
+                newp = np.asarray(backend.probs(
+                    col.feats[col.probs_rows:col.feats_rows], head))
+                col.probs, col.probs_rows = grow_append(
+                    col.probs, col.probs_rows, newp, col.spill)
+            if self._prefilter_cfg is not None:
+                # the centroid summary rides the same epoch discipline:
+                # rebuilt only when the tail outgrows the covered prefix,
+                # caps refreshed per head bump (copy-on-write)
+                col.summary = maintain_summary(
+                    col.summary,
+                    col.feats[:col.feats_rows] if col.feats_rows else None,
+                    col.probs[:col.probs_rows] if col.probs_rows else None,
+                    head_epoch=head_v, cfg=self._prefilter_cfg,
+                    spill=col.spill, salt=f"{self.session_id}/{si}",
+                    device=self.server.device, draws=self.server.draws)
+            col.builds += 1
+            return kind
+
+        kinds = replica_map(
+            refresh, work,
+            self.server.shard_scoped("embed", on_death=self._recover_shard,
+                                     shard_of=lambda i, it: it[0]))
+        self.full_builds += sum(k == "full" for k in kinds)
+        self.delta_builds += sum(k == "delta" for k in kinds)
+        self.probs_refreshes += sum(k == "probs" for k in kinds)
         self.artifact_builds += 1
 
     def _artifact_snapshot(self):
-        """(feats, probs, rows, key->row index) over the pool — immutable
-        row-range views of the incremental column (``artifact_cache:
-        true``) or a from-scratch O(pool) build (``artifact_cache: false``,
-        the bit-identity oracle)."""
+        """(feats_l, probs_l, rows_l, key->(shard, row) index) over the
+        pool — per-shard immutable row-range views of the incremental
+        columns (``artifact_cache: true``) or a from-scratch O(pool) build
+        (``artifact_cache: false``, the bit-identity oracle). Rows appended
+        after the snapshot is pinned sit beyond ``rows_l``."""
+        return self._artifact_snapshot_ex()[:4]
+
+    def _artifact_snapshot_ex(self):
+        """``_artifact_snapshot`` plus the prefilter context pinned under
+        the SAME lock hold: per-shard summary refs, the probs head epochs
+        and the column lineages the snapshot is consistent at."""
         backend = self.server.backend
         if not self.server.config.artifact_cache:
-            return self._build_from_scratch()
+            f, p, r, i = self._build_from_scratch()
+            return (f, p, r, i, [None] * self.replicas,
+                    [-1] * self.replicas, [0] * self.replicas)
         with self._artifact_lock:
             self._refresh_artifacts()
-            c = self._col
-            return (c.feats_view(backend.feat_dim),
-                    c.probs_view(backend.num_classes), c.feats_rows,
-                    self._index)
+            cols = self._columns
+            return ([c.feats_view(backend.feat_dim) for c in cols],
+                    [c.probs_view(backend.num_classes) for c in cols],
+                    [c.feats_rows for c in cols], self._index,
+                    [c.summary for c in cols],
+                    [c.probs_head_epoch for c in cols],
+                    [c.lineage for c in cols])
 
     def _build_from_scratch(self):
+        """The O(pool) reference engine: re-gather + re-forward every shard
+        on every call, no incremental state consulted."""
         backend = self.server.backend
         with self._lock:
-            keys = list(self._col.keys)
+            shard_keys = [list(c.keys) for c in self._columns]
             head = self._head
         head = head or backend.init_head()
-        if keys:
-            feats = self._feats_for(keys)
-            probs = backend.probs(feats, head)
-        else:
-            feats = np.zeros((0, backend.feat_dim), np.float32)
-            probs = np.zeros((0, backend.num_classes), np.float32)
+
+        def build(ks):
+            if not ks:
+                return (np.zeros((0, backend.feat_dim), np.float32),
+                        np.zeros((0, backend.num_classes), np.float32))
+            feats = self._feats_for(ks)
+            return feats, backend.probs(feats, head)
+
+        parts = replica_map(
+            build, shard_keys,
+            self.server.shard_scoped("embed", on_death=self._recover_shard))
+        index: Dict[str, Tuple[int, int]] = {}
+        for si, ks in enumerate(shard_keys):
+            for li, k in enumerate(ks):
+                index[k] = (si, li)
         self.artifact_builds += 1
-        return feats, probs, len(keys), {k: i for i, k in enumerate(keys)}
+        return ([p[0] for p in parts], [p[1] for p in parts],
+                [len(ks) for ks in shard_keys], index)
 
     def train_and_eval(self) -> float:
         self.flush()
@@ -532,6 +639,9 @@ class ALSession:
         with self._lock:
             self._head = backend.fit_head(feats, labels, head=None)
             self.head_version += 1
+        # a retrain drops the persisted min-dist vectors on every shard
+        # (feats columns are untouched, so nothing re-embeds)
+        self._kstate.invalidate()
         if self._eval_set is None:  # no eval set: train-set accuracy proxy
             return backend.evaluate(feats, labels, self._head)
         return backend.evaluate(*self._eval_set, self._head)
@@ -554,22 +664,30 @@ class ALSession:
                                 workers)
 
     def _query_one(self, unlabeled, budget, strategy, rng_seed) -> dict:
+        if (self.replicas > 1 or self._prefilter_cfg is not None
+                or self._use_kstate(strategy)):
+            # the prefilter and the persisted k-center state live in the
+            # sharded paths (their engines ARE the per-shard propose
+            # step), so either routes through them even at replicas=1 —
+            # the 1-shard case of the same bit-identical merge
+            return self._query_one_sharded(unlabeled, budget, strategy,
+                                           rng_seed)
         strat = get_strategy(strategy)
-        feats_all, probs_all, n_rows, index = self._artifact_snapshot()
+        feats_l, probs_l, rows_l, index = self._artifact_snapshot()
+        feats_all, probs_all, n_rows = feats_l[0], probs_l[0], rows_l[0]
         # a concurrent push_data may have appended keys after this query's
         # snapshot was pinned; score only the rows the snapshot covers
         unlabeled = [k for k in unlabeled
-                     if k in index and index[k] < n_rows]
+                     if k in index and index[k][1] < n_rows]
         budget = min(budget, len(unlabeled))
         if budget == 0:    # fully-labeled pool: strategies need >= 1 row
-            return {"keys": [], "indices": [], "strategy": strategy,
-                    "cache": self.server.cache.stats()}
-        rows = np.asarray([index[k] for k in unlabeled], np.int64)
+            return self._empty_result(strategy)
+        rows = np.asarray([index[k][1] for k in unlabeled], np.int64)
         dev = self.server.device
         labeled_emb = None
         if self._labeled_keys:
-            lab_rows = [index[k] for k in self._labeled_keys
-                        if k in index and index[k] < n_rows]
+            lab_rows = [index[k][1] for k in self._labeled_keys
+                        if k in index and index[k][1] < n_rows]
             if lab_rows:
                 labeled_emb = torch.as_tensor(
                     feats_all[np.asarray(lab_rows, np.int64)], device=dev)
@@ -581,6 +699,84 @@ class ALSession:
                         if "embeddings" in strat.needs else None),
             labeled_embeddings=labeled_emb)
         idx = idx.cpu().numpy()
+        return {"keys": [unlabeled[i] for i in idx],
+                "indices": idx.tolist(), "strategy": strategy,
+                "cache": self.server.cache.stats()}
+
+    def _empty_result(self, strategy: str) -> dict:
+        return {"keys": [], "indices": [], "strategy": strategy,
+                "cache": self.server.cache.stats()}
+
+    def _use_kstate(self, strategy: str) -> bool:
+        """Whether this query should run with the persisted k-center
+        min-dist state. Requires the incremental artifact columns — their
+        lineage stamps are what proves a cached vector is still an
+        append-extension of the shard's feats."""
+        cfg = self.server.config
+        return bool(cfg.strategy_state_cache and cfg.artifact_cache
+                    and strategy in _WARM_STATE_STRATEGIES)
+
+    def _query_one_sharded(self, unlabeled, budget, strategy,
+                           rng_seed) -> dict:
+        """One strategy over the replica-sharded pool: per-shard views of
+        the unlabeled rows (global order preserved inside each shard) feed
+        the strategy's sharded path — selections bit-identical to
+        ``replicas=1`` by construction."""
+        strat = get_strategy(strategy)
+        feats_l, probs_l, rows_l, index, summaries, epochs, lineages = \
+            self._artifact_snapshot_ex()
+
+        def covered(k):   # pinned-snapshot bound, per shard
+            e = index.get(k)
+            return e is not None and e[1] < rows_l[e[0]]
+
+        unlabeled = [k for k in unlabeled if covered(k)]
+        budget = min(budget, len(unlabeled))
+        if budget == 0:
+            return self._empty_result(strategy)
+        rows: List[List[int]] = [[] for _ in range(self.replicas)]
+        gpos: List[List[int]] = [[] for _ in range(self.replicas)]
+        for g, k in enumerate(unlabeled):
+            si, li = index[k]
+            rows[si].append(li)
+            gpos[si].append(g)
+        pf_cfg = self._prefilter_cfg
+        dev = self.server.device
+        shards = []
+        for si in range(self.replicas):
+            r = np.asarray(rows[si], np.int64)
+            summ = summaries[si]
+            # a summary older than the pinned view is fine (its tail is
+            # scanned in full); one COVERING MORE rows than the view — a
+            # racing refresh that rebuilt past our pin — is not usable
+            if summ is not None and summ.covered > rows_l[si]:
+                summ = None
+            shards.append(ShardView(
+                feats=feats_l[si][r] if r.size else feats_l[si][:0],
+                probs=probs_l[si][r] if r.size else probs_l[si][:0],
+                gidx=np.asarray(gpos[si], np.int64),
+                summary=summ if pf_cfg is not None else None,
+                pool_rows=r, pool_feats=feats_l[si],
+                probs_epoch=epochs[si], device=dev))
+        labeled_emb = centers = None
+        lab: List[Tuple[int, int]] = []
+        if self._labeled_keys:
+            lab = [index[k] for k in self._labeled_keys if covered(k)]
+            if lab:
+                centers = np.stack([feats_l[si][li] for si, li in lab])
+                labeled_emb = torch.as_tensor(centers, device=dev)
+        state = None
+        if self._use_kstate(strategy) and labeled_emb is not None:
+            state = self._kstate.prepare(
+                feats_l=feats_l, rows_l=rows_l, lineages=lineages,
+                head_version=self.head_version, locs=lab, centers=centers,
+                device=dev)
+        idx = np.asarray(strat.select_sharded(
+            rnglib.key(rng_seed, self.server.draws), budget, shards,
+            labeled_embeddings=labeled_emb,
+            executor=self.server.shard_scoped(
+                "propose", on_death=self._recover_shard),
+            prefilter=pf_cfg, state=state))
         return {"keys": [unlabeled[i] for i in idx],
                 "indices": idx.tolist(), "strategy": strategy,
                 "cache": self.server.cache.stats()}
@@ -655,7 +851,7 @@ class ALSession:
                 "max_rows": self.server.config.ingest_max_rows,
                 "max_bytes": self.server.config.ingest_max_bytes,
             }
-        c = self._col
+        cols = self._columns
         return {"pool": len(self._keys), "labeled": len(self._labeled_keys),
                 "pool_version": self.pool_version,
                 "head_version": self.head_version,
@@ -666,24 +862,34 @@ class ALSession:
                     "full_builds": self.full_builds,
                     "delta_builds": self.delta_builds,
                     "probs_refreshes": self.probs_refreshes,
-                    "shard_builds": [c.builds],
-                    "rows_epoch": [c.rows_epoch],
-                    "feats_rows": [c.feats_rows],
+                    "shard_builds": [c.builds for c in cols],
+                    "rows_epoch": [c.rows_epoch for c in cols],
+                    "feats_rows": [c.feats_rows for c in cols],
                     "head_epoch": self.head_version,
                     "spill_events": (self._spill.spill_events
                                      if self._spill else 0),
                     "spilled_bytes": (self._spill.spilled_bytes
                                       if self._spill else 0),
+                    # centroid-prefilter summaries per shard (0 = that
+                    # shard full-scans: below min_rows or prefilter off)
+                    "summary_builds": [
+                        (c.summary.builds if c.summary is not None else 0)
+                        for c in cols],
+                    "summary_covered": [
+                        (c.summary.covered if c.summary is not None else 0)
+                        for c in cols],
                 },
-                "replicas": 1,
+                "replicas": self.replicas,
+                # worker deaths recovered by resetting this session's
+                # shard columns (re-embed from raw + content keys on retry)
+                "worker_recoveries": self.shard_recoveries,
                 "ingest_pending": pending,
                 "ingest_batches": self.ingest_batches,
                 "ingest": ingest,
-                # every query takes the single-pool path: the persisted
-                # k-center state cache is not consulted (ROADMAP queue A5)
+                # persisted k-center min-dist state (KCenterStateCache)
                 "strategy_state": {
                     "enabled": self.server.config.strategy_state_cache,
-                    "active": False},
+                    **self._kstate.stats()},
                 "pipeline": self.last_pipeline_stats}
 
 
@@ -698,17 +904,14 @@ class ALServer:
                  backend: Optional[FeatureBackend] = None,
                  fetch_fn: Optional[Callable] = None,
                  fetch_latency_s: float = 0.0,
-                 draws: Optional[Any] = None):
+                 draws: Optional[Any] = None,
+                 failure_injector: Optional[PhaseFailureInjector] = None):
         if config is None:
             config = (ALServiceConfig.from_yaml(config_path)
                       if config_path else ALServiceConfig())
-        if int(config.replicas) > 1:
-            raise _not_ported("replicas > 1 (replica sharding)", "A5")
-        if config.prefilter:
-            raise _not_ported("prefilter: true (the centroid prefilter)",
-                              "A6")
         if config.worker_backend == "process":
-            raise _not_ported("the process worker backend", "A7")
+            raise _not_ported("the process worker backend",
+                              "A7: process lanes")
         self.device = torch.device(str(config.device).lower())
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -722,8 +925,11 @@ class ALServer:
                                     config.cache_spill_dir)
         self.fetch_fn = fetch_fn or (lambda x: x)
         self.fetch_latency_s = fetch_latency_s
+        self.failure_injector = failure_injector
         self._sessions: Dict[str, ALSession] = {}
         self._sessions_lock = threading.Lock()
+        self._shard_runtime: Optional[ShardWorkerPool] = None
+        self._shard_pool_lock = threading.Lock()
         # op accounting: pool rows run through the feature extractor
         # (batcher padding rows excluded)
         self.embed_rows = 0
@@ -737,6 +943,45 @@ class ALServer:
         with self._embed_lock:
             self.embed_rows += int(rows)
             self.embed_calls += 1
+
+    def shard_runtime(self) -> Optional[ShardWorkerPool]:
+        """The shard-worker runtime (distributed.worker): one supervised
+        thread lane per replica shard — straggler-timed, failure-
+        injectable, restartable, pinned round-robin to CUDA devices on a
+        multi-device host. Lazy; None at replicas=1 (the serial path needs
+        no workers)."""
+        if self.config.replicas <= 1:
+            return None
+        with self._shard_pool_lock:
+            if self._shard_runtime is None:
+                cfg = self.config
+                self._shard_runtime = ShardWorkerPool(
+                    cfg.replicas, kind=cfg.worker_backend,
+                    timeout_s=cfg.worker_timeout_s,
+                    max_retries=cfg.worker_retries,
+                    backoff_s=cfg.worker_backoff_s,
+                    injector=self.failure_injector)
+            return self._shard_runtime
+
+    def shard_scoped(self, phase: str, on_death: Optional[Callable] = None,
+                     shard_of: Optional[Callable] = None):
+        """Phase-scoped executor facade for ``replica_map`` fan-outs: a
+        worker death during ``phase`` triggers ``on_death(shard)`` (the
+        session's column-reset recovery) before the bounded retry. None at
+        replicas=1."""
+        rt = self.shard_runtime()
+        if rt is None:
+            return None
+        return rt.scoped(phase, on_death=on_death, shard_of=shard_of)
+
+    def close(self) -> None:
+        """Stop every session's ingest worker and the shard-worker lanes."""
+        for sid in self.session_ids():
+            self.session(sid).close()
+        with self._shard_pool_lock:
+            rt, self._shard_runtime = self._shard_runtime, None
+        if rt is not None:
+            rt.shutdown()
 
     # ---------------------------------------------------------- sessions --
     def create_session(self, session_id: Optional[str] = None) -> str:
@@ -819,6 +1064,33 @@ class ALServer:
         self.count_embeds(n_valid)
         return [feats[i] for i in range(n_valid)]
 
+    def _process_replicated(self, todo):
+        """Embed a drained ingest batch: group items by replica shard and
+        run the stage pipeline per shard in parallel on the worker lanes
+        (each group rides its own DynamicBatcher). One pipeline at
+        replicas=1."""
+        replicas = max(self.config.replicas, 1)
+        if replicas == 1:
+            return self._process(todo, pipelined=True)
+        groups = [[] for _ in range(replicas)]
+        for k, it in todo:
+            groups[replica_of(k, replicas)].append((k, it))
+        groups = [g for g in groups if g]
+        if len(groups) == 1:
+            return self._process(groups[0], pipelined=True)
+        # ingest-phase fan-out: a worker killed mid-drain restarts and the
+        # group's pipeline retries — cache puts are content-addressed and
+        # idempotent, and the rows append only after every group lands
+        per_group = list(self.shard_scoped("ingest").map(
+            lambda g: self._process(g, pipelined=True), groups))
+        # keep the single-pipeline stats shape: sum each stage's counters
+        merged = [dict(stage) for stage in per_group[0]]
+        for stats in per_group[1:]:
+            for agg, stage in zip(merged, stats):
+                for field in ("items", "busy_s", "wait_s"):
+                    agg[field] += stage[field]
+        return merged
+
     def _auto_candidates(self) -> List[str]:
         """The PSHEA agent's strategy registry: the paper's 7, plus the
         weighted fused-round hybrids when configured ("hybrid")."""
@@ -861,7 +1133,7 @@ class ALServer:
                                            rng_seed, pshea_workers)
 
     def standing_register(self, *args, **kwargs):
-        raise _not_ported("standing queries", "A5")
+        raise _not_ported("standing queries", "A5: standing queries")
 
     standing_cancel = standing_poll = standing_register
 
@@ -874,8 +1146,10 @@ class ALServer:
         s["cache"] = self.cache.stats()
         s["embeds"] = {"rows": self.embed_rows, "calls": self.embed_calls}
         s["sessions"] = len(self.session_ids())
-        s["workers"] = {"backend": "inline", "lanes": 0, "tasks": 0,
-                        "restarts": 0, "straggler_events": 0}
+        rt = self._shard_runtime       # no lazy spin-up just for stats
+        s["workers"] = (rt.stats() if rt is not None else {
+            "backend": "inline", "lanes": 0, "tasks": 0, "restarts": 0,
+            "straggler_events": 0})
         s["device"] = str(self.device)
         ts = self._transport_stats
         s["admission"] = (ts() if ts is not None else {"enabled": False})

@@ -43,7 +43,9 @@ def test_no_jax_or_reference_imports(path):
 def test_scan_sees_every_port_module():
     names = {p.name for p in PORT_FILES}
     assert {"server.py", "ops.py", "diversity.py", "resnet.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "prefilter.py", "worker.py",
+            "fault_tolerance.py", "autotune.py", "selection.py",
+            "launches.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.core")
     assert not _forbidden("repro_torch.core")
 

@@ -166,7 +166,11 @@ def test_cpu_dispatch_takes_plain_version_and_counts_no_launch():
     ops.greedy_round(x, torch.full((96,), ref.BIG), x[:1],
                      torch.full((1,), -1, dtype=torch.int32))
     ops.pairwise_min_and_argmin(x, x[:3])
-    assert ops.LAUNCHES == {"greedy_round": 0, "pairwise_min_argmin": 0}
+    ops.gated_greedy_round(x, torch.full((96,), ref.BIG), x[:1],
+                           np.ones(6, np.int32), np.zeros(6, np.int32),
+                           n_block=16)
+    assert ops.LAUNCHES == {"greedy_round": 0, "pairwise_min_argmin": 0,
+                            "gated_greedy_round": 0}
 
 
 def test_dispatch_rejects_unknown_impl_and_device():
@@ -219,6 +223,24 @@ def test_cuda_greedy_round_matches_plain(cuda, r, weighted):
     torch.testing.assert_close(kn, pn, rtol=0, atol=ATOL)
     assert int(ki) == int(pi)
     torch.testing.assert_close(ks, ps, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_round_default_block_never_measures(cuda, monkeypatch):
+    """Serving runs ``ROWS_PER_CTA`` rows a CTA: a round with no
+    ``n_block`` never asks the block picker (no timed launches)."""
+    def refuse(*a, **k):
+        raise AssertionError("greedy_round measured a block size")
+    monkeypatch.setattr(ops.autotune, "autotune_blocks", refuse)
+    x = torch.randn(777, 32, device=cuda)
+    mind = torch.full((777,), ref.BIG, device=cuda)
+    sel = torch.tensor([5], dtype=torch.int32, device=cuda)
+    before = ops.LAUNCHES["greedy_round"]
+    kn, ki, _ = ops.greedy_round(x, mind, x[5:6], sel)
+    assert ops.LAUNCHES["greedy_round"] == before + 1
+    pn, pi, _ = ops.greedy_round(x, mind, x[5:6], sel, impl="ref")
+    torch.testing.assert_close(kn, pn, rtol=0, atol=ATOL)
+    assert int(ki) == int(pi)
 
 
 @pytest.mark.cuda

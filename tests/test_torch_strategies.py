@@ -118,8 +118,14 @@ def test_unit_weights_match_reference():
 
 
 def test_select_sharded_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A5"):
-        zoo.get_strategy("kcg").select_sharded(rnglib.key(0), 3, [])
+    """Every zoo strategy has a sharded path now (``SHARDED_COMPLETE``;
+    tests/test_torch_sharding.py holds them); a Strategy built without one
+    still raises instead of silently taking another path."""
+    assert zoo.SHARDED_COMPLETE
+    assert all(s.sharded_fn is not None for s in zoo.ZOO.values())
+    bare = base.Strategy("bare", ("probs",), lambda *a, **k: None)
+    with pytest.raises(NotImplementedError, match="no sharded"):
+        bare.select_sharded(rnglib.key(0), 3, [])
 
 
 def test_torch_draws_are_deterministic_and_device_free():

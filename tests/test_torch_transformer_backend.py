@@ -212,7 +212,8 @@ def test_init_recipe_is_seeded_bf16_and_scaled():
 # ------------------------------------------------------- configs / yaml --
 def test_committed_config_examples_build_backends():
     """The worked configs/ examples load in the port: audio builds its
-    backend; text asks for replicas 3, which waits for ROADMAP A5."""
+    backend; text asks for replicas 3, which the port serves as written:
+    a few sequences pushed, a kcg query over its three shards."""
     audio = ALServiceConfig.from_yaml(str(ROOT / "configs" / "audio_al.yml"))
     be = make_backend(audio.model_name, config=audio)
     assert isinstance(be, TransformerBackend)
@@ -221,8 +222,16 @@ def test_committed_config_examples_build_backends():
     text = ALServiceConfig.from_yaml(str(ROOT / "configs" / "text_al.yml"))
     assert (text.model_name, text.model_modality, text.replicas) == \
         ("transformer", "text", 3)
-    with pytest.raises(NotImplementedError, match="A5"):
-        ALServer(text)
+    srv = ALServer(text)
+    try:
+        from repro_torch.data.synthetic import text_pool
+        toks, _ = text_pool(12, seq_len=text.model_seq_len, seed=2)
+        srv.push_data(list(toks))
+        assert len(set(srv.query(budget=3, strategy="kcg")["keys"])) == 3
+        st = srv.stats()
+        assert st["replicas"] == 3 and st["workers"]["lanes"] == 3
+    finally:
+        srv.close()
 
 
 def test_arch_registry():
