@@ -15,9 +15,13 @@ Phases, one line each (any failure raises and exits non-zero):
             with its median time from CUDA events, its bound, the plain
             version's time and a PyTorch library call's time. The two
             selection kernels are held at d = 512 (resnet18 features) and
-            d = 4,096 (qwen3-8b-wide text features); flash attention over
-            32 masks/shapes and timed at the text path's shape, and at
-            bf16 at the serve path's prefill shape (bf16 out);
+            d = 4,096 (qwen3-8b-wide text features), the argmin at both
+            widths under the tile plan it picks; flash attention (fp32
+            kernel) over 32 masks/shapes and timed at the text path's
+            shape; the bf16 tensor-core kernel over 96 masks/shapes (D 16,
+            64, 96 padded, 128; causal or not; row bytes independent of
+            the rows launched) and at the serve path's prefill shape
+            (bf16 out), timed there;
             gated_greedy_round at 50,000 x 512, n_block 256 (ragged last
             block): live share all / ~10 % / none, pending zeros and
             seeded, R 1 and 8, weights or not, planted ties across two
@@ -405,7 +409,8 @@ def check_argmin(ops, dev, rng):
     ties (center 3 duplicated at 259 and 515: the same offset in any
     power-of-two tile). Indices must match exactly on tie rows and
     on rows whose best and second-best distances differ by > 10 * ATOL;
-    on the other rows the kernel's pick must be within ATOL of the min."""
+    on the other rows the kernel's pick must be within ATOL of the min.
+    The outputs' bytes must not depend on the CTA tile or the rows."""
     worst, compared = 0.0, 0
     for n, m in ((10 * BUDGET, BUDGET), (10 * BUDGET - 3, BUDGET - 5)):
         x = torch.from_numpy((rng.standard_normal((n, D)) * 0.05).astype(
@@ -427,8 +432,20 @@ def check_argmin(ops, dev, rng):
         assert torch.equal(ka[sep], pa[sep]), (n, m)
         picked = torch.gather(d, 1, ka.long()[:, None])[:, 0]
         assert float((picked - pm).abs().max()) <= ATOL
+        argmin_bytes_invariant(ops, x, c, km, ka)
         worst, compared = max(worst, err), compared + int(sep.sum())
     return worst, compared
+
+
+def argmin_bytes_invariant(ops, x, c, km, ka):
+    """The argmin's outputs are the same bytes under two forced CTA tiles
+    and for a row subset against the full call."""
+    for plan in ((128, 64), (32, 32)):
+        vm, va = ops.pairwise_min_and_argmin(x, c, plan=plan)
+        assert torch.equal(vm, km) and torch.equal(va, ka), plan
+    sub = slice(7, x.shape[0] - 5)
+    sm, sa = ops.pairwise_min_and_argmin(x[sub], c)
+    assert torch.equal(sm, km[sub]) and torch.equal(sa, ka[sub])
 
 
 def time_argmin(ops, dev, rng):
@@ -489,6 +506,7 @@ def check_wide(ops, dev, rng):
     sep = (top2[:, 1] - top2[:, 0]) > 10 * ATOL
     sep[:50] = True
     assert bool((ka[:50] == 3).all()) and torch.equal(ka[sep], pa[sep])
+    argmin_bytes_invariant(ops, xa, c, km, ka)
 
     mind = torch.full((n,), 3.4e38, device=dev)
     c1, s1 = x[7:8], torch.tensor([7], dtype=torch.int32, device=dev)
@@ -565,12 +583,42 @@ def time_flash(fa, dev):
     return ms, plain, library, bound(nbytes, flops)
 
 
+BF16_FLASH_CASES = [(hd, g, s, w, c) for hd in (16, 64, 96, 128)
+                    for g in (1, 4) for s in (96, 500, 512)
+                    for w in (None, 128) for c in (True, False)]
+
+
 def check_flash_bf16(fa, dev):
-    """The serve path's prefill: B 16, S 512, H 32, KH 8, D 128, causal,
-    bf16, kv_block 512 (the config's kv_chunk 1,024 clamped to S). Out
-    must be bf16 and within ATT_TOL of the plain version; then the times.
-    Bound: the two products at the bf16 peak against q, k, v, out in bf16."""
+    """The bf16 tensor-core kernel against its plain version (naive
+    attention) over D in {16, 64, 96 (zero-padded to 128), 128}, G in
+    {1, 4}, S in {96, 500, 512}, window in {None, 128}, causal or not, at
+    B 2 and KH 2: out bf16 and within ATT_TOL, and each row bit-identical
+    when fewer query rows are launched. Then the serve path's prefill: B
+    16, S 512, H 32, KH 8, D 128, causal, bf16, checked the same way and
+    timed. Bound: the two products at the bf16 peak against q, k, v, out
+    in bf16."""
     import torch.nn.functional as F
+    tol = ATT_TOL[torch.bfloat16]
+    worst, cases = 0.0, 0
+    g = torch.Generator(device=dev).manual_seed(3)
+    for hd, grp, s, window, causal in BF16_FLASH_CASES:
+        q = torch.randn((2, s, 2 * grp, hd), generator=g,
+                        device=dev).bfloat16()
+        k, v = (torch.randn((2, s, 2, hd), generator=g,
+                            device=dev).bfloat16() for _ in range(2))
+        got = fa.flash_attention_auto(q, k, v, causal=causal, window=window)
+        want = fa.flash_attention_auto(q, k, v, causal=causal,
+                                       window=window, impl="ref")
+        rows = 300 if s > 300 else 50
+        part = fa.flash_attention_auto(q[:, :rows], k, v, causal=causal,
+                                       window=window)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16, got.dtype
+        case = (hd, grp, s, window, causal)
+        worst = max(worst, within(got, want, tol))
+        assert torch.equal(part, got[:, :rows]), ("query rows changed a row",
+                                                  case)
+        cases += 1
     b, s, h, kh, hd = SERVE_BATCH, SERVE_PROMPT, 32, 8, 128
     g = torch.Generator(device=dev).manual_seed(2)
     q = torch.randn((b, s, h, hd), generator=g, device=dev).bfloat16()
@@ -580,7 +628,7 @@ def check_flash_bf16(fa, dev):
     want = fa.flash_attention_auto(q, k, v, impl="ref")
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 == want.dtype, got.dtype
-    err = within(got, want, ATT_TOL[torch.bfloat16])
+    err = within(got, want, tol)
     ms = median_ms(lambda: fa.flash_attention_auto(q, k, v, kv_chunk=s))
     plain = median_ms(lambda: fa.flash_attention_auto(q, k, v, impl="ref"))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -589,11 +637,11 @@ def check_flash_bf16(fa, dev):
     flops = 4.0 * b * h * hd * s * (s + 1) / 2
     nbytes = 2.0 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
     bnd, by = bound(nbytes, flops, BF16_FLOPS_S)
-    return {"max_abs_err": err, "out_dtype": str(got.dtype),
-            "tolerance": ATT_TOL[torch.bfloat16],
-            "timed_shape": [b, s, h, kh, hd], "kv_block": s, "ms": ms,
-            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "library_ms": library}
+    return {"cases": cases, "max_abs_err_cases": worst, "max_abs_err": err,
+            "out_dtype": str(got.dtype), "tolerance": tol,
+            "timed_shape": [b, s, h, kh, hd], "kv_block": "fixed 64 keys",
+            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library, "ms_over_library": ms / library}
 
 
 def _logits(g, n, v, dev, scale=3.0):
@@ -1262,10 +1310,14 @@ def run_text(cfg, be, counters):
 
 # ----------------------------------------------------------------- serve --
 # The kernel path and the plain path of the same bf16 model, teacher-forced
-# on the same tokens. The kernels keep q, p and the flash products in fp32
-# where the plain path rounds them to bf16, and sum in other orders; over
-# 36 bf16 layers that moves the fp32 logits (O(1) here: random weights)
-# by up to ~0.1 (0.098 on an H100 80GB HBM3 at 700 W). Random weights
+# on the same tokens. Both round p to bf16 before p.v, but the flash
+# kernel's products run on the tensor cores in other sum orders, over
+# fixed 64-key tiles (the plain path's softmax is one-shot over the
+# prompt), in base 2; decode_attention keeps q and p in fp32 where the
+# plain path rounds them to bf16. Over 36 bf16 layers that moves the fp32
+# logits (O(1) here: random weights) by up to ~0.1 (0.098 on an H100 80GB
+# HBM3 at 700 W with the fp32 flash kernel inside, 0.094 with the bf16
+# tensor-core one). Random weights
 # give near-uniform next-token distributions (p1 ~ 4e-4), where lc = 1 - p1
 # and mc = p2 - p1 cannot move by 1e-3 whatever the kernels do; so lc is
 # compared as log p1 = log(1 - lc) and mc as mc / p1 = mc / (1 - lc),
@@ -1585,6 +1637,13 @@ def run(tune_dir) -> int:
                         "launches": total, "launches_by_path": by_path,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bnd, "bound_by": by, "library_ms": lib})
+    # the flash row's numbers are the fp32 kernel's (text path); the bf16
+    # kernel's (serve prefill) stand beside them
+    flash = next(r for r in kernels if r["name"] == "flash_attention")
+    flash["bf16_source"] = src + "flash_attention/csrc/flash_attention_bf16.cu"
+    flash.update({"bf16_" + k: f_bf16[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,8 @@ SOURCES: Dict[str, Path] = {
         KERNELS_DIR / "pairwise" / "csrc" / "pairwise_min_argmin.cu",
     "flash_attention":
         KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bf16":
+        KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bf16.cu",
     "uncertainty_stats":
         KERNELS_DIR / "uncertainty" / "csrc" / "uncertainty_stats.cu",
     "decode_attention":

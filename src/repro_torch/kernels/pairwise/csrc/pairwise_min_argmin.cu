@@ -7,33 +7,50 @@
 // the lowest j reaching it, without ever writing the (N, M) matrix.
 //
 // What bounds it on the H100: at DBAL's shapes (N = 10·budget rows, M =
-// budget centers, d = 512) it is fp32 operations — 2·N·M·d FMAs against
-// (N + M)·d·4 bytes read, about M/2 operations per byte. TF32 is off, so
-// the tensor cores are not in play and the ceiling is the 67 TFLOP/s of
-// the fp32 units.
-// What the design does about it: a register-tiled product. A block owns
-// 64 rows and walks every center in 64-center tiles; a 16x16 thread grid
-// holds a 4x4 micro-tile of dot products each, fed from shared-memory
-// tiles of x and c (16 features deep), so each value loaded from shared
-// memory feeds four FMAs. Each dot product accumulates over d in one
-// fixed order. Every thread keeps a running (min, argmin) for its four
-// rows over the centers it visits, in ascending center order with a
-// strict <, and the 16 threads sharing a row reduce their pairs with the
-// explicit rule (value asc, index asc): ties go to the lowest center.
-// The ragged edges of N, M and d are masked in the kernel, not padded.
-// Squared norms come from a small first pass (``sq_norms_kernel``) into
-// scratch the wrapper allocates.
+// budget centers, d = 512) and the text path's (2,048 × 256, d = 4,096)
+// it is fp32 operations — 2·N·M·d FLOP against (N + M)·d·4 bytes read,
+// about M/2 operations per byte. TF32 is off, so the tensor cores are not
+// in play and the ceiling is the 67 TFLOP/s of the fp32 units.
+// What the design does about it:
+// - The grid covers row tiles × center tiles, so a small pool still
+//   fills the card (2,048 × 256 is 512 CTAs of 32 × 32, where one CTA per
+//   64 rows gave 32 CTAs on 132 SMs). The tile (BM rows × BN centers) is
+//   a launch parameter; the wrapper (``ops.argmin_plan``) picks the
+//   largest tile whose grid holds at least two CTAs per SM
+//   (``scripts/kernel_variants.py`` times every tile at the main paths'
+//   shapes).
+// - Each thread holds an 8 × 4 register micro-tile of dot products (rows
+//   ty + i·BM/8, centers tx + j·BN/4), fed by 16-byte shared-memory loads
+//   of four features of a row: 12 loads for 128 FMAs.
+// - The x and c tiles are staged row-major with rows padded to 20 floats
+//   (the 8 rows or centers a quarter-warp reads fall in 8 distinct bank
+//   groups) through a ring of 3 shared-memory stages, filled by 16-byte
+//   cp.async copies (4-byte ones when d is not a multiple of 4) that mask
+//   the ragged edges of N, M and d with zeros; the copies of stage k + 2
+//   run under the products of stage k.
+// - Each CTA writes its rows' (min, argmin) over its center tile to
+//   scratch of shape (center tiles, N); a second small pass merges the
+//   tiles in ascending order under (value asc, index asc).
+//
+// Exactness: every (row, center) distance is computed as the first,
+// row-tiled version of this kernel computed it, whatever the tile: x²
+// and c² from ``sq_norms_kernel``, the dot product as one thread's fmaf
+// chain over d ascending from 0 (zero features past d add +0), dist =
+// fmaxf(xn + cn − 2·acc, 0). Minima combine only under (value asc,
+// index asc), so ties go to the lowest center for every tile, and the
+// outputs are bit-identical across tile plans, across row subsets and
+// to that version. No atomics and no split over d (that would reorder
+// the dot products).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;   // rows per block
-constexpr int BN = 64;   // centers per tile
-constexpr int BK = 16;   // features per shared-memory stage
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // centers per thread
-constexpr int kThreads = (BM / TM) * (BN / TN);   // 256
+constexpr int BK = 16;       // features per stage
+constexpr int KP = BK + 4;   // a staged row, padded: 20 floats
+constexpr int STAGES = 3;    // cp.async ring depth
+constexpr int TM = 8;        // rows per thread
+constexpr int TN = 4;        // centers per thread
 constexpr float kBig = 3.4e38f;
 
 __global__ void sq_norms_kernel(const float* __restrict__ a, float* __restrict__ out,
@@ -49,110 +66,230 @@ __global__ void sq_norms_kernel(const float* __restrict__ a, float* __restrict__
   if (lane == 0) out[row] = s;
 }
 
-__global__ void __launch_bounds__(kThreads)
-min_argmin_kernel(const float* __restrict__ x, const float* __restrict__ c,
-                  const float* __restrict__ x2, const float* __restrict__ c2,
-                  float* __restrict__ out_min, int* __restrict__ out_arg,
-                  int n, int m, int d) {
-  __shared__ float xs[BK][BM];     // transposed tiles: [feature][row]
-  __shared__ float cs[BK][BN];
-  __shared__ float red_v[BN / TN][BM];
-  __shared__ int red_i[BN / TN][BM];
+// Asynchronous copies global -> shared of 16 or 4 bytes; they zero-fill
+// when !ok (the source is then not read, but must still be a valid
+// address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
 
-  const int tx = threadIdx.x % (BN / TN);   // center group
-  const int ty = threadIdx.x / (BN / TN);   // row group
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// (value asc, index asc): is (v, i) before (bv, bi)?
+__device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
+  return v < bv || (v == bv && i < bi);
+}
+
+template <int BM, int BN>
+struct Tile {
+  static constexpr int kThreads = (BM / TM) * (BN / TN);
+  float xs[STAGES][BM][KP];   // [stage][row][feature]
+  float cs[STAGES][BN][KP];   // [stage][center][feature]
+};
+
+// Stages features [k0, k0 + BK) of the CTA's rows and centers. VEC: d is
+// a multiple of 4 and the arrays 16-byte aligned, so a row's features
+// move 4 at a time; a warp reads 64-byte runs of 8 rows.
+template <int BM, int BN, bool VEC>
+__device__ __forceinline__ void stage_tiles(Tile<BM, BN>& t, int st,
+                                            const float* __restrict__ x,
+                                            const float* __restrict__ c,
+                                            int row0, int col0, int k0,
+                                            int n, int m, int d) {
+  constexpr int W = VEC ? 4 : 1;          // features a copy
+  for (int e = threadIdx.x; e < (BM + BN) * (BK / W);
+       e += Tile<BM, BN>::kThreads) {
+    const int r = e / (BK / W), kk = W * (e % (BK / W)), k = k0 + kk;
+    const bool is_x = r < BM;
+    const int i = is_x ? row0 + r : col0 + r - BM;
+    const bool ok = i < (is_x ? n : m) && k < d;
+    const float* base = is_x ? x : c;
+    float* dst = is_x ? &t.xs[st][r][kk] : &t.cs[st][r - BM][kk];
+    const float* src = ok ? base + (size_t)i * d + k : base;
+    if constexpr (VEC)
+      cp_async16(dst, src, ok);
+    else
+      cp_async4(dst, src, ok);
+  }
+}
+
+template <int BM, int BN, bool VEC>
+__global__ void __launch_bounds__(Tile<BM, BN>::kThreads)
+tile_min_argmin_kernel(const float* __restrict__ x,
+                       const float* __restrict__ c,
+                       const float* __restrict__ x2,
+                       const float* __restrict__ c2,
+                       float* __restrict__ part_min,
+                       int* __restrict__ part_arg, int n, int m, int d) {
+  constexpr int GX = BN / TN;               // threads along the centers
+  constexpr int GY = BM / TM;               // threads along the rows
+  static_assert(GX <= 32 && 32 % GX == 0, "a row's threads share a warp");
+  __shared__ __align__(16) Tile<BM, BN> t;
+
+  const int tx = threadIdx.x % GX;
+  const int ty = threadIdx.x / GX;
   const int row0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * BN;
+  const int nk = (d + BK - 1) / BK;
 
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      stage_tiles<BM, BN, VEC>(t, s, x, c, row0, col0, s * BK, n, m, d);
+    cp_async_commit();                      // empty groups keep the count
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();            // this thread's copies of kt
+    __syncthreads();                        // ... everyone's; kt-1 is read
+    const int nt = kt + STAGES - 1;
+    if (nt < nk)
+      stage_tiles<BM, BN, VEC>(t, nt % STAGES, x, c, row0, col0, nt * BK, n,
+                               m, d);
+    cp_async_commit();
+    const int st = kt % STAGES;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float4 a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(&t.xs[st][ty + i * GY][k4]);
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        b[j] = *reinterpret_cast<const float4*>(&t.cs[st][tx + j * GX][k4]);
+      // each dot product stays one fmaf chain over d ascending
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  // distances of this tile; ascending center order, strict <
   float best[TM];
   int besti[TM];
-#pragma unroll
-  for (int a = 0; a < TM; ++a) { best[a] = kBig; besti[a] = 0; }
-
   float xn[TM];
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    const int row = row0 + ty * TM + a;
-    xn[a] = row < n ? x2[row] : 0.f;
+  for (int i = 0; i < TM; ++i) {
+    const int row = row0 + ty + i * GY;
+    xn[i] = row < n ? x2[row] : 0.f;
+    best[i] = kBig;
+    besti[i] = 0;
   }
-
-  for (int col0 = 0; col0 < m; col0 += BN) {
-    float acc[TM][TN];
 #pragma unroll
-    for (int a = 0; a < TM; ++a)
+  for (int j = 0; j < TN; ++j) {
+    const int col = col0 + tx + j * GX;
+    if (col < m) {
+      const float cn = c2[col];
 #pragma unroll
-      for (int b = 0; b < TN; ++b) acc[a][b] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += BK) {
-      // each thread stages 4 values of each tile (BM*BK / 256 = 4)
-      for (int t = threadIdx.x; t < BM * BK; t += kThreads) {
-        const int rr = t / BK, kk = t % BK;
-        const int row = row0 + rr, k = k0 + kk;
-        xs[kk][rr] = (row < n && k < d) ? x[(size_t)row * d + k] : 0.f;
-        const int col = col0 + rr;
-        cs[kk][rr] = (col < m && k < d) ? c[(size_t)col * d + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float xa[TM], cb[TN];
-#pragma unroll
-        for (int a = 0; a < TM; ++a) xa[a] = xs[kk][ty * TM + a];
-#pragma unroll
-        for (int b = 0; b < TN; ++b) cb[b] = cs[kk][tx * TN + b];
-#pragma unroll
-        for (int a = 0; a < TM; ++a)
-#pragma unroll
-          for (int b = 0; b < TN; ++b) acc[a][b] = fmaf(xa[a], cb[b], acc[a][b]);
-      }
-      __syncthreads();
-    }
-    // distances for this tile; ascending center order, strict <
-#pragma unroll
-    for (int b = 0; b < TN; ++b) {
-      const int col = col0 + tx * TN + b;
-      if (col < m) {
-        const float cn = c2[col];
-#pragma unroll
-        for (int a = 0; a < TM; ++a) {
-          const float dist = fmaxf(xn[a] + cn - 2.0f * acc[a][b], 0.0f);
-          if (dist < best[a]) { best[a] = dist; besti[a] = col; }
-        }
+      for (int i = 0; i < TM; ++i) {
+        const float dist = fmaxf(xn[i] + cn - 2.0f * acc[i][j], 0.0f);
+        if (dist < best[i]) { best[i] = dist; besti[i] = col; }
       }
     }
   }
-
-  // reduce the (min, argmin) pairs of the BN/TN threads sharing each row
+  // the GX threads of a row group are GX consecutive lanes of one warp;
+  // (value asc, index asc) is a total order, so every lane ends with the
+  // same pair whatever the shuffle tree
 #pragma unroll
-  for (int a = 0; a < TM; ++a) {
-    red_v[tx][ty * TM + a] = best[a];
-    red_i[tx][ty * TM + a] = besti[a];
-  }
-  __syncthreads();
-  if (threadIdx.x < BM) {
-    const int rr = threadIdx.x;
-    float bv = red_v[0][rr];
-    int bi = red_i[0][rr];
-    for (int q = 1; q < BN / TN; ++q) {
-      const float v = red_v[q][rr];
-      const int i = red_i[q][rr];
-      if (v < bv || (v == bv && i < bi)) { bv = v; bi = i; }
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int off = GX / 2; off > 0; off >>= 1) {
+      const float v = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int ix = __shfl_xor_sync(0xffffffffu, besti[i], off);
+      if (before(v, ix, best[i], besti[i])) { best[i] = v; besti[i] = ix; }
     }
-    const int row = row0 + rr;
-    if (row < n) { out_min[row] = bv; out_arg[row] = bi; }
   }
+  if (tx == 0) {
+    float* pm = part_min + (size_t)blockIdx.y * n;
+    int* pa = part_arg + (size_t)blockIdx.y * n;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = row0 + ty + i * GY;
+      if (row < n) { pm[row] = best[i]; pa[row] = besti[i]; }
+    }
+  }
+}
+
+// One thread a row: the center tiles' pairs in ascending tile order.
+__global__ void merge_tiles_kernel(const float* __restrict__ part_min,
+                                   const int* __restrict__ part_arg,
+                                   float* __restrict__ out_min,
+                                   int* __restrict__ out_arg, int n,
+                                   int tiles) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float bv = part_min[row];
+  int bi = part_arg[row];
+  for (int t = 1; t < tiles; ++t) {
+    const float v = part_min[(size_t)t * n + row];
+    const int i = part_arg[(size_t)t * n + row];
+    if (before(v, i, bv, bi)) { bv = v; bi = i; }
+  }
+  out_min[row] = bv;
+  out_arg[row] = bi;
+}
+
+template <int BM, int BN>
+int launch_tiles(const float* x, const float* c, const float* x2,
+                 const float* c2, float* part_min, int* part_arg, int n,
+                 int m, int d, cudaStream_t s) {
+  const dim3 grid((n + BM - 1) / BM, (m + BN - 1) / BN);
+  constexpr int threads = Tile<BM, BN>::kThreads;
+  if (d % 4 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)c % 16 == 0)
+    tile_min_argmin_kernel<BM, BN, true><<<grid, threads, 0, s>>>(
+        x, c, x2, c2, part_min, part_arg, n, m, d);
+  else
+    tile_min_argmin_kernel<BM, BN, false><<<grid, threads, 0, s>>>(
+        x, c, x2, c2, part_min, part_arg, n, m, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the norm pass and the min/argmin pass on ``stream``; allocates
-// nothing (x2 (n,) and c2 (m,) are scratch from the caller). Returns
-// cudaGetLastError() after the launches.
+// Launches the norm pass, the tile pass over (rows / bm) x (centers / bn)
+// CTAs and the merge pass on ``stream``; allocates nothing (x2 (n,), c2
+// (m,) and the partials (ceil(m / bn), n) are scratch from the caller).
+// The tile (bm, bn) is one of (128, 64), (64, 64), (32, 64), (32, 32);
+// any other, or more than 65,535 center tiles, returns
+// cudaErrorInvalidValue. Otherwise returns cudaGetLastError() after the
+// launches.
 int pairwise_min_argmin_f32(const float* x, const float* c, float* x2,
-                            float* c2, float* out_min, int* out_arg, int n,
-                            int m, int d, void* stream) {
-  if (n <= 0 || m <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+                            float* c2, float* part_min, int* part_arg,
+                            float* out_min, int* out_arg, int n, int m,
+                            int d, int bm, int bn, void* stream) {
+  if (n <= 0 || m <= 0 || d <= 0 || bn <= 0 || (m + bn - 1) / bn > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int warps = 8;
   sq_norms_kernel<<<(n + warps - 1) / warps, warps * 32, 0, s>>>(x, x2, n, d);
@@ -161,8 +298,20 @@ int pairwise_min_argmin_f32(const float* x, const float* c, float* x2,
   sq_norms_kernel<<<(m + warps - 1) / warps, warps * 32, 0, s>>>(c, c2, m, d);
   err = (int)cudaGetLastError();
   if (err) return err;
-  min_argmin_kernel<<<(n + BM - 1) / BM, kThreads, 0, s>>>(
-      x, c, x2, c2, out_min, out_arg, n, m, d);
+  if (bm == 128 && bn == 64)
+    err = launch_tiles<128, 64>(x, c, x2, c2, part_min, part_arg, n, m, d, s);
+  else if (bm == 64 && bn == 64)
+    err = launch_tiles<64, 64>(x, c, x2, c2, part_min, part_arg, n, m, d, s);
+  else if (bm == 32 && bn == 64)
+    err = launch_tiles<32, 64>(x, c, x2, c2, part_min, part_arg, n, m, d, s);
+  else if (bm == 32 && bn == 32)
+    err = launch_tiles<32, 32>(x, c, x2, c2, part_min, part_arg, n, m, d, s);
+  else
+    return (int)cudaErrorInvalidValue;
+  if (err) return err;
+  const int threads = 256;
+  merge_tiles_kernel<<<(n + threads - 1) / threads, threads, 0, s>>>(
+      part_min, part_arg, out_min, out_arg, n, (m + bn - 1) / bn);
   return (int)cudaGetLastError();
 }
 

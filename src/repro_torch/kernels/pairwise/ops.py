@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import threading
 
 import numpy as np
@@ -141,39 +142,72 @@ def _lib(name: str):
             fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
         else:
             fn = lib.pairwise_min_argmin_f32
-            fn.argtypes = [p, p, p, p, p, p, i, i, i, p]
+            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
         _BOUND[name] = fn
     return fn
 
 
 # ------------------------------------------------- pairwise reductions ----
-def _pairwise_min_and_argmin_cuda(x, c):
+# The min/argmin kernel's CTA tiles (rows, centers), largest first: the
+# template instances of ``csrc/pairwise_min_argmin.cu``.
+ARGMIN_TILES = ((128, 64), (64, 64), (32, 64), (32, 32))
+H100_SMS = 132
+
+
+def argmin_plan(n: int, m: int, sms: int = H100_SMS):
+    """The min/argmin kernel's (rows, centers) CTA tile for an (n, m)
+    call: the largest tile whose grid holds at least two CTAs per SM, or
+    the smallest tile where none does. The plan changes no result, only
+    how the (n, m) distances are cut among CTAs."""
+    for bm, bn in ARGMIN_TILES:
+        if -(-n // bm) * -(-m // bn) >= 2 * sms:
+            return bm, bn
+    return ARGMIN_TILES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _pairwise_min_and_argmin_cuda(x, c, plan=None):
     dev = x.device
     x, c = _f32(x, dev), _f32(c, dev)
     n, d = x.shape
     m, dc = c.shape
     if dc != d:
         raise ValueError(f"x has {d} features, centers have {dc}")
+    if plan is None:
+        plan = argmin_plan(n, m, _sm_count(dev.index if dev.index is not None
+                                           else torch.cuda.current_device()))
+    bm, bn = (int(v) for v in plan)
+    if (bm, bn) not in ARGMIN_TILES:
+        raise ValueError(f"no min/argmin tile {plan}; one of {ARGMIN_TILES}")
     fn = _lib("pairwise_min_argmin")
     x2 = torch.empty((n,), dtype=torch.float32, device=dev)
     c2 = torch.empty((m,), dtype=torch.float32, device=dev)
+    tiles = -(-m // bn)
+    part_min = torch.empty((tiles, n), dtype=torch.float32, device=dev)
+    part_arg = torch.empty((tiles, n), dtype=torch.int32, device=dev)
     out_min = torch.empty((n,), dtype=torch.float32, device=dev)
     out_arg = torch.empty((n,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        _check(fn(_ptr(x), _ptr(c), _ptr(x2), _ptr(c2), _ptr(out_min),
-                  _ptr(out_arg), n, m, d, _stream(dev)),
-               "pairwise_min_argmin")
+        _check(fn(_ptr(x), _ptr(c), _ptr(x2), _ptr(c2), _ptr(part_min),
+                  _ptr(part_arg), _ptr(out_min), _ptr(out_arg), n, m, d, bm,
+                  bn, _stream(dev)), "pairwise_min_argmin")
     launches.bump(LAUNCHES, "pairwise_min_argmin")
     return out_min, out_arg
 
 
-def pairwise_min_and_argmin(x, c, impl: str = "auto"):
+def pairwise_min_and_argmin(x, c, impl: str = "auto", plan=None):
     """Both (min_d (N,) f32, argmin (N,) i32) from ONE pass: ties go to the
-    lowest center index."""
+    lowest center index. ``plan`` forces the kernel's (rows, centers) CTA
+    tile (one of ``ARGMIN_TILES``; default ``argmin_plan``); it changes no
+    result."""
     _record(x, emb_reads=1, vec_streams=2)
     if _use_kernel(x, impl):
-        return _pairwise_min_and_argmin_cuda(x, c)
+        return _pairwise_min_and_argmin_cuda(x, c, plan)
     return ref.pairwise_min_and_argmin_ref(x, c)
 
 

@@ -30,6 +30,24 @@ def pairwise_min_and_argmin_ref(x, c):
     return torch.gather(d, 1, idx[:, None])[:, 0], idx.to(torch.int32)
 
 
+def tiled_min_and_argmin_ref(x, c, bn: int):
+    """The min/argmin kernel's cut in plain form: the plain version over
+    each tile of ``bn`` centers, then the kernel's merge pass — the tiles
+    in ascending order under (value asc, index asc), so ties go to the
+    lowest center whatever ``bn``."""
+    best_v = best_i = None
+    for t0 in range(0, c.shape[0], bn):
+        v, i = pairwise_min_and_argmin_ref(x, c[t0:t0 + bn])
+        i = i + t0
+        if best_v is None:
+            best_v, best_i = v, i
+            continue
+        take = (v < best_v) | ((v == best_v) & (i < best_i))
+        best_v = torch.where(take, v, best_v)
+        best_i = torch.where(take, i, best_i)
+    return best_v, best_i
+
+
 def greedy_round_ref(x, mind, centers, sel_idx, weights=None):
     """Plain version of the fused greedy round (contract in ``ops``).
 

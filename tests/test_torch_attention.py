@@ -120,6 +120,39 @@ def test_cpu_path_launches_nothing():
     assert ops.LAUNCHES == {"flash_attention": 0}
 
 
+@pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (64, 64),
+                                    (96, 128), (128, 128), (200, 256),
+                                    (256, 256)])
+def test_bf16_head_dim_padding_rule(d, want):
+    """The bf16 kernel's instances are D 16, 32, 64, 128, 256: any other
+    head dim is padded to the next one."""
+    assert ops.padded_head_dim(d) == want
+    t = torch.ones((1, 3, 2, d), dtype=torch.bfloat16)
+    p = ops.pad_head_dim(t, want)
+    assert p.shape == (1, 3, 2, want) and p.is_contiguous()
+    assert torch.equal(p[..., :d], t) and not p[..., d:].any()
+
+
+@pytest.mark.parametrize("d", [257, 320])
+def test_bf16_head_dim_over_256_raises(d):
+    with pytest.raises(ValueError, match="does not take head_dim"):
+        ops.padded_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [12, 96])
+def test_head_dim_padding_is_exact(d):
+    """Zero features add nothing to q.k and give zero output columns: the
+    padded call, sliced, is the unpadded one at the caller's scale."""
+    q, k, v = _t(*_qkv(5, 33, 2, d))
+    dp = ops.padded_head_dim(d)
+    want = pattn.naive_attention(q, k, v, window=9)
+    got = pattn.naive_attention(*(ops.pad_head_dim(t, dp) for t in (q, k, v)),
+                                window=9, scale=d ** -0.5)
+    np.testing.assert_allclose(got[..., :d].numpy(), want.numpy(), rtol=0,
+                               atol=1e-6)
+    assert not got[..., d:].any()
+
+
 # ------------------------------------------------------------ on the card --
 @pytest.fixture
 def cuda():
@@ -162,3 +195,37 @@ def test_cuda_flash_attention_rejects_what_it_cannot_take(cuda, D, kb):
     with pytest.raises(ValueError, match="does not take"):
         ops.flash_attention_auto(q, k, k, kv_chunk=kb)
     assert ops.LAUNCHES == {"flash_attention": 0}
+
+
+BF16_TOL = 3e-2         # chip_smoke.ATT_TOL[bfloat16], as allclose
+BF16_CASES = [(D, G, S, w, c) for D in (16, 64, 96, 128) for G in (1, 4)
+              for S in (96, 500, 512) for w in (None, 128)
+              for c in (True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,G,S,window,causal", BF16_CASES)
+def test_cuda_flash_attention_bf16_matches_plain(cuda, D, G, S, window,
+                                                 causal):
+    """The bf16 tensor-core kernel against the plain version (naive
+    attention) at ATT_TOL[bf16]; bf16 out; a row's bytes do not depend on
+    how many query rows are launched."""
+    rng = np.random.default_rng(D * 1_000 + G * 100 + S + (window or 0))
+    KH = 2
+    q = torch.from_numpy(rng.standard_normal((2, S, KH * G, D)).astype(
+        np.float32)).to(cuda).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((2, S, KH, D)).astype(
+        np.float32)).to(cuda).bfloat16() for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention_auto(q, k, v, causal=causal, window=window)
+    assert ops.LAUNCHES == {"flash_attention": 1}
+    want = ops.flash_attention_auto(q, k, v, causal=causal, window=window,
+                                    impl="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    rows = 300 if S > 300 else 50
+    part = ops.flash_attention_auto(q[:, :rows], k, v, causal=causal,
+                                    window=window)
+    assert torch.equal(part, got[:, :rows])

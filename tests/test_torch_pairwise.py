@@ -193,6 +193,82 @@ def test_op_accounting_counts_pool_reads():
     assert st["hbm_bytes"] == 4 * (96 * 16 + 2 * 96)
 
 
+@pytest.mark.parametrize("n,m", [(2_048, 256), (10_000, 1_000), (1, 1),
+                                 (257, 65), (10_001, 1_001), (50_000, 1)])
+@pytest.mark.parametrize("sms", [ops.H100_SMS, 8])
+def test_argmin_plan_covers_centers_and_fills_the_card(n, m, sms):
+    """The kernel's CTA tile: one of its instances, its center tiles cover
+    M exactly with no empty tile, and its grid holds >= 2 CTAs per SM
+    whenever the smallest tile's grid does (the largest such tile)."""
+    bm, bn = ops.argmin_plan(n, m, sms)
+    assert (bm, bn) in ops.ARGMIN_TILES
+    tiles = -(-m // bn)
+    assert (tiles - 1) * bn < m <= tiles * bn
+    assert (-(-n // bm) - 1) * bm < n <= -(-n // bm) * bm
+
+    def ctas(t):
+        return -(-n // t[0]) * -(-m // t[1])
+    fits = [t for t in ops.ARGMIN_TILES if ctas(t) >= 2 * sms]
+    if fits:
+        assert (bm, bn) == fits[0] and ctas((bm, bn)) >= 2 * sms
+    else:
+        assert (bm, bn) == ops.ARGMIN_TILES[-1]
+
+
+def test_argmin_plan_at_the_main_paths_shapes():
+    assert ops.argmin_plan(2_048, 256) == (32, 32)       # 512 CTAs, was 32
+    assert ops.argmin_plan(10_000, 1_000) == (128, 64)   # 1,264 CTAs
+
+
+def _int_pool(seed, n, d):
+    """Small integers: every distance is exact in fp32 in any sum order,
+    so exact ties are plentiful and every package computes equal bits."""
+    return np.random.default_rng(seed).integers(-2, 3, size=(n, d)).astype(
+        np.float32)
+
+
+def _boundary_ties(x, c):
+    """Duplicate centers on both sides of the 32- and 64-center tile
+    boundaries, and rows nearest them: the lower index must win."""
+    for lo in (31, 63):
+        c[lo + 1] = c[lo]
+    c[100] = c[31]
+    x[:8] = c[31] + 0.25       # only exact copies of c[31] are as near
+    x[8:16] = c[63] - 0.25
+
+
+@pytest.mark.parametrize("bn", [32, 64])
+def test_tiled_merge_equals_one_shot_bitwise(bn):
+    """The kernel's cut in plain form (the plain version over each center
+    tile, merged in ascending tile order under (value asc, index asc))
+    equals the one-shot plain version bit for bit, ties at tile
+    boundaries included."""
+    x, c = _int_pool(21, 200, 6), _int_pool(22, 150, 6)
+    _boundary_ties(x, c)
+    tx, tc = torch.from_numpy(x), torch.from_numpy(c)
+    tv, ti = ref.tiled_min_and_argmin_ref(tx, tc, bn)
+    ov, oi = ref.pairwise_min_and_argmin_ref(tx, tc)
+    assert torch.equal(tv, ov) and torch.equal(ti, oi)
+    for rows, lo in ((slice(0, 8), 31), (slice(8, 16), 63)):
+        first = int(np.flatnonzero((c == c[lo]).all(axis=1))[0])
+        assert first <= lo and (ti[rows] == first).all()
+
+
+@pytest.mark.parametrize("bn", [32, 64])
+def test_tiled_merge_matches_reference_center_blocks(rops, bn):
+    """The same tie rule as the reference kernel's center blocks
+    (``pairwise_min_argmin_pallas`` with m_block = bn, interpret mode)."""
+    from repro.kernels.pairwise.kernel import pairwise_min_argmin_pallas
+    x, c = _int_pool(23, 96, 6), _int_pool(24, 130, 6)
+    _boundary_ties(x, c)
+    tv, ti = ref.tiled_min_and_argmin_ref(torch.from_numpy(x),
+                                          torch.from_numpy(c), bn)
+    rv, ri = pairwise_min_argmin_pallas(_j(x), _j(c), n_block=32,
+                                        m_block=bn, interpret=True)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+
+
 # ------------------------------------------------------------ on the card --
 @pytest.fixture
 def cuda():
@@ -259,3 +335,57 @@ def test_cuda_pairwise_min_argmin_matches_plain(cuda, n, m):
     torch.cuda.synchronize()
     torch.testing.assert_close(km, pm, rtol=0, atol=ATOL)
     assert torch.equal(ka, pa)
+
+
+ARGMIN_NS = [1, 257, 2_048, 10_001]
+ARGMIN_MS = [1, 63, 64, 65, 1_001]
+ARGMIN_DS = [3, 80, 513, 4_096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", ARGMIN_DS)
+@pytest.mark.parametrize("m", ARGMIN_MS)
+@pytest.mark.parametrize("n", ARGMIN_NS)
+def test_cuda_pairwise_min_argmin_tiles(cuda, n, m, d):
+    """Values within ATOL of the plain version; indices equal to its on
+    separated rows, and the lowest center on ties planted on both sides of
+    the 32- and 64-center tile boundaries; bytes equal under two forced tile plans and for a row
+    subset against the full call."""
+    rng = np.random.default_rng(n * 7 + m * 3 + d)
+    scale = 0.25 / np.sqrt(max(d / 16, 1.0))         # O(1) distances
+    x = torch.from_numpy((rng.normal(size=(n, d)) * scale).astype(
+        np.float32)).to(cuda)
+    c = torch.from_numpy((rng.normal(size=(m, d)) * scale).astype(
+        np.float32)).to(cuda)
+    planted = torch.zeros(n, dtype=torch.bool, device=cuda)
+    ties, k = [], min(n // 2, 8)
+    for i, lo in enumerate((31, 63)):
+        if m > lo + 1 and k > 0:
+            c[lo + 1] = c[lo]                       # lo must win
+            rows = slice(i * k, (i + 1) * k)
+            x[rows] = c[lo] + 1e-3
+            planted[rows] = True
+            ties.append((rows, lo))
+    km, ka = ops.pairwise_min_and_argmin(x, c)
+    pm, pa = ops.pairwise_min_and_argmin(x, c, impl="ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(km, pm, rtol=0, atol=ATOL)
+    if m > 1:
+        top2 = torch.topk(ops.pairwise_sq_dists(x, c), 2, dim=1,
+                          largest=False).values
+        sep = ((top2[:, 1] - top2[:, 0]) > 10 * ATOL) & ~planted
+    else:
+        sep = torch.ones(n, dtype=torch.bool, device=cuda)
+    assert torch.equal(ka[sep], pa[sep])
+    # planted ties are held to the rule itself: the plain version's cuBLAS
+    # product need not give two equal centers equal bits (at d = 513 it
+    # does not), the kernel's per-center fmaf chains do
+    for rows, lo in ties:
+        assert bool((ka[rows] == lo).all()), (rows, lo)
+    for plan in ((128, 64), (32, 32)):
+        vm, va = ops.pairwise_min_and_argmin(x, c, plan=plan)
+        assert torch.equal(vm, km) and torch.equal(va, ka), plan
+    if n > 8:
+        sub = slice(5, n - 3)
+        sm, sa = ops.pairwise_min_and_argmin(x[sub], c)
+        assert torch.equal(sm, km[sub]) and torch.equal(sa, ka[sub])
