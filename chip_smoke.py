@@ -32,8 +32,12 @@ Phases, one line each (any failure raises and exits non-zero):
             exactly 0), timed at the decode shape (16 rows) and a
             pool-scoring shape (4,096 rows); decode_attention over the
             reference's four cases and the qwen3-8b decode shape (B 16,
-            cache 1,024, cur_len 577, bf16, window none and 128), timed
-            there.
+            cache 1,024, cur_len 577, bf16, window none and 128; bytes
+            equal across cache capacities 640 and 1,024 and across
+            runs), timed there warm in L2, L2-cold over rotating caches
+            and by torch.profiler (the kernels' own device time), with
+            the host's time to enqueue a call; greedy_round also timed
+            at the prefilter's fold shape (256 x 512, R = 1).
 3. picker   the block picker on the card: ``autotune_blocks(50,000, 512,
             measure=True)`` for the plain round and the gated round, into a
             temporary cache directory; each candidate ``n_block``'s time
@@ -77,7 +81,8 @@ Phases, one line each (any failure raises and exits non-zero):
             do not depend on the query rows launched is what can fail),
             bit-identical when the sequences are batched with other
             batchmates (a permutation), and within the stated tolerance
-            of the chunked path.
+            of the chunked path; then one 32-sequence batch under
+            torch.profiler (device time by kernel class).
 8. text     text AL over TCP: an ALServer with that TransformerBackend, a
             2,048-sequence token pool (lengths 256-512, vocab 151,936)
             pushed 256 at a time, a 512-sequence eval set, lc/kcg/dbal/
@@ -127,6 +132,9 @@ HBM_BYTES_S = 3.35e12                    # H100 SXM HBM3
 FP32_FLOPS_S = 67e12                     # H100 SXM fp32, outside tensor cores
 ATOL = 1e-5                              # fp32 values, at O(1) sq-distances
 REPS, INNER = 15, 10                     # timing samples, calls per sample
+PROFILED_CALLS = 30                      # calls under torch.profiler
+FOLD_ROWS = 256            # the prefilter's largest fold slice (unclumped)
+L2_BYTES = 50e6                          # H100 SXM L2
 WIDE = 4_096                             # qwen3-8b d_model: text features
 FLASH_ATOL = 2e-5          # fp32 attention outputs, O(1) (means of N(0,1))
 FEAT_ATOL = 1e-4           # pooled O(1) text features, kernel vs chunked
@@ -184,6 +192,40 @@ def median_ms(fn, reps=REPS, inner=INNER) -> float:
     return float(np.median(times))
 
 
+def profiled_ms(fn, key, calls=PROFILED_CALLS) -> float:
+    """Device time per call of the kernels whose names hold ``key``, from
+    torch.profiler over ``calls`` calls of ``fn`` (after a warm-up): the
+    kernels' own durations, with no host time and no gaps."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key:
+            t = getattr(ev, "self_device_time_total", None)
+            us += ev.self_cuda_time_total if t is None else t
+    assert us > 0.0, f"the profiler saw no {key} kernel"
+    return us / 1e3 / calls
+
+
+def host_us(fn, calls=PROFILED_CALLS) -> float:
+    """Host time per call to enqueue ``fn`` back to back (the device
+    drained before and after): what one Python call costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def ptxas_report(logs):
     """{kernel source: {"<function>[<template arg>]": [registers, spill
     store bytes]}} from the build's ``-Xptxas -v`` logs."""
@@ -193,8 +235,12 @@ def ptxas_report(logs):
         for line in text.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                f = re.search(r"([a-z_]+_kernel)(ILi(\d+)E)?", m.group(1))
-                cur = f.group(1) + (f"<{f.group(3)}>" if f.group(3) else "")
+                f = re.search(r"([a-z_]+_kernel)(?:I(.*?)E+v)?", m.group(1))
+                targs = f.group(2) or ""
+                args = (["bf16"] if "__nv_bfloat16" in targs else
+                        ["f32"] if targs.startswith("f") else [])
+                args += re.findall(r"L[ib](\d+)E", targs + "E")
+                cur = f.group(1) + (f"<{','.join(args)}>" if args else "")
                 funcs[cur] = [None, None]
             elif cur and "spill stores" in line:
                 funcs[cur][1] = int(re.search(r"(\d+) bytes spill stores",
@@ -261,7 +307,11 @@ def check_greedy(ops, dev, rng):
 
 
 def time_greedy(ops, dev, rng):
-    """The k-center round the main path runs most: R = 1, unweighted."""
+    """The k-center round the main path runs most: R = 1, unweighted, at
+    50,000 x 512; and at the prefilter's fold shape, 256 x 512 (the
+    largest ``_bucket`` a segment fold pads to on the unclumped pool),
+    where the CUDA events measure the wrapper's host time as much as the
+    kernel, so the profiler's device time a launch stands beside them."""
     x = torch.from_numpy((rng.standard_normal((POOL, D)) * 0.05).astype(
         np.float32)).to(dev)
     mind = torch.full((POOL,), 3.4e38, device=dev)
@@ -270,7 +320,17 @@ def time_greedy(ops, dev, rng):
     plain = median_ms(lambda: ops.greedy_round(x, mind, c, sel, impl="ref"))
     nb = -(-POOL // 64)
     nbytes = 4 * (POOL * D + D + 1 + 2 * POOL + 2 * nb)
-    return ms, plain, bound(nbytes, 3.0 * POOL * D)
+    n = FOLD_ROWS
+    xs, ms_ = x[:n].contiguous(), mind[:n].clone()
+    fold = {"timed_shape": [n, D, 1],
+            "ms": median_ms(lambda: ops.greedy_round(xs, ms_, c, sel)),
+            "device_ms": profiled_ms(lambda: ops.greedy_round(xs, ms_, c, sel),
+                                     "greedy_round_kernel"),
+            "plain_ms": median_ms(
+                lambda: ops.greedy_round(xs, ms_, c, sel, impl="ref"))}
+    fb = 4 * (n * D + D + 1 + 2 * n + 2 * -(-n // 64))
+    fold["bound_ms"], fold["bound_by"] = bound(fb, 3.0 * n * D)
+    return ms, plain, bound(nbytes, 3.0 * POOL * D), fold
 
 
 GATED_NB = 256                            # the reference's default gate block
@@ -728,26 +788,33 @@ def _decode_inputs(g, c, dtype, dev):
 
 def check_decode(da, dev):
     """decode_attention against its plain version on the reference's four
-    cases (at its test's kv_block, 32: several KV blocks, skipped leading
-    ones under a window) and the qwen3-8b decode shape (window none and
-    128, kv_block 256), each at fp32 (ATT_TOL) and bf16 (DECODE_BF16_TOL);
-    cur_len read from the device."""
+    cases and the qwen3-8b decode shape (window none and 128), each at
+    fp32 (ATT_TOL) and bf16 (DECODE_BF16_TOL); cur_len read from the
+    device. At the qwen3 shape a row's bytes must not depend on the
+    cache's capacity (the same live prefix in caches of 640 and 1,024
+    entries) and must repeat from run to run."""
     g = torch.Generator(device=dev).manual_seed(5)
     tol = {torch.float32: ATT_TOL[torch.float32],
            torch.bfloat16: DECODE_BF16_TOL}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for c in DECODE_CASES + QWEN3_DECODE:
-        kb = 32 if c in DECODE_CASES else da.KV_BLOCK
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, cur = _decode_inputs(g, c, dtype, dev)
-            got = da.decode_attention_auto(q, k, v, cur, window=c["win"],
-                                           kv_block=kb)
+            got = da.decode_attention_auto(q, k, v, cur, window=c["win"])
             want = da.decode_attention_auto(q, k, v, cur, window=c["win"],
                                             impl="ref")
             torch.cuda.synchronize()
             assert got.dtype == dtype
             worst[dtype] = max(worst[dtype],
                                within(got, want, tol[dtype]))
+            if c in QWEN3_DECODE:
+                again = da.decode_attention_auto(q, k, v, cur,
+                                                 window=c["win"])
+                small = da.decode_attention_auto(
+                    q, k[:, :640].contiguous(), v[:, :640].contiguous(), cur,
+                    window=c["win"])
+                assert torch.equal(got, again), ("repeat", c, dtype)
+                assert torch.equal(got, small), ("capacity", c, dtype)
     return worst, 2 * len(DECODE_CASES + QWEN3_DECODE)
 
 
@@ -755,7 +822,16 @@ def time_decode(da, dev):
     """At the qwen3-8b decode shape (bf16, window none). Bound: the live
     K/V (cur_len keys) read once, q read and out written, against the two
     products at the bf16 peak. Library: scaled_dot_product_attention with
-    a length mask and enable_gqa."""
+    a length mask and enable_gqa.
+
+    ``ms`` is the CUDA-event median with the caches warm: the 37.8 MB of
+    live K/V stay in the 50 MB L2 from one call to the next. ``cold``
+    rotates over enough caches (each a separate K/V pair) that every call
+    finds its own cache out of L2, as the serve loop finds each layer's.
+    ``device_ms`` is the kernels' own duration a call from torch.profiler
+    over the same calls, and ``host_us`` what a call costs the host to
+    enqueue: where host_us exceeds the device time, back-to-back events
+    measure the host."""
     import torch.nn.functional as F
     c = QWEN3_DECODE[0]
     g = torch.Generator(device=dev).manual_seed(6)
@@ -770,9 +846,29 @@ def time_decode(da, dev):
     b, h, kh, hd, n = c["B"], c["H"], c["KH"], c["D"], c["cur"]
     nbytes = 2.0 * (2 * b * n * kh * hd + 2 * b * h * hd)
     bnd, by = bound(nbytes, 4.0 * b * h * hd * n, BF16_FLOPS_S)
+    n_sets = int(2 * L2_BYTES // nbytes) + 2
+    sets = [(k, v)] + [tuple(torch.randn_like(k) for _ in range(2))
+                       for _ in range(n_sets - 1)]
+    turn = [0]
+
+    def rotating():
+        kk, vv = sets[turn[0] % n_sets]
+        turn[0] += 1
+        return da.decode_attention_auto(q, kk, vv, cur)
+
+    def warm():
+        return da.decode_attention_auto(q, k, v, cur)
+    cold = {"caches": n_sets, "ms": median_ms(rotating),
+            "device_ms": profiled_ms(rotating, "decode_attention")}
+    del sets
     return {"timed_shape": [b, c["S"], n, h, kh, hd],
-            "kv_block": da.KV_BLOCK,
-            "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "split_keys": da.SPLIT_KEYS,
+            "ms": ms, "device_ms": profiled_ms(warm, "decode_attention"),
+            "split_merge_device_ms": [
+                profiled_ms(warm, key) for key in ("decode_attention_split",
+                                                   "decode_attention_merge")],
+            "host_us": host_us(warm), "cold": cold,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": library}
 
 
@@ -1229,6 +1325,11 @@ def text_bitwise(be):
         "batchmates changed feature bytes"
     err = float(np.abs(chunked - base).max())
     assert err <= FEAT_ATOL, ("kernel vs chunked features", err)
+    batch, kernels, batch_wall = profile_device(
+        lambda: be.features(x[:TEXT_BATCH]))
+    log("text_batch_profile", sequences=TEXT_BATCH, seq_len=TEXT_SEQ,
+        device_ms=batch, device_busy_ms=sum(batch.values()),
+        kernels=kernels, profiled_wall_s=batch_wall)
     log("bitwise", blocks=sorted(by_block), bit_identical=True,
         batchmates_bit_identical=True, rows_in_another_batch=moved,
         max_abs_err_vs_chunked=err, tolerance_abs=FEAT_ATOL,
@@ -1526,7 +1627,7 @@ def run(tune_dir) -> int:
 
     rng = np.random.default_rng(0)
     g_err, g_cases, r_block = check_greedy(ops, dev, rng)
-    g_ms, g_plain, (g_bound, g_by) = time_greedy(ops, dev, rng)
+    g_ms, g_plain, (g_bound, g_by), g_fold = time_greedy(ops, dev, rng)
     a_err, a_rows = check_argmin(ops, dev, rng)
     a_ms, a_plain, a_lib, (a_bound, a_by) = time_argmin(ops, dev, rng)
     wide = check_wide(ops, dev, rng)
@@ -1543,7 +1644,7 @@ def run(tune_dir) -> int:
         greedy_round={"cases": g_cases, "max_abs_err": g_err,
                       "r_block": r_block, "timed_shape": [POOL, D, 1],
                       "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-                      "bound_by": g_by},
+                      "bound_by": g_by, "fold_shape": g_fold},
         pairwise_min_argmin={"max_abs_err": a_err, "index_rows": a_rows,
                              "timed_shape": [10 * BUDGET, BUDGET, D],
                              "ms": a_ms, "plain_ms": a_plain,

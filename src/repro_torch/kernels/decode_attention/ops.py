@@ -11,12 +11,18 @@ passes it.
 The kernel and the plain version do not compute the same bits: the plain
 version rounds q to the cache dtype and the probabilities to the V dtype
 before its products (as the reference's jnp function does), the kernel
-keeps both in fp32 (as the reference's Pallas kernel does). They agree
-within the reference's own tolerances, 2e-4 at fp32 and 3e-2 at bf16.
+keeps both in fp32 (as the reference's Pallas kernel does), and splits
+the keys into chunks of ``SPLIT_KEYS`` whose partial softmaxes it merges
+in chunk order (``ref.decode_attention_split_ref`` is that arithmetic in
+plain PyTorch). They agree within the reference's own tolerances, 2e-4 at
+fp32 and 3e-2 at bf16. On the card ``kv_block`` changes nothing: the
+split unit takes its place, as the bf16 flash kernel's fixed tiles take
+``kv_chunk``'s.
 
 ``cur_len`` may be an int or a 0-d int tensor on the caches' device; the
 kernel reads it there, so a decode step never waits on the host.
-``LAUNCHES`` counts kernel launches, one per call that reaches the card.
+``LAUNCHES`` counts kernel launches, one per call that reaches the card
+(the split pass and the merge pass of one call count once).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from repro_torch.kernels.decode_attention import ref
 LAUNCHES = {"decode_attention": 0}
 
 KV_BLOCK = 256          # the reference kernel's default kv_block
+SPLIT_KEYS = 128        # keys a CTA: kSplit in csrc/decode_attention.cu
 
 # the C entry's code for each dtype it takes (q, caches and out alike)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -51,7 +58,7 @@ def _lib():
         from repro_torch.kernels import build
         fn = build.load("decode_attention").decode_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                        ctypes.c_float, p]
         fn.restype = i
         _FN.append(fn)
@@ -59,7 +66,7 @@ def _lib():
 
 
 def _decode_cuda(q, k_cache, v_cache, cur_len, *, window: Optional[int],
-                 scale: float, kv_block: int):
+                 scale: float):
     dev = q.device
     if k_cache.device != dev or v_cache.device != dev:
         raise ValueError("q and the caches must lie on one device")
@@ -88,17 +95,18 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window: Optional[int],
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    kb = max(1, min(int(kv_block), S))
+    n_splits = -(-S // SPLIT_KEYS)
+    ws = torch.empty((B, KH, n_splits, H // KH, D + 2), dtype=torch.float32,
+                     device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                 out.data_ptr(), cur.data_ptr(), _DTYPES[q.dtype], B, S, H,
-                 KH, D, kb, 0 if window is None else int(window),
-                 float(scale), stream)
+                 out.data_ptr(), ws.data_ptr(), cur.data_ptr(),
+                 _DTYPES[q.dtype], B, S, H, KH, D, n_splits,
+                 0 if window is None else int(window), float(scale), stream)
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(f"the decode_attention kernel does not take "
-                         f"head_dim {D}, G {H // KH} at kv_block {kb} "
-                         f"(head_dim <= 256, and 4 (2 G D + G kv_block "
-                         f"+ 3 G) bytes of shared memory <= 48 KB)")
+                         f"head_dim {D}, H {H}, B {B} (head_dim <= 256, "
+                         f"H and B <= 65,535)")
     if err != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -110,7 +118,9 @@ def decode_attention_auto(q, k_cache, v_cache, cur_len, *,
                           window: Optional[int] = None, scale=None,
                           kv_block: int = KV_BLOCK, impl: str = "auto"):
     """q: (B,1,H,D); caches (B,S,KH,D); cur_len: valid entries including
-    the current token, in [1, S] -> (B,1,H,D) in q.dtype."""
+    the current token, in [1, S] -> (B,1,H,D) in q.dtype. ``kv_block`` is
+    the reference kernel's KV block; neither the card's kernel (it splits
+    by ``SPLIT_KEYS``) nor the plain version uses it."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if impl == "ref":
@@ -125,4 +135,4 @@ def decode_attention_auto(q, k_cache, v_cache, cur_len, *,
         raise RuntimeError(f"no kernel for device {q.device}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return _decode_cuda(q, k_cache, v_cache, cur_len, window=window,
-                        scale=scale, kv_block=kv_block)
+                        scale=scale)

@@ -185,6 +185,34 @@ def test_cuda_flash_attention_matches_plain(cuda, D, G, S, kb, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("kb", [64, 128, 256])
+def test_cuda_flash_attention_fp32_tiles(cuda, kb, D):
+    """The fp32 kernel over kv_chunk 64/128/256 (the KV block it keeps,
+    whatever its query tile) and D 64/96/128/256 (96 zero-padded inside
+    to 128): causal and windowed against the plain version at atol 2e-5;
+    each row's bytes unchanged when fewer query rows are launched, so
+    that the rows fall in other query tiles of the kernel."""
+    rng = np.random.default_rng(kb * 1_000 + D)
+    KH, G, S = 2, 4, 333
+    q = torch.from_numpy(rng.standard_normal((2, S, KH * G, D)).astype(
+        np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.standard_normal((2, S, KH, D)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    for window in (None, 100):
+        ops.reset_launches()
+        got = ops.flash_attention_auto(q, k, v, window=window, kv_chunk=kb)
+        assert ops.LAUNCHES == {"flash_attention": 1}
+        want = ops.flash_attention_auto(q, k, v, window=window, impl="ref")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        for rows in (70, 129, 200):
+            part = ops.flash_attention_auto(q[:, :rows], k, v, window=window,
+                                            kv_chunk=kb)
+            assert torch.equal(part, got[:, :rows]), (window, rows)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D,kb", [(320, 64), (256, 1024)])
 def test_cuda_flash_attention_rejects_what_it_cannot_take(cuda, D, kb):
     """The C entry refuses a head_dim over 256 and a carve larger than

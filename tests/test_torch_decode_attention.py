@@ -10,6 +10,12 @@ reference's four cases (tests/test_kernels.py) at fp32 and bf16.
 * The reference's Pallas kernel in interpret mode, which keeps q and p in
   fp32, against the port's plain version: the reference's own tolerances,
   2e-4 at fp32 and 3e-2 at bf16.
+* ``ref.decode_attention_split_ref`` (the CUDA kernel's split-KV
+  arithmetic: per-chunk softmax, merge in chunk order) against the
+  reference's Pallas kernel in interpret mode and the port's plain version,
+  at fp32 2e-4 (ATT_TOL), over cur_len 1, cur_len on a chunk boundary, a
+  window that starts inside a chunk and wholly masked leading chunks, at
+  G 1 and 4 and D 16, 64 and 128.
 
 Inputs are numpy normals; bf16 inputs are rounded by JAX and carried over
 exactly. The ``cuda`` tests hold the CUDA kernel against the plain version
@@ -21,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention import ops
+from repro_torch.kernels.decode_attention import ref as dref
 from repro_torch.models.layers import attention as pattn
 
 CASES = [
@@ -72,6 +79,48 @@ def test_plain_matches_reference(ref, ci, dtype):
     kern = np.asarray(pallas(jq, jk, jv, c["cur"], window=c["win"],
                              kv_block=32, interpret=True), np.float32)
     np.testing.assert_allclose(got, kern, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+SPLIT = ops.SPLIT_KEYS
+# (S, cur_len, window) against the split unit: a single live key; cur_len
+# on a chunk boundary; a window whose first key falls inside a chunk; a
+# window that leaves the leading chunks wholly masked
+SPLIT_SCENARIOS = {
+    "cur_len_1": (2 * SPLIT + 3, 1, None),
+    "cur_on_boundary": (3 * SPLIT + 8, 2 * SPLIT, None),
+    "window_mid_split": (3 * SPLIT, 2 * SPLIT + 22, SPLIT // 2 + 9),
+    "leading_splits_masked": (4 * SPLIT + 5, 4 * SPLIT + 1, 20),
+}
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("scenario", sorted(SPLIT_SCENARIOS))
+def test_split_ref_matches_reference(ref, scenario, G, D):
+    """The kernel's split arithmetic, in plain PyTorch, against the
+    reference's Pallas kernel (interpret mode, its own sequential KV
+    blocks) and the port's plain version, at fp32 ATT_TOL."""
+    rattn, pallas = ref
+    S, cur, win = SPLIT_SCENARIOS[scenario]
+    c = dict(B=2, H=2 * G, KH=2, D=D, S=S, cur=cur, win=win)
+    (jq, jk, jv), (q, k, v) = _inputs(S + 7 * G + D, c, "fp32")
+    got = dref.decode_attention_split_ref(q, k, v, cur, window=win,
+                                          split=SPLIT)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    kern = np.asarray(pallas(jq, jk, jv, cur, window=win, kv_block=32,
+                             interpret=True), np.float32)
+    np.testing.assert_allclose(got.numpy(), kern, rtol=TOL["fp32"],
+                               atol=TOL["fp32"])
+    plain = ops.decode_attention_auto(q, k, v, cur, window=win)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL["fp32"],
+                               atol=TOL["fp32"])
+
+
+def test_split_ref_with_no_live_key_writes_zeros():
+    c = dict(B=1, H=4, KH=2, D=16, S=SPLIT, cur=0, win=None)
+    _, (q, k, v) = _inputs(1, c, "fp32")
+    got = dref.decode_attention_split_ref(q, k, v, 0, split=SPLIT)
+    assert not got.any()
 
 
 def test_cur_len_tensor_and_dispatch():
@@ -130,6 +179,52 @@ def test_kernel_matches_plain(gpu, ci, dtype):
     assert got.dtype == q.dtype
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+DECODE_BF16_TOL = 1e-2      # chip_smoke.DECODE_BF16_TOL: outputs ~0.07
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("scenario", sorted(SPLIT_SCENARIOS))
+def test_kernel_split_grid_matches_plain(gpu, scenario, G, D, dtype):
+    """The split-KV kernel on the split scenarios' grid against the plain
+    version (fp32 ATT_TOL, bf16 DECODE_BF16_TOL) and, at fp32, against
+    the plain model of its own arithmetic (split_ref) at 1e-5."""
+    S, cur, win = SPLIT_SCENARIOS[scenario]
+    c = dict(B=2, H=2 * G, KH=2, D=D, S=S, cur=cur, win=win)
+    q, k, v = _card(S + G + D, c, dtype, gpu)
+    cur_t = torch.tensor(cur, dtype=torch.int32, device=gpu)
+    got = ops.decode_attention_auto(q, k, v, cur_t, window=win)
+    want = ops.decode_attention_auto(q, k, v, cur_t, window=win, impl="ref")
+    tol = TOL["fp32"] if dtype == "fp32" else DECODE_BF16_TOL
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == "fp32":
+        model = dref.decode_attention_split_ref(q, k, v, cur, window=win,
+                                                split=ops.SPLIT_KEYS)
+        torch.testing.assert_close(got, model, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("window", [None, 128])
+def test_kernel_bits_ignore_capacity_and_repeat(gpu, dtype, window):
+    """A row's bytes depend on the live prefix only: the same first 640
+    cache entries in caches of capacity 640 and 1,024 give the same
+    bytes, and so does a second run."""
+    c = dict(B=4, H=32, KH=8, D=128, S=1024, cur=577, win=window)
+    q, k, v = _card(9, c, dtype, gpu)
+    cur = torch.tensor(c["cur"], dtype=torch.int32, device=gpu)
+    big = ops.decode_attention_auto(q, k, v, cur, window=window)
+    again = ops.decode_attention_auto(q, k, v, cur, window=window)
+    small = ops.decode_attention_auto(q, k[:, :640].contiguous(),
+                                      v[:, :640].contiguous(), cur,
+                                      window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(big, again)
+    assert torch.equal(big, small)
 
 
 @pytest.mark.cuda
