@@ -38,6 +38,25 @@ Phases, one line each (any failure raises and exits non-zero):
             and by torch.profiler (the kernels' own device time), with
             the host's time to enqueue a call; greedy_round also timed
             at the prefilter's fold shape (256 x 512, R = 1).
+            greedy_round's in-launch argmax and row bytes: ties planted
+            in different CTAs go to the lower row as in the plain
+            version; new min-dists, index and score are the same bytes
+            under every rows-per-CTA candidate, over the 49,999-row
+            prefix and with the centers read by index; the kernel's
+            layout equals ``ops.round_plan``'s; two threads on two CUDA
+            streams running k-center rounds at once equal serial runs.
+            uncertainty_stats against its split-and-merge plain version,
+            a row's bytes alone equal to its bytes among 4,096 rows, and
+            top-2 ties straddling split boundaries (mc exactly 0). Timed
+            by torch.profiler (warm and L2-cold), CUDA events and host
+            µs a call: greedy_round at 50,000 x 512 and 2,048 x 4,096
+            (R = 1), at R = r_block and at the fold shape;
+            gated_greedy_round at 100 % and ~10 % live; uncertainty_stats
+            at 16 and 4,096 rows; and a k-center round (``k_center_greedy``
+            at the image and text pools' shapes): the device operations it
+            launches (torch.profiler) and its wall time.
+            ``python3 chip_smoke.py --kernels-only`` stops after this
+            phase (no result lines).
 3. picker   the block picker on the card: ``autotune_blocks(50,000, 512,
             measure=True)`` for the plain round and the gated round, into a
             temporary cache directory; each candidate ``n_block``'s time
@@ -325,12 +344,208 @@ def time_greedy(ops, dev, rng):
     fold = {"timed_shape": [n, D, 1],
             "ms": median_ms(lambda: ops.greedy_round(xs, ms_, c, sel)),
             "device_ms": profiled_ms(lambda: ops.greedy_round(xs, ms_, c, sel),
-                                     "greedy_round_kernel"),
+                                     "greedy_round"),
             "plain_ms": median_ms(
                 lambda: ops.greedy_round(xs, ms_, c, sel, impl="ref"))}
     fb = 4 * (n * D + D + 1 + 2 * n + 2 * -(-n // 64))
     fold["bound_ms"], fold["bound_by"] = bound(fb, 3.0 * n * D)
     return ms, plain, bound(nbytes, 3.0 * POOL * D), fold
+
+
+def round_shapes():
+    """B1's timed shapes (n, d, R): the image pool's k-center round, the
+    text pool's, the Core-Set warm start's chunk (R = the model's
+    r_block) and the prefilter's fold slice."""
+    from repro_torch.kernels.pairwise import autotune
+    return ((POOL, D, 1), (TEXT_POOL, WIDE, 1),
+            (POOL, D, autotune.model_blocks(POOL, D).r_block),
+            (FOLD_ROWS, D, 1))
+
+
+def time_round(ops, dev):
+    """B1 at each of ``round_shapes``, unweighted, as a main path calls it
+    (``ops.greedy_round``, default rows per CTA): the CUDA-event median;
+    torch.profiler's device time of the round's kernel(s) a call, warm
+    and L2-cold (rotating over enough pools, mind-dists with them, that
+    each call finds its own out of the 50 MB L2); the device time of every
+    kernel the call launches; the host's µs to enqueue a call. Bound: the
+    pool read once, mind in and out, the centers; against 3·n·d
+    operations at R = 1 and 2·n·R·d above."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = []
+    for n, d, r in round_shapes():
+        sets = max(2, int(2 * L2_BYTES // (4 * n * d)) + 2)
+        xs = torch.randn((sets, n, d), generator=g, device=dev) * (
+            0.05 / np.sqrt(d / D))
+        minds = torch.full((sets, n), 3.4e38, device=dev)
+        c = xs[0, 7:7 + r].clone()
+        sel = (torch.tensor([7], dtype=torch.int32, device=dev) if r == 1
+               else torch.full((r,), -1, dtype=torch.int32, device=dev))
+        turn = [0]
+
+        def warm():
+            return ops.greedy_round(xs[0], minds[0], c, sel)
+
+        def cold():
+            i = turn[0] % sets
+            turn[0] += 1
+            return ops.greedy_round(xs[i], minds[i], c, sel)
+        nbytes = 4.0 * (n * d + r * d + 2 * n)
+        bnd, by = bound(nbytes, 3.0 * n * d if r == 1 else 2.0 * n * r * d)
+        out.append({"shape": [n, d, r], "ms": median_ms(warm),
+                    "device_ms": profiled_ms(warm, "greedy_round"),
+                    "cold_device_ms": profiled_ms(cold, "greedy_round"),
+                    "call_device_ms": profiled_ms(warm, ""),
+                    "host_us": host_us(warm), "bound_ms": bnd,
+                    "bound_by": by, "cold_pools": sets})
+        del xs, minds
+    return out
+
+
+def device_launches(fn):
+    """{kernel name: launches} of one call of ``fn`` under torch.profiler
+    (copies and fills included)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def check_round_bytes(ops, dev, rng):
+    """B1's in-launch argmax and its row bytes at 50,000 x 512, R in {1, 8,
+    r_block}, weighted or not, with an exact tie planted in rows 100 and
+    40,100 (other CTAs under every rows per CTA): the index equals the
+    plain version's and the lower tie row; new min-dists, index and score
+    are the same bytes under every rows-per-CTA candidate of the picker
+    and the default plan, over the 49,999-row prefix (its rows), and with
+    the centers read by index in place of gathered rows. Also: the
+    kernel's difference-form layout equals ``ops.round_plan``'s at d in
+    {32, 96, 192, 512, 513, 4,096}."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.pairwise import autotune
+    lib = build.load("greedy_round")
+    for d in (32, 96, 192, D, D + 1, WIDE):
+        got = (ctypes.c_int * 4)()
+        lib.greedy_round_layout(ctypes.c_int(d), got)
+        p = ops.round_plan(POOL, d)
+        assert list(got) == [p.chunk, p.lanes, p.chunks_in_flight,
+                             p.rows_in_flight], (d, list(got), p)
+    x = torch.from_numpy((rng.standard_normal((POOL, D)) * 0.05).astype(
+        np.float32)).to(dev)
+    tie = (100, 40_100)
+    x[tie[1]] = x[tie[0]] = x[tie[0]] * 3.0
+    plans = sorted(set(autotune.N_BLOCK_CANDIDATES) |
+                   {ops.round_plan(POOL, D, r).rows_per_cta
+                    for r in (1, 8)})
+    cases = 0
+    for r in (1, 8, autotune.model_blocks(POOL, D).r_block):
+        idx = torch.from_numpy(rng.choice(
+            np.setdiff1d(np.arange(POOL), tie), r, replace=False).astype(
+                np.int32)).to(dev)
+        sel = idx if r == 1 else torch.full_like(idx, -1)
+        for weighted in (False, True):
+            w = None
+            if weighted:
+                w = torch.rand(POOL, device=dev)
+                w[tie[0]] = w[tie[1]] = 1.0
+            mind = torch.full((POOL,), 3.4e38, device=dev)
+            base = ops.greedy_round(x, mind, x[idx.long()], sel, w)
+            _, pi, _ = ops.greedy_round(x, mind, x[idx.long()], sel, w,
+                                        impl="ref")
+            assert int(base[1]) == int(pi) == tie[0], (r, weighted,
+                                                       int(base[1]), int(pi))
+            variants = [ops.greedy_round(x, mind, x[idx.long()], sel, w,
+                                         n_block=nb) for nb in plans]
+            variants.append(ops.greedy_round(x, mind, idx, sel, w))
+            for v in variants:
+                assert all(torch.equal(a, b) for a, b in zip(v, base)), \
+                    (r, weighted, "rows per CTA or index centers")
+            pre = ops.greedy_round(x[:POOL - 1], mind[:POOL - 1],
+                                   x[idx.long()], sel,
+                                   None if w is None else w[:POOL - 1])
+            assert torch.equal(pre[0], base[0][:POOL - 1]), (r, "prefix")
+            cases += len(variants) + 2
+    return {"cases": cases, "rows_per_cta": plans, "tie": list(tie)}
+
+
+def check_round_streams(ops, dev):
+    """Two threads, each on a CUDA stream of its own, run 64 k-center rounds
+    at once (each round's argmax elected by the stream's own ticket) on
+    pools of their own; their picks and final min-dists equal serial runs'
+    bytes."""
+    import threading
+    g = torch.Generator(device=dev).manual_seed(9)
+    pools = [torch.randn((POOL, D), generator=g, device=dev) * 0.05,
+             torch.randn((TEXT_POOL, WIDE), generator=g, device=dev) * 0.01]
+
+    def rounds(x):
+        mind = torch.full((x.shape[0],), 3.4e38, device=dev)
+        nxt = torch.tensor(3, dtype=torch.int32, device=dev)
+        picks = []
+        for _ in range(64):
+            idx = nxt.reshape(1)
+            mind, nxt, _ = ops.greedy_round(x, mind, idx, idx)
+            picks.append(nxt)
+        return torch.stack(picks), mind
+
+    serial = [rounds(x) for x in pools]
+    torch.cuda.synchronize()
+    out, start = [None, None], threading.Barrier(2)
+
+    def lane(i):
+        s = torch.cuda.Stream(dev)
+        with torch.cuda.stream(s):
+            start.wait()
+            out[i] = rounds(pools[i])
+        s.synchronize()
+    threads = [threading.Thread(target=lane, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (sp, sm), (cp, cm) in zip(serial, out):
+        assert torch.equal(sp, cp) and torch.equal(sm, cm), \
+            "concurrent rounds differ from serial ones"
+    return {"threads": 2, "rounds": 64, "equal_to_serial": True}
+
+
+def time_kcenter(dev):
+    """k-center greedy (``k_center_greedy``, seeded first pick) over random
+    pools at the image path's (50,000 x 512, budget 1,000) and text path's
+    (2,048 x 4,096, budget 256) shapes: the device operations a round
+    launches, counted by torch.profiler as the difference between budgets
+    48 and 16 over 32 rounds (by kernel name), and the wall time a round
+    over the full budget."""
+    from repro_torch.common import rng as rnglib
+    from repro_torch.core.strategies.diversity import k_center_greedy
+    g = torch.Generator(device=dev).manual_seed(8)
+    out = {}
+    for path, n, d, budget in (("image", POOL, D, BUDGET),
+                               ("text", TEXT_POOL, WIDE, TEXT_BUDGET)):
+        x = torch.randn((n, d), generator=g, device=dev) * (
+            0.05 / np.sqrt(d / D))
+        k = rnglib.key(0)
+        k_center_greedy(k, 8, x)                         # warm
+        few, many = (device_launches(lambda b=b: k_center_greedy(k, b, x))
+                     for b in (16, 48))
+        per_round = {name: (many.get(name, 0) - few.get(name, 0)) / 32
+                     for name in many}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        k_center_greedy(k, budget, x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        out[path] = {"shape": [n, d], "budget": budget,
+                     "launches_per_round": sum(per_round.values()),
+                     "by_kernel": {k_: v for k_, v in per_round.items() if v},
+                     "wall_s": wall, "ms_per_round": wall / budget * 1e3}
+        del x
+    return out
 
 
 GATED_NB = 256                            # the reference's default gate block
@@ -451,15 +666,20 @@ def time_gated(ops, dev, rng):
                     np.int32))).to(dev)
         lv = live.cpu().numpy().nonzero()[0]
         rows = int(sum(min(GATED_NB, POOL - b * GATED_NB) for b in lv))
-        ms = median_ms(lambda: ops.gated_greedy_round(
-            x, mind, c, live, pend, n_block=GATED_NB))
+        def call():
+            return ops.gated_greedy_round(x, mind, c, live, pend,
+                                          n_block=GATED_NB)
+        ms = median_ms(call)
         plain = median_ms(lambda: ops.gated_greedy_round(
             x, mind, c, live, pend, n_block=GATED_NB, impl="ref"))
         bnd, by = bound(4.0 * (rows * D + 2 * POOL + D + 4 * nn),
                         3.0 * rows * D)
         out[share] = {"live_blocks": len(lv), "blocks": nn, "live_rows": rows,
-                      "ms": ms, "plain_ms": plain, "bound_ms": bnd,
-                      "bound_by": by}
+                      "ms": ms, "device_ms": profiled_ms(
+                          call, "gated_greedy_round"),
+                      "call_device_ms": profiled_ms(call, ""),
+                      "host_us": host_us(call), "plain_ms": plain,
+                      "bound_ms": bnd, "bound_by": by}
     return out
 
 
@@ -746,6 +966,46 @@ def check_uncertainty(unc, dev):
     return worst, len(cases) + 1
 
 
+def check_uncertainty_split(unc, dev):
+    """B4 against its split-and-merge plain version
+    (``ref.uncertainty_stats_split_ref``, the kernel's split size) at
+    16 x 152,064, fp32 and bf16, within UNC_TOL; a row's score bytes
+    alone equal its bytes among 4,096 rows (fp32 and bf16, rows 0, 1,234
+    and 4,095); top-2 ties straddling split boundaries (the last column of
+    a split and the first of the next; column 10 and column 150,000):
+    mc exactly 0 and rc exactly 1. Returns the worst |d| and the cases."""
+    from repro_torch.kernels.uncertainty import ref as uref
+    g = torch.Generator(device=dev).manual_seed(10)
+    worst, cases = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        split = unc.SPLIT_ELEMS[dtype]
+        x = _logits(g, 16, VOCAB, dev).to(dtype)
+        got = unc.uncertainty_stats(x)
+        want = uref.uncertainty_stats_split_ref(x, split)
+        for kind in KINDS:
+            worst = max(worst, within(got[kind], want[kind],
+                                      UNC_TOL["fp32"]))
+        big = _logits(g, 4_096, VOCAB, dev).to(dtype)
+        whole = unc.uncertainty_stats(big)
+        for r in (0, 1_234, 4_095):
+            one = unc.uncertainty_stats(big[r:r + 1])
+            assert all(torch.equal(one[k], whole[k][r:r + 1])
+                       for k in KINDS), ("rows launched changed a row", r,
+                                         dtype)
+        del big, whole
+        x = torch.round(_logits(g, 4, VOCAB, dev) * 8) / 8
+        top = x.amax(1) + 1.0
+        for row, (a, b) in enumerate(((split - 1, split),
+                                      (2 * split - 1, 2 * split),
+                                      (10, 150_000), (split, 150_000))):
+            x[row, a] = x[row, b] = top[row]
+        tied = unc.uncertainty_stats(x.to(dtype))
+        assert bool((tied["mc"] == 0).all()) and \
+            bool((tied["rc"] == 1).all()), (dtype, tied["mc"], tied["rc"])
+        cases += 3
+    return worst, cases
+
+
 def time_uncertainty(unc, dev):
     """At the decode shape (16 x 152,064 fp32; 9.7 MB, which stays in the
     50 MB L2 between launches as it does after the LM head's product) and
@@ -761,7 +1021,11 @@ def time_uncertainty(unc, dev):
         plain = median_ms(lambda: unc.uncertainty_stats(x, impl="ref"))
         library = median_ms(lambda: torch.logsumexp(x, -1))
         bnd, by = bound(4.0 * n * VOCAB + 16.0 * n, 5.0 * n * VOCAB)
-        out[n] = {"timed_shape": [n, VOCAB], "ms": ms, "plain_ms": plain,
+        out[n] = {"timed_shape": [n, VOCAB], "ms": ms,
+                  "device_ms": profiled_ms(lambda: unc.uncertainty_stats(x),
+                                           "uncertainty_stats"),
+                  "host_us": host_us(lambda: unc.uncertainty_stats(x)),
+                  "plain_ms": plain,
                   "bound_ms": bnd, "bound_by": by, "library_ms": library,
                   "library": "torch.logsumexp (lse only)"}
         del x
@@ -1602,12 +1866,12 @@ def main() -> int:
     tune_dir = tempfile.mkdtemp(prefix="repro-torch-autotune-")
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE_DIR"] = tune_dir
     try:
-        return run(tune_dir)
+        return run(tune_dir, kernels_only="--kernels-only" in sys.argv[1:])
     finally:
         shutil.rmtree(tune_dir, ignore_errors=True)
 
 
-def run(tune_dir) -> int:
+def run(tune_dir, kernels_only=False) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
@@ -1640,11 +1904,18 @@ def run(tune_dir) -> int:
     d_time = time_decode(da, dev)
     gt_err, gt_cases = check_gated(ops, dev, rng)
     gt_time = time_gated(ops, dev, rng)
+    g_bytes = check_round_bytes(ops, dev, rng)
+    g_streams = check_round_streams(ops, dev)
+    us_err, us_cases = check_uncertainty_split(unc, dev)
+    g_times = time_round(ops, dev)
+    kcenter = time_kcenter(dev)
     log("kernels", tolerance_abs=ATOL,
         greedy_round={"cases": g_cases, "max_abs_err": g_err,
                       "r_block": r_block, "timed_shape": [POOL, D, 1],
                       "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-                      "bound_by": g_by, "fold_shape": g_fold},
+                      "bound_by": g_by, "fold_shape": g_fold,
+                      "bytes_and_ties": g_bytes, "streams": g_streams,
+                      "timed": g_times, "kcenter": kcenter},
         pairwise_min_argmin={"max_abs_err": a_err, "index_rows": a_rows,
                              "timed_shape": [10 * BUDGET, BUDGET, D],
                              "ms": a_ms, "plain_ms": a_plain,
@@ -1658,7 +1929,10 @@ def run(tune_dir) -> int:
                          "bound_ms": f_bound, "bound_by": f_by,
                          "library_ms": f_lib, "bf16_prefill": f_bf16},
         uncertainty_stats={"cases": u_cases, "max_abs_err_fp32": u_err,
-                           "tolerance": UNC_TOL,
+                           "tolerance": UNC_TOL, "split_ref": {
+                               "cases": us_cases, "max_abs_err": us_err,
+                               "split_elems": {str(k): v for k, v in
+                                               unc.SPLIT_ELEMS.items()}},
                            "decode_shape": u_times[SERVE_BATCH],
                            "pool_scoring_shape": u_times[4_096]},
         decode_attention={"cases": d_cases,
@@ -1671,6 +1945,8 @@ def run(tune_dir) -> int:
                             "timed_shape": [POOL, D, 1], "n_block": GATED_NB,
                             "live_100": gt_time[1.0],
                             "live_10": gt_time[0.1]})
+    if kernels_only:
+        return 0
 
     counters = {ops.reset_launches: ops.LAUNCHES,
                 fa.reset_launches: fa.LAUNCHES,
@@ -1730,6 +2006,10 @@ def run(tune_dir) -> int:
          *(d_time[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms"))),
     ]
+    device_ms = {"greedy_round": g_times[0]["device_ms"],
+                 "gated_greedy_round": gt_time[1.0]["device_ms"],
+                 "uncertainty_stats": u_times[SERVE_BATCH]["device_ms"],
+                 "decode_attention": d_time["device_ms"]}
     kernels = []
     for name, source, replaces, err, ms, plain, bnd, by, lib in rows:
         total, by_path = counts(name)
@@ -1737,7 +2017,8 @@ def run(tune_dir) -> int:
                         "source": src + source, "replaces": replaces,
                         "launches": total, "launches_by_path": by_path,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bnd, "bound_by": by, "library_ms": lib})
+                        "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+                        "device_ms": device_ms.get(name)})
     # the flash row's numbers are the fp32 kernel's (text path); the bf16
     # kernel's (serve prefill) stand beside them
     flash = next(r for r in kernels if r["name"] == "flash_attention")

@@ -2,11 +2,15 @@
 
 Run from the repo root on a machine with the CUDA toolkit:
 
-    python3 scripts/kernel_variants.py [flash_bf16] [argmin] [flash32] [decode]
+    python3 scripts/kernel_variants.py [flash_bf16] [argmin] [flash32] \
+        [decode] [round] [unc] [--parent DIR]
 
-(no argument: every section). Each variant is the kernel's source with
-one or two lines edited, built with ``nvcc`` into ``build/variants/``
-(its ptxas registers and spills printed first).
+(no section named: every section). Each variant is the kernel's source
+(its local headers inlined) with one or two lines edited, built with
+``nvcc`` into ``build/variants/`` (its ptxas registers and spills printed
+first). ``--parent DIR`` names an unpacked earlier tree (``git archive
+<commit> src/repro_torch/kernels | tar -x -C DIR``) whose kernels the
+round and unc sections time beside the variants.
 
 - flash_bf16: ``flash_attention_bf16.cu`` at warpgroups a CTA W = 1, 2,
   3, and W = 1 without the in-loop K/V copies (stale tiles, timed only),
@@ -28,6 +32,22 @@ one or two lines edited, built with ``nvcc`` into ``build/variants/``
   cur_len 577, H 32, KH 8, D 128, bf16): CUDA events with the cache warm
   in L2 and rotating over caches that exceed it, and the split and merge
   kernels' own device time from torch.profiler.
+- round: ``greedy_round.cu`` (with ``round_block.cuh``) at 4, 8 and 16
+  chunks in flight a lane (``kInFlight``), with 4-byte loads in place of
+  16-byte ones, with a one-CTA final pass in place of the last-CTA
+  ticket (``kTicket``) and with the matmul form's registers uncut
+  (``kMatmulCtas``), at the default rows per CTA, and the source as
+  built at other rows per CTA; at the image and text pools' k-center
+  rounds (50,000 x 512 and 2,048 x 4,096, R = 1), the Core-Set warm
+  start's chunk (50,000 x 512, R = r_block) and the prefilter's fold
+  slice (256 x 512): torch.profiler device time warm and over rotating
+  pools, and whether the outputs' bytes equal the build's.
+- unc: ``uncertainty_stats.cu`` at split sizes of 2, 4 and 8 16-byte
+  units a thread (``kUnits``: 76, 38 and 19 splits a row at fp32) and
+  1 to 8 units loaded before the thread computes (``kBatch``), at 16 and
+  4,096 rows of 152,064 fp32 logits, each twice (in order, then
+  backwards): split + merge device time, and the largest difference
+  from the plain version.
 
 One JSON object a line; the card's name and power limit first. Compare
 numbers only within one call.
@@ -37,6 +57,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -99,6 +120,26 @@ DECODE_VARIANTS.update({
     for n in (64, 128) for c in (3, 4)})
 
 
+IN_FLIGHT = "constexpr int kInFlight = 4;"
+TICKET = "constexpr bool kTicket = true;"
+VEC = "const bool vec = d % 4 == 0"
+MATMUL_CTAS = "constexpr int kMatmulCtas = 2;"
+ROUND_VARIANTS = {
+    "build": [],
+    "in_flight8": [(IN_FLIGHT, "constexpr int kInFlight = 8;")],
+    "in_flight16": [(IN_FLIGHT, "constexpr int kInFlight = 16;")],
+    "scalar_loads": [(VEC, "const bool vec = false && d % 4 == 0")],
+    "final_pass": [(TICKET, "constexpr bool kTicket = false;")],
+    "matmul_1cta": [(MATMUL_CTAS, "constexpr int kMatmulCtas = 1;")],
+}
+UNITS = "constexpr int kUnits = 8; "
+BATCH = "constexpr int kBatch = 4; "
+UNC_VARIANTS = {f"units{u}_batch{b}": [
+    (UNITS, f"constexpr int kUnits = {u}; "),
+    (BATCH, f"constexpr int kBatch = {b}; ")]
+    for u, b in ((2, 2), (4, 1), (4, 2), (4, 4), (8, 4), (8, 8))}
+
+
 def median_ms(fn, reps=20, inner=10) -> float:
     fn()
     torch.cuda.synchronize()
@@ -115,10 +156,21 @@ def median_ms(fn, reps=20, inner=10) -> float:
     return float(np.median(times))
 
 
-def build_variants(build, kernel, variants):
-    """{variant: loaded library} for ``kernel``'s source under each
-    variant's (old line, new line) edits."""
-    src = open(build.SOURCES[kernel]).read()
+def inlined_source(path):
+    """The source at ``path`` with its local ``#include "..."`` headers
+    inlined (followed recursively), so an edit may touch a header and the
+    variant still builds from ``build/variants/``."""
+    text = open(path).read()
+    for inc in re.findall(r'^#include "([^"]+)"$', text, re.M):
+        text = text.replace(f'#include "{inc}"', inlined_source(
+            os.path.join(os.path.dirname(path), inc)))
+    return text
+
+
+def build_variants(build, kernel, variants, source=None):
+    """{variant: loaded library} for ``kernel``'s source (or the one at
+    ``source``) under each variant's (old line, new line) edits."""
+    src = inlined_source(source or build.SOURCES[kernel])
     os.makedirs(OUT, exist_ok=True)
     procs = {}
     for name, edits in variants.items():
@@ -307,6 +359,181 @@ def decode(build):
                                           "decode_attention")}), flush=True)
 
 
+def parent_source(kernel):
+    """The source of ``kernel`` in the tree named by ``--parent DIR`` (an
+    unpacked earlier commit), or None."""
+    if "--parent" not in sys.argv:
+        return None
+    root = sys.argv[sys.argv.index("--parent") + 1]
+    from repro_torch.kernels import build
+    rel = os.path.relpath(build.SOURCES[kernel], ROOT)
+    return os.path.join(root, rel)
+
+
+def _rotating(make, count):
+    """``count`` inputs from ``make(i)`` and a function that hands them out
+    in turn (each call finds its own out of the 50 MB L2)."""
+    sets = [make(i) for i in range(count)]
+    turn = [0]
+
+    def take():
+        turn[0] += 1
+        return sets[turn[0] % count]
+    return sets, take
+
+
+def greedy_round_variants(build):
+    """B1 at the image and text paths' k-center rounds (R = 1), the Core-Set
+    warm start's chunk (R = r_block) and the prefilter's fold slice: each
+    source variant (16-byte chunks in flight a lane, 4-byte loads, the
+    one-CTA final pass in place of the ticket) at the default rows per CTA,
+    the as-built source at other rows per CTA, and with ``--parent DIR``
+    the earlier tree's kernel (its own argmax over the partials on the
+    host, as its wrapper ran it). Device ms from torch.profiler, warm and
+    over rotating pools; bytes against the build."""
+    from repro_torch.kernels.pairwise import autotune, ops
+    dev = torch.device("cuda")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name, lib in build_variants(build, "greedy_round",
+                                    ROUND_VARIANTS).items():
+        fn = fns[name] = lib.greedy_round_f32
+        fn.argtypes = [p] * 10 + [i] * 4 + [p]
+        fn.restype = i
+    old = None
+    src = parent_source("greedy_round")
+    if src is not None:
+        old = build_variants(build, "greedy_round", {"parent": []},
+                             src)["parent"].greedy_round_f32
+        old.argtypes = [p] * 8 + [i] * 4 + [p]
+        old.restype = i
+    stream = torch.cuda.current_stream().cuda_stream
+    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+    r_block = autotune.model_blocks(50_000, 512).r_block
+    for n, d, r in ((50_000, 512, 1), (2_048, 4_096, 1),
+                    (50_000, 512, r_block), (256, 512, 1)):
+        count = max(2, int(100e6 // (4 * n * d)) + 2)
+        sets, take = _rotating(lambda _: torch.randn(
+            (n, d), generator=g, device=dev) * 0.05, count)
+        mind = torch.full((n,), 3.4e38, device=dev)
+        c = sets[0][7:7 + r].clone()
+        sel = (torch.tensor([7], dtype=torch.int32, device=dev) if r == 1
+               else torch.full((r,), -1, dtype=torch.int32, device=dev))
+        plan = ops.round_plan(n, d, r)
+        rows_list = sorted({plan.rows_per_cta, *(
+            (8, 16, 32, 64, 128, 256) if d <= 512 else (4, 8, 16, 32, 64))})
+        ref_bytes = None
+        for name, fn in fns.items():
+            for rows in (rows_list if name == "build" and r == 1
+                         else [plan.rows_per_cta]):
+                nb = -(-n // rows)
+                buf = torch.empty((n + 2 + 2 * nb,), device=dev)
+                base = buf.data_ptr()
+
+                def call(x=None, fn=fn, rows=rows, base=base):
+                    x = sets[0] if x is None else x
+                    err = fn(x.data_ptr(), mind.data_ptr(), c.data_ptr(),
+                             None, sel.data_ptr(), None, base,
+                             base + 4 * (n + 2), base + 4 * n,
+                             ticket.data_ptr(), n, d, r, rows, stream)
+                    assert err == 0, err
+                call()
+                torch.cuda.synchronize()
+                out = buf[:n + 2].clone()
+                ref_bytes = out if ref_bytes is None else ref_bytes
+                print(json.dumps({
+                    "kernel": "greedy_round", "variant": name,
+                    "shape": [n, d, r], "rows_per_cta": rows,
+                    "ms": median_ms(call),
+                    "device_ms": profiled_ms(call, ""),
+                    "cold_device_ms": profiled_ms(lambda: call(take()), ""),
+                    "bytes_equal_to_build": torch.equal(out, ref_bytes)}),
+                    flush=True)
+        if old is not None:
+            nb = -(-n // 64)
+            nmind = torch.empty((n,), device=dev)
+            bmax = torch.empty((nb,), device=dev)
+            barg = torch.empty((nb,), dtype=torch.int32, device=dev)
+
+            def call_old(x=None):
+                x = sets[0] if x is None else x
+                err = old(x.data_ptr(), mind.data_ptr(), c.data_ptr(),
+                          sel.data_ptr(), None, nmind.data_ptr(),
+                          bmax.data_ptr(), barg.data_ptr(), n, d, r, 64,
+                          stream)
+                assert err == 0, err
+                win = torch.argmax(bmax)
+                return barg[win], bmax[win]
+            print(json.dumps({
+                "kernel": "greedy_round", "variant": "parent",
+                "shape": [n, d, r], "rows_per_cta": 64,
+                "ms": median_ms(call_old),
+                "device_ms": profiled_ms(call_old, "greedy_round"),
+                "cold_device_ms": profiled_ms(lambda: call_old(take()),
+                                              "greedy_round"),
+                "call_device_ms": profiled_ms(call_old, "")}), flush=True)
+        del sets
+
+
+def uncertainty_variants(build):
+    """B4 at the decode shape (16 x 152,064 fp32) and a pool-scoring shape
+    (4,096 rows): split sizes (16-byte units a thread: S = 76, 38, 19 at
+    fp32) and units a thread loads before it computes, each twice (in
+    order, then backwards); with ``--parent DIR`` the earlier tree's one
+    CTA a row. Device ms from torch.profiler (split + merge)."""
+    from repro_torch.kernels.uncertainty import ops as unc
+    from repro_torch.kernels.uncertainty import ref as uref
+    dev = torch.device("cuda")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fns = {}
+    for name, lib in build_variants(build, "uncertainty_stats",
+                                    UNC_VARIANTS).items():
+        fn = lib.uncertainty_stats
+        fn.argtypes = [p, i, p, p, i, i, p]
+        fn.restype = i
+        fns[name] = (fn, lib.uncertainty_stats_split_elems(0))
+    src = parent_source("uncertainty_stats")
+    if src is not None:
+        old = build_variants(build, "uncertainty_stats", {"parent": []},
+                             src)["parent"].uncertainty_stats
+        old.argtypes = [p, i, p, i, i, p]
+        old.restype = i
+        fns["parent"] = (old, None)
+    stream = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator(device=dev).manual_seed(4)
+    for n in (16, 4_096):
+        x = torch.randn((n, 152_064), generator=g, device=dev) * 3.0
+        want = uref.uncertainty_stats_ref(x)
+        times = {name: [] for name in fns}
+        calls = {}
+        for name, (fn, split) in fns.items():
+            splits = 0 if split is None else -(-x.shape[1] // split)
+            buf = torch.empty((4 * n * (1 + splits),), device=dev)
+
+            def call(fn=fn, buf=buf, split=split):
+                base = buf.data_ptr()
+                args = ((base, base + 16 * n) if split is not None
+                        else (base,))
+                err = fn(x.data_ptr(), 0, *args, n, x.shape[1], stream)
+                assert err == 0, err
+            calls[name] = (call, buf, split)
+        for name in list(fns) + list(fns)[::-1]:
+            times[name].append(profiled_ms(calls[name][0],
+                                           "uncertainty_stats"))
+        for name, (call, buf, split) in calls.items():
+            call()
+            torch.cuda.synchronize()
+            got = buf[:4 * n].view(4, n)
+            err = max(float((got[k] - want[kind]).abs().max())
+                      for k, kind in enumerate(unc.KINDS))
+            print(json.dumps({"kernel": "uncertainty_stats", "variant": name,
+                              "shape": [n, x.shape[1]], "split_elems": split,
+                              "device_ms": times[name],
+                              "max_abs_err_vs_plain": err}), flush=True)
+        del x
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -316,8 +543,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     sections = {"flash_bf16": flash, "argmin": argmin, "flash32": flash32,
-                "decode": decode}
-    for name in sys.argv[1:] or sections:
+                "decode": decode, "round": greedy_round_variants,
+                "unc": uncertainty_variants}
+    args = sys.argv[1:]
+    if "--parent" in args:
+        k = args.index("--parent")
+        args = args[:k] + args[k + 2:]
+    for name in args or sections:
         sections[name](build)
     return 0
 

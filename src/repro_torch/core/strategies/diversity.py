@@ -24,11 +24,6 @@ from repro_torch.core.strategies.base import (Strategy, shard_tensor,
 from repro_torch.core.strategies.uncertainty import lc_scores
 
 
-def _row(x, idx):
-    """Row ``idx`` (a 0-d device tensor) of ``x`` as a (1, d) tensor."""
-    return torch.index_select(x, 0, idx.reshape(1).long())
-
-
 def k_center_greedy(rng, budget: int, embeddings, init_centers=None,
                     impl: str = "auto", weights=None):
     """2-approx k-center: repeatedly take the point farthest from all
@@ -62,11 +57,11 @@ def k_center_greedy(rng, budget: int, embeddings, init_centers=None,
             torch.int32)
     for i in range(start, budget):
         selected[i:i + 1] = nxt
-        # one fused pool pass: fold the new center in, mask it, get the
-        # following round's (weighted) argmax
-        mindist, nxt, _ = ops.greedy_round(emb, mindist, _row(emb, nxt),
-                                           nxt.reshape(1), weights=w,
-                                           impl=impl)
+        # one fused pool pass: fold the new center (read in place by its
+        # index) in, mask it, get the following round's (weighted) argmax
+        idx = nxt.reshape(1)
+        mindist, nxt, _ = ops.greedy_round(emb, mindist, idx, idx,
+                                           weights=w, impl=impl)
     return selected
 
 
@@ -88,18 +83,18 @@ def _kmeans(rng, x, k: int, iters: int = 10, weights=None):
         if weights is None else weights
     keys = rnglib.split(rng, 2)
     # seeding: weighted random first, then farthest-point (cheap ++
-    # variant). The running min-dist only ever sees FILLED centroid rows,
-    # never the zero rows of the buffer (no phantom centers at the origin).
+    # variant). Each round folds the row it picked, read in place by its
+    # index; the seed rows are gathered once after the loop.
     first = rnglib.categorical(keys[0], torch.log(w + 1e-9))
-    cents = torch.zeros((k, d), dtype=torch.float32, device=dev)
-    cents[0] = x[first]
+    seeds = torch.full((k,), first, dtype=torch.int32, device=dev)
     mind = ops.sq_dist_to_center(x, x[first])
     no_mask = torch.full((1,), -1, dtype=torch.int32, device=dev)
     nxt = torch.argmax(mind * w).to(torch.int32)
     for i in range(1, k):
-        row = _row(x, nxt)
-        cents[i:i + 1] = row
-        mind, nxt, _ = ops.greedy_round(x, mind, row, no_mask, weights=w)
+        seeds[i:i + 1] = nxt
+        mind, nxt, _ = ops.greedy_round(x, mind, nxt.reshape(1), no_mask,
+                                        weights=w)
+    cents = torch.index_select(x, 0, seeds.long())
     for _ in range(iters):
         assign = ops.pairwise_argmin(x, cents)             # (N,)
         one = torch.nn.functional.one_hot(assign.long(), k).float() \

@@ -21,7 +21,7 @@ from repro_torch.common import rng as rnglib
 from repro_torch.core.strategies.base import (Strategy, shard_tensor,
                                               unit_weights,
                                               unit_weights_parts)
-from repro_torch.core.strategies.diversity import (_row, k_center_greedy,
+from repro_torch.core.strategies.diversity import (k_center_greedy,
                                                    sharded_k_center)
 from repro_torch.core.strategies.uncertainty import lc_scores, mc_scores
 
@@ -47,8 +47,9 @@ def kmeans_pp_sample(rng, x, k: int, impl: str = "auto"):
     for i in range(1, k):
         sel[i:i + 1] = nxt
         w = torch.exp(rnglib.gumbel(keys[i + 1], N, dev))
-        mind, nxt, _ = ops.greedy_round(x, mind, _row(x, nxt),
-                                        nxt.reshape(1), weights=w, impl=impl)
+        idx = nxt.reshape(1)
+        mind, nxt, _ = ops.greedy_round(x, mind, idx, idx, weights=w,
+                                        impl=impl)
     return sel
 
 

@@ -70,11 +70,17 @@ def _hashed_files(source: Path) -> list:
     return seen
 
 
-def library_path(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """12 hex digits of the hash over ``name``'s source and its local
+    headers: it changes with any edit to either."""
     h = hashlib.sha1()
     for f in _hashed_files(SOURCES[name]):
         h.update(f.name.encode() + b"\0" + f.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    return h.hexdigest()[:12]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_hash(name)}.so"
 
 
 def _start(name: str):

@@ -6,9 +6,9 @@ Two block sizes steer the selection kernels:
 ``n_block``
     Rows per CTA of the fused round (``csrc/greedy_round.cu``) and the
     gate block of the block-masked round (``csrc/gated_greedy_round.cu``).
-    It changes no float of either kernel's output (a row's sums run in a
-    fixed order inside one warp whatever the block), only how many CTAs
-    stream the pool and how many partials the host reduces.
+    It changes no float of either kernel's output (a row's sums run in an
+    order fixed by d whatever the block), only how many CTAs stream the
+    pool and how many partials the launch's last CTA reduces.
 ``r_block``
     Centers folded per fused pass in ``ops.warm_start_min_dist``. A
     one-center chunk takes the difference form and every other chunk the
@@ -23,18 +23,21 @@ budget. Off the card (``measure=False``) it alone decides, so the CPU pick
 equals the reference's ``autotune_blocks(measure=False)``. On the card
 (``measure=None`` with a CUDA ``device``, or ``measure=True``) every
 ``n_block`` that fits Hopper's budget is timed with CUDA events at full
-occupancy and the fastest wins. The two kernels keep no row tile on chip:
-a CTA of 256 threads stages one 64 KB chunk of centers in shared memory
-(227 KB opt-in per block) and uses at most 255 registers a thread (64 K
-per SM), whatever ``n_block`` is; so every candidate fits wherever a center
-row fits the chunk (d ≤ 16,383).
+occupancy and the fastest wins. The two kernels keep no whole row or
+center on chip: the difference form streams rows through registers and
+reads its one center through the L1 cache, the matmul form stages
+16-feature slices of a 64-row tile and its centers (at most 31 KB of
+static shared memory a CTA), whatever ``n_block`` and d are; so every
+candidate launches at every d.
 
 Winners are cached per (N, d, dtype, variant) — ``"round"`` (the plain
 fused round) and ``"gated"`` (the block-masked round) never share an entry
 — and persist as one small JSON per key in ``REPRO_TORCH_AUTOTUNE_CACHE_DIR``
 (default ``~/.cache/repro_torch/pairwise-autotune``; the empty string
-disables it), written then renamed. A corrupt, stale-format or no longer
-feasible entry is ignored and re-tuned.
+disables it), written then renamed. Each entry carries the hash of the
+kernel source it was measured on (``build.source_hash``). A corrupt,
+stale-format or no longer feasible entry, or one measured on another
+version of the kernel, is ignored and re-tuned.
 """
 from __future__ import annotations
 
@@ -52,14 +55,9 @@ R_BLOCK_CANDIDATES = (8, 32, 64, 128, 256, 512)
 # the reference's TPU tile budget (half of ~16 MB VMEM per core): the model
 VMEM_BUDGET_BYTES = 8 * 1024 * 1024
 
-# Hopper, per CTA of the selection kernels (csrc/round_block.cuh)
-THREADS_PER_CTA = 256
-CENTER_SMEM_BYTES = 64 * 1024
-SMEM_OPTIN_BYTES = 232_448          # 227 KB opt-in shared memory per block
-REGISTERS_PER_SM = 65_536
-MAX_REGISTERS_PER_THREAD = 255
-
 VARIANTS = ("round", "gated")
+# the kernel source each variant's winners were measured on
+_SOURCES = {"round": "greedy_round", "gated": "gated_greedy_round"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +75,7 @@ _CACHE: Dict[Tuple[int, int, str, str], BlockChoice] = {}
 _LOCK = threading.RLock()
 
 # bump when the candidate sets, the model or the entry schema change
-_DISK_FORMAT = 1
+_DISK_FORMAT = 2
 
 
 def _pad_to(x: int, m: int) -> int:
@@ -116,14 +114,9 @@ def _feasible(d: int, dtype_bytes: float, n_block: int, r_block: int) -> bool:
 
 def hopper_feasible(d: int, n_block: int) -> bool:
     """Whether the selection kernels launch at this (d, n_block) on the
-    H100: one center row must fit the shared-memory chunk, the CTA's
-    shared memory the opt-in limit, its registers one SM. ``n_block``
-    enters none of the three (the kernels stream rows)."""
-    chunk = CENTER_SMEM_BYTES // ((d + 1) * 4)
-    smem = chunk * (d + 1) * 4 + 2 * 4 * (THREADS_PER_CTA // 32)
-    regs = THREADS_PER_CTA * MAX_REGISTERS_PER_THREAD
-    return (chunk >= 1 and smem <= SMEM_OPTIN_BYTES
-            and regs <= REGISTERS_PER_SM and n_block >= 1)
+    H100: a CTA needs a row, and nothing of d stays on chip (the module
+    docstring), so every width launches."""
+    return d >= 1 and n_block >= 1
 
 
 def model_blocks(n: int, d: int, dtype_bytes: float = 4.0) -> BlockChoice:
@@ -162,6 +155,13 @@ def _disk_path(key) -> Optional[str]:
     return os.path.join(d, f"n{key[0]}_d{key[1]}_{key[2]}_{key[3]}.json")
 
 
+def body_version(variant: str) -> str:
+    """The hash of the kernel source a ``variant``'s winners are measured
+    on: an entry from another version of the round body is re-tuned."""
+    from repro_torch.kernels import build
+    return build.source_hash(_SOURCES[variant])
+
+
 def _dtype_bytes(name: str) -> float:
     return float(torch.empty((), dtype=getattr(torch, name)).element_size())
 
@@ -173,7 +173,8 @@ def _disk_load(key) -> Optional[BlockChoice]:
     try:
         with open(path) as f:
             raw = json.load(f)
-        if raw.get("format") != _DISK_FORMAT:
+        if raw.get("format") != _DISK_FORMAT or \
+                raw.get("body") != body_version(key[3]):
             return None
         choice = BlockChoice(
             int(raw["n_block"]), int(raw["r_block"]),
@@ -204,6 +205,7 @@ def _disk_store(key, choice: BlockChoice) -> None:
         tmp = path + f".tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             json.dump({"format": _DISK_FORMAT,
+                       "body": body_version(key[3]),
                        **dataclasses.asdict(choice)}, f)
         os.replace(tmp, path)
     except OSError:

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import threading
 
@@ -105,7 +106,17 @@ def _use_kernel(x: torch.Tensor, impl: str) -> bool:
 def _f32(t: torch.Tensor, device) -> torch.Tensor:
     if t.device != device:
         raise ValueError(f"tensor on {t.device}, expected {device}")
+    if t.dtype is torch.float32 and t.is_contiguous():
+        return t
     return t.to(torch.float32).contiguous()
+
+
+def _i32(t: torch.Tensor, device) -> torch.Tensor:
+    if t.device != device:
+        raise ValueError(f"tensor on {t.device}, expected {device}")
+    if t.dtype is torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -116,9 +127,10 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-# Each launch below runs under ``torch.cuda.device(<the tensors' device>)``:
-# a ctypes launch goes to the current device, which a worker lane pinned
-# to another card (distributed.worker) may have switched.
+# Each launch below runs on the tensors' device (``torch.cuda.device``
+# where it is not the current one): a ctypes launch goes to the current
+# device, which a worker lane pinned to another card (distributed.worker)
+# may have switched.
 def _check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -134,18 +146,56 @@ def _lib(name: str):
         from repro_torch.kernels import build
         lib = build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        if name == "greedy_round":
-            fn = lib.greedy_round_f32
-            fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
-        elif name == "gated_greedy_round":
-            fn = lib.gated_greedy_round_f32
-            fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p]
+        if name in ("greedy_round", "gated_greedy_round"):
+            fn = getattr(lib, name + "_f32")
+            fn.argtypes = [p] * 10 + [i] * 4 + [p]
         else:
             fn = lib.pairwise_min_argmin_f32
             fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
         _BOUND[name] = fn
     return fn
+
+
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_ptr(index: int) -> int:
+    """The current stream of CUDA device ``index``, as a pointer value."""
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+# The greedy rounds' in-launch argmax elects the last CTA by an integer
+# ticket: one counter per (device, stream), zeroed once here and left at 0
+# by every launch, so concurrent callers on different streams (replica
+# lanes) never share one and a launch needs no fill before it.
+_TICKETS = {}
+_TICKETS_LOCK = threading.Lock()
+
+
+def _ticket(index: int, stream: int) -> int:
+    t = _TICKETS.get((index, stream))
+    if t is None:
+        with _TICKETS_LOCK:
+            t = _TICKETS.get((index, stream))
+            if t is None:
+                t = _TICKETS[index, stream] = torch.zeros(
+                    (1,), dtype=torch.int32, device=torch.device("cuda", index))
+    return t.data_ptr()
+
+
+def _launch(fn, index: int, *args) -> int:
+    """Calls a greedy round's C launcher on device ``index``: ``args`` are
+    its pointers and its four ints; the current stream's ticket goes
+    between them and the stream itself last."""
+    stream = _stream_ptr(index)
+    args = args[:-4] + (_ticket(index, stream),) + args[-4:] + (stream,)
+    if index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)
 
 
 # ------------------------------------------------- pairwise reductions ----
@@ -236,37 +286,103 @@ def masked_weighted_score(mind, weights=None):
     return torch.where(mind < 0.0, -BIG, score)
 
 
-def _greedy_round_cuda(x, mind, centers, sel_idx, weights, n_block: int):
-    dev = x.device
-    x, mind, centers = _f32(x, dev), _f32(mind, dev), _f32(centers, dev)
-    w = None if weights is None else _f32(weights, dev)
-    sel = sel_idx.to(device=dev, dtype=torch.int32).contiguous()
-    n, d = x.shape
-    r = centers.shape[0]
-    if centers.shape[1] != d or mind.shape != (n,) or \
-            (w is not None and w.shape != (n,)):
-        raise ValueError("greedy_round: shapes do not match the (N, d) pool")
-    fn = _lib("greedy_round")
-    rows = min(int(n_block), n)
-    nb = -(-n // rows)
-    nmind = torch.empty((n,), dtype=torch.float32, device=dev)
-    bmax = torch.empty((nb,), dtype=torch.float32, device=dev)
-    barg = torch.empty((nb,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _check(fn(_ptr(x), _ptr(mind), _ptr(centers), _ptr(sel), _ptr(w),
-                  _ptr(nmind), _ptr(bmax), _ptr(barg), n, d, r, rows,
-                  _stream(dev)), "greedy_round")
-    launches.bump(LAUNCHES, "greedy_round")
-    # the first block holding the max owns the lowest tied index
-    win = torch.argmax(bmax)
-    return nmind, barg[win], bmax[win]
-
-
-# Rows per CTA of the fused round when the caller names none: the block
-# picker's winner for both variants at 50,000 x 512 on the H100
-# (chip_smoke.py's picker phase). Serving never measures; a caller that
-# wants a per-shape pick asks ``autotuned_blocks`` for it.
+# ----------------------------------------------------------- the plan ----
+# Rows per CTA of the fused round at d <= 512 when the caller names none:
+# the block picker's winner at 50,000 x 512 on the H100 (chip_smoke.py's
+# picker phase). Wider rows and smaller pools take fewer (``round_plan``),
+# so the text pool (2,048 x 4,096) and the prefilter's folds (slices of
+# 8-256 rows) still spread over the SMs. Serving never measures; a caller
+# that wants a per-shape pick asks ``autotuned_blocks``.
 ROWS_PER_CTA = 64
+# the kernel's threads a CTA and chunks of a row in flight a lane
+# (kThreads and kInFlight in csrc/round_block.cuh)
+CTA_THREADS = 256
+IN_FLIGHT = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundPlan:
+    """How the fused round reads an (n, d) pool with R centers on the card.
+
+    ``form`` and, in the difference form, ``chunk`` (floats a chunk),
+    ``lanes`` (lanes that own a row) fix a row's floats: they depend on d
+    and R alone (csrc/round_block.cuh states the sum orders).
+    ``chunks_in_flight``/``rows_in_flight`` (loads a lane keeps in flight),
+    ``rows_per_cta`` and ``ctas`` only pace the kernel."""
+    form: str
+    chunk: int
+    lanes: int
+    chunks_in_flight: int
+    rows_in_flight: int
+    rows_per_cta: int
+    ctas: int
+
+
+def round_plan(n: int, d: int, r: int = 1,
+               n_block: int | None = None) -> RoundPlan:
+    """The launch plan of ``greedy_round`` (mirrors the kernel's
+    ``greedy_round_layout``). ``n_block`` (rows per CTA) defaults to
+    ROWS_PER_CTA in the matmul form (its row tile is 64 rows); in the
+    difference form to ROWS_PER_CTA * 512 / d rows, and to no more than
+    two CTAs an SM of the H100 need for the pool, but never fewer than one
+    row a warp."""
+    chunk = 4 if d % 4 == 0 and d >= 128 else 1
+    q = d // chunk
+    lanes = 1
+    while lanes < 32 and 2 * lanes <= q:
+        lanes *= 2
+    t = -(-q // lanes)
+    u = 2 if t <= 2 else 4 if t <= 4 else 8
+    if n_block is None:
+        warps = CTA_THREADS // 32
+        n_block = ROWS_PER_CTA if r > 1 else max(warps, min(
+            ROWS_PER_CTA * 512 // max(d, 512), -(-int(n) // (2 * H100_SMS))))
+    rows = min(int(n_block), max(int(n), 1))
+    return RoundPlan("difference" if r == 1 else "matmul", chunk, lanes, u,
+                     max(IN_FLIGHT // u, 1), rows, -(-int(n) // rows))
+
+
+@functools.lru_cache(maxsize=1024)
+def _default_rows(n: int, d: int, r: int) -> int:
+    return round_plan(n, d, r).rows_per_cta
+
+
+def _out(buf: torch.Tensor, n: int):
+    """(new_mind, next_idx, next_score) views of a round's output buffer
+    [nmind (n) | score | index bits | partials]."""
+    return buf[:n], buf.view(torch.int32)[n + 1], buf[n]
+
+
+def _greedy_round_cuda(x, mind, centers, sel_idx, weights,
+                       n_block: int | None):
+    dev = x.device
+    x, mind = _f32(x, dev), _f32(mind, dev)
+    n, d = x.shape
+    if centers.is_floating_point():
+        centers, cidx = _f32(centers, dev), None
+        if centers.dim() != 2 or centers.shape[1] != d:
+            raise ValueError("greedy_round: centers do not match the "
+                             "(N, d) pool")
+    else:
+        centers, cidx = None, _i32(centers, dev)
+    sel = _i32(sel_idx if sel_idx.device == dev else sel_idx.to(dev), dev)
+    w = None if weights is None else _f32(weights, dev)
+    r = sel.shape[0]
+    if mind.shape != (n,) or (w is not None and w.shape != (n,)):
+        raise ValueError("greedy_round: shapes do not match the (N, d) pool")
+    rows = _default_rows(n, d, r) if n_block is None else min(int(n_block), n)
+    nb = -(-n // rows)
+    buf = torch.empty((n + 2 + 2 * nb,), dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    _check(_launch(_lib("greedy_round"), dev.index, x.data_ptr(),
+                   mind.data_ptr(),
+                   None if centers is None else centers.data_ptr(),
+                   None if cidx is None else cidx.data_ptr(), sel.data_ptr(),
+                   None if w is None else w.data_ptr(), base,
+                   base + 4 * (n + 2), base + 4 * n, n, d, r, rows),
+           "greedy_round")
+    launches.bump(LAUNCHES, "greedy_round")
+    return _out(buf, n)
 
 
 def autotuned_blocks(n: int, d: int, dtype=torch.float32, device=None,
@@ -278,17 +394,22 @@ def autotuned_blocks(n: int, d: int, dtype=torch.float32, device=None,
 
 
 def greedy_round(x, mind, centers, sel_idx, weights=None,
-                 impl: str = "auto", n_block: int = ROWS_PER_CTA):
-    """One fused greedy round: one (N, d) pool read folds the (R, d) queued
+                 impl: str = "auto", n_block: int | None = None):
+    """One fused greedy round: one (N, d) pool read folds the R queued
     ``centers`` into ``mind``, masks ``sel_idx`` (-1 = no mask), and
     returns the next (weighted) farthest point.
     -> (new_mind (N,) f32, next_idx () i32, next_score () f32).
 
-    ``weights`` (optional (N,), non-negative) scale the argmax score only,
-    never the returned min-dist. Selected rows (new or carried-in -1)
-    score -BIG, and exact score ties go to the lowest pool index.
-    ``n_block`` (rows per CTA on the card) changes no result: it only
-    sizes the kernel's blocks, which the plain version does not have."""
+    ``centers`` is (R, d) rows, or an (R,) integer tensor of rows of ``x``
+    (the kernel reads them in place: a k-center round folds the row it
+    just picked without gathering it first). ``weights`` (optional (N,),
+    non-negative) scale the argmax score only, never the returned
+    min-dist. Selected rows (new or carried-in -1) score -BIG, and exact
+    score ties go to the lowest pool index. ``n_block`` (rows per CTA on
+    the card; default ``round_plan``'s) changes no result: it only sizes
+    the kernel's blocks, which the plain version does not have. On the
+    card the three results are views of one buffer the launch wrote: no
+    reduction runs after it and nothing waits on the host."""
     if sel_idx.shape[0] != centers.shape[0]:
         raise ValueError(
             f"sel_idx must mask exactly the queued centers: got "
@@ -297,6 +418,8 @@ def greedy_round(x, mind, centers, sel_idx, weights=None,
     if _use_kernel(x, impl):
         return _greedy_round_cuda(x, mind, centers, sel_idx, weights,
                                   n_block)
+    if not centers.is_floating_point():
+        centers = torch.index_select(x, 0, centers.to(x.device).long())
     return ref.greedy_round_ref(x, mind, centers, sel_idx, weights)
 
 
@@ -312,22 +435,19 @@ def _gated_greedy_round_cuda(x, mind, centers, live, pend, weights,
         raise ValueError("gated_greedy_round: shapes do not match the "
                          "(N, d) pool")
     nb = -(-n // min(int(n_block), n))
-    live = live.to(device=dev, dtype=torch.int32).contiguous()
-    pend = pend.to(device=dev, dtype=torch.int32).contiguous()
+    live, pend = _i32(live.to(dev), dev), _i32(pend.to(dev), dev)
     if live.shape != (nb,) or pend.shape != (nb,):
         raise ValueError(f"block vectors must have one entry per row block: "
                          f"got {live.shape[0]}/{pend.shape[0]} for {nb}")
-    fn = _lib("gated_greedy_round")
-    nmind = torch.empty((n,), dtype=torch.float32, device=dev)
-    bmax = torch.empty((nb,), dtype=torch.float32, device=dev)
-    barg = torch.empty((nb,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _check(fn(_ptr(x), _ptr(mind), _ptr(centers), _ptr(live),
-                  _ptr(pend), _ptr(w), _ptr(nmind), _ptr(bmax), _ptr(barg),
-                  n, d, r, int(n_block), _stream(dev)), "gated_greedy_round")
+    buf = torch.empty((n + 2 + 2 * nb,), dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    _check(_launch(_lib("gated_greedy_round"), dev.index, x.data_ptr(),
+                   mind.data_ptr(), centers.data_ptr(), live.data_ptr(),
+                   pend.data_ptr(), None if w is None else w.data_ptr(), base,
+                   base + 4 * (n + 2), base + 4 * n, n, d, r, int(n_block)),
+           "gated_greedy_round")
     launches.bump(LAUNCHES, "gated_greedy_round")
-    win = torch.argmax(bmax)
-    return nmind, barg[win], bmax[win]
+    return _out(buf, n)
 
 
 def _int_vector(v) -> torch.Tensor:

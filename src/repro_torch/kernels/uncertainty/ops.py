@@ -6,11 +6,19 @@ kernel (``csrc/uncertainty_stats.cu``) or raises; a CPU tensor takes the
 plain version in ``ref``. ``impl="ref"`` forces the plain version on any
 device, so the kernel can be timed against it on the card; the serving
 path never passes it. ``LAUNCHES`` counts kernel launches, one per call
-that reaches the card.
+that reaches the card (the split pass and the merge pass of one call count
+once).
+
+The kernel splits each row's V logits into ``split_plan(...).splits``
+contiguous shares, one CTA each, and merges their partial statistics in
+split order; ``ref.uncertainty_stats_split_ref`` is that arithmetic in
+plain PyTorch. It agrees with the plain version within the reference's
+tolerances.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -31,14 +39,46 @@ def reset_launches() -> None:
 
 _FN = []
 
+# Logits a split CTA reads, by dtype (split_elems<T>() in
+# csrc/uncertainty_stats.cu: 256 threads x 8 units x 16 bytes).
+SPLIT_ELEMS = {torch.float32: 8_192, torch.bfloat16: 16_384,
+               torch.float16: 16_384}
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """The kernel's grid for (n, V) logits of one dtype: ``splits`` CTAs a
+    row, each over ``split_elems`` contiguous logits (the last one ragged),
+    ``ctas`` in all. ``splits`` and ``split_elems`` depend on V and the
+    dtype alone, never on n, so a row's scores are the same bits alone or
+    among any others."""
+    splits: int
+    split_elems: int
+    ctas: int
+
+
+def split_plan(n: int, v: int, dtype) -> SplitPlan:
+    elems = SPLIT_ELEMS[dtype]
+    splits = -(-int(v) // elems)
+    return SplitPlan(splits, elems, int(n) * splits)
+
 
 def _lib():
     if not _FN:
         from repro_torch.kernels import build
-        fn = build.load("uncertainty_stats").uncertainty_stats
+        lib = build.load("uncertainty_stats")
+        fn = lib.uncertainty_stats
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, i, p]
+        fn.argtypes = [p, i, p, p, i, i, p]
         fn.restype = i
+        elems = lib.uncertainty_stats_split_elems
+        elems.argtypes = [i]
+        elems.restype = i
+        for dtype, code in _DTYPES.items():
+            if elems(code) != SPLIT_ELEMS[dtype]:
+                raise RuntimeError(f"uncertainty_stats splits {dtype} rows "
+                                   f"every {elems(code)} logits, the "
+                                   f"wrapper every {SPLIT_ELEMS[dtype]}")
         _FN.append(fn)
     return _FN[0]
 
@@ -54,11 +94,16 @@ def _stats_cuda(logits: torch.Tensor) -> torch.Tensor:
     if V < 1:
         raise ValueError("logits need at least one column")
     x = logits.contiguous()
-    out = torch.empty((4, N), dtype=torch.float32, device=x.device)
+    splits = split_plan(N, V, x.dtype).splits
+    # out (4, N), then the split pass's (N, S) partials of 4 floats
+    buf = torch.empty((4 * N * (1 + splits),), dtype=torch.float32,
+                      device=x.device)
+    out = buf[:4 * N].view(4, N)
     if N == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _lib()(x.data_ptr(), _DTYPES[x.dtype], out.data_ptr(), N, V,
+    base = buf.data_ptr()
+    err = _lib()(x.data_ptr(), _DTYPES[x.dtype], base, base + 16 * N, N, V,
                  stream)
     if err != 0:
         raise RuntimeError(f"uncertainty_stats kernel launch failed: CUDA "

@@ -59,9 +59,11 @@ def test_autotune_blocks_cached_and_feasible(hermetic):
                                     ch_wide.r_block) \
         <= autotune.VMEM_BUDGET_BYTES
     assert ch_wide.n_block <= ch.n_block
-    # Hopper's budget: a center row must fit the shared-memory chunk
+    # Hopper: no row or center stays on chip, so every width launches; a
+    # CTA needs a row
     assert autotune.hopper_feasible(16_383, 1024)
-    assert not autotune.hopper_feasible(16_384, 64)
+    assert autotune.hopper_feasible(16_384, 64)
+    assert not autotune.hopper_feasible(64, 0)
 
 
 def test_autotune_disk_cache_roundtrip(on_disk):
@@ -182,6 +184,37 @@ def test_measured_winner_persists_and_is_read_back(on_disk, monkeypatch):
     assert autotune.autotune_blocks(4096, 64, measure=True).source == \
         "measured"
     assert calls[-1] == "round"
+
+
+@pytest.mark.parametrize("stale", [{"body": "0" * 12}, {"format": 1},
+                                   {"body": None}])
+def test_entry_of_another_round_body_is_re_tuned(on_disk, monkeypatch,
+                                                 stale):
+    """A winner measured on another version of the kernel source (or in an
+    older entry format) is ignored and measured again."""
+    calls = []
+
+    def fake_measure(n, d, dtype, device, variant, n_blocks):
+        calls.append(variant)
+        return {nb: 1e-3 * (1 + np.log2(nb)) for nb in n_blocks}
+
+    monkeypatch.setattr(autotune, "_measure", fake_measure)
+    for variant in autotune.VARIANTS:
+        autotune.autotune_blocks(50_000, 512, measure=True, variant=variant)
+        path = on_disk / f"n50000_d512_float32_{variant}.json"
+        raw = json.loads(path.read_text())
+        assert raw["body"] == autotune.body_version(variant)
+        raw.update(stale)
+        if raw["body"] is None:
+            del raw["body"]
+        path.write_text(json.dumps(raw))
+    autotune.clear_cache()
+    for variant in autotune.VARIANTS:
+        ch = autotune.autotune_blocks(50_000, 512, measure=True,
+                                      variant=variant)
+        assert ch.source == "measured"
+    assert calls == ["round", "gated"] * 2          # both re-measured
+    assert autotune.body_version("round") != autotune.body_version("gated")
 
 
 def test_measure_defaults_to_the_pool_device(hermetic, monkeypatch):

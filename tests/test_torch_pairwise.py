@@ -132,6 +132,64 @@ def test_greedy_round_rejects_unmatched_sel_idx():
                          torch.full((1,), -1, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("r", [1, 5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_greedy_round_index_centers_equal_gathered_rows(r, weighted):
+    """Centers named by index into the pool give the bytes of the gathered
+    rows (the plain version gathers; the kernel reads them in place)."""
+    rng = np.random.default_rng(30 + r)
+    x = torch.from_numpy(_pool(7))
+    n = x.shape[0]
+    mind = torch.full((n,), 3.4e38)
+    idx = torch.from_numpy(rng.choice(n, r, replace=False).astype(np.int32))
+    w = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)) \
+        if weighted else None
+    by_index = ops.greedy_round(x, mind, idx, idx, w)
+    by_rows = ops.greedy_round(x, mind, x[idx.long()], idx, w)
+    assert all(torch.equal(a, b) for a, b in zip(by_index, by_rows))
+
+
+def test_round_plan_layout_depends_on_d_alone():
+    """The fused round's layout (form, chunk, lanes a row, loads in flight)
+    is a function of d and R alone; N only sizes the grid."""
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings, strategies as st
+
+    @settings(max_examples=300, deadline=None, database=None)
+    @given(n=st.integers(1, 2_000_000), m=st.integers(1, 2_000_000),
+           d=st.sampled_from([1, 16, 32, 80, 96, 127, 128, 192, 512, 513,
+                              4_096, 16_384]),
+           r=st.sampled_from([1, 2, 8, 256]))
+    def check(n, m, d, r):
+        a, b = ops.round_plan(n, d, r), ops.round_plan(m, d, r)
+        layout = ("form", "chunk", "lanes", "chunks_in_flight",
+                  "rows_in_flight")
+        assert [getattr(a, k) for k in layout] == \
+            [getattr(b, k) for k in layout]
+        assert a.form == ("difference" if r == 1 else "matmul")
+        assert a.chunk == (4 if d % 4 == 0 and d >= 128 else 1)
+        assert a.lanes == 32 or a.lanes <= d // a.chunk < 2 * a.lanes
+        assert a.ctas == -(-n // a.rows_per_cta)
+        assert min(ops.CTA_THREADS // 32, n) <= a.rows_per_cta <= \
+            ops.round_plan(10**7, d, r).rows_per_cta
+    check()
+
+
+def test_round_plan_default_rows_spread_the_main_paths():
+    """The default rows per CTA: ROWS_PER_CTA at d <= 512 and in the
+    matmul form; fewer at wider rows and in small pools, so the text pool
+    (2,048 x 4,096) gives every SM of the H100 a CTA where ROWS_PER_CTA
+    gave 32."""
+    assert ops.round_plan(50_000, 512).rows_per_cta == ops.ROWS_PER_CTA
+    assert ops.round_plan(50_000, 512, 256).rows_per_cta == ops.ROWS_PER_CTA
+    text = ops.round_plan(2_048, 4_096)
+    assert text.ctas >= ops.H100_SMS and text.rows_per_cta >= \
+        ops.CTA_THREADS // 32
+    assert ops.round_plan(2_048, 4_096, 8).rows_per_cta == ops.ROWS_PER_CTA
+    # the prefilter's largest fold slice: one row a warp, 32 CTAs
+    assert ops.round_plan(256, 512).rows_per_cta == ops.CTA_THREADS // 32
+
+
 @pytest.mark.parametrize("m,r_block", [(9, 4), (8, 4), (3, None)])
 def test_warm_start_chunking_matches_reference(rops, m, r_block):
     """Chunks of r_block centers, a trailing one-center chunk included
@@ -389,3 +447,82 @@ def test_cuda_pairwise_min_argmin_tiles(cuda, n, m, d):
         sub = slice(5, n - 3)
         sm, sa = ops.pairwise_min_and_argmin(x[sub], c)
         assert torch.equal(sm, km[sub]) and torch.equal(sa, ka[sub])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96, 512, 513])
+@pytest.mark.parametrize("r", [1, 8, 40])
+def test_cuda_greedy_round_bytes_across_plans_and_prefix(cuda, d, r):
+    """A row's new min-dist bytes, and the round's index and score, do not
+    depend on the rows per CTA, on N (a prefix of the pool) or on whether
+    the centers come as rows or by index; exact ties planted in other CTAs
+    go to the lower row, as in the plain version."""
+    rng = np.random.default_rng(d + r)
+    n = 20_000
+    x = torch.from_numpy((rng.normal(size=(n, d)) * 0.25 / np.sqrt(d / 96))
+                         .astype(np.float32)).to(cuda)
+    x[15_000] = x[300] = x[300] * 3.0               # 300 must win
+    idx = torch.from_numpy(rng.choice(np.setdiff1d(np.arange(n), [300, 15_000]),
+                                      r, replace=False).astype(np.int32)).to(cuda)
+    sel = idx if r == 1 else torch.full_like(idx, -1)
+    mind = torch.full((n,), ref.BIG, device=cuda)
+    base = ops.greedy_round(x, mind, x[idx.long()], sel)
+    _, pi, _ = ops.greedy_round(x, mind, x[idx.long()], sel, impl="ref")
+    assert int(base[1]) == int(pi) == 300
+    outs = [ops.greedy_round(x, mind, x[idx.long()], sel, n_block=nb)
+            for nb in (1, 8, 64, 256, 1024, n)]
+    outs.append(ops.greedy_round(x, mind, idx, sel))
+    for out in outs:
+        assert all(torch.equal(a, b) for a, b in zip(out, base))
+    pre = ops.greedy_round(x[:n - 1], mind[:n - 1], x[idx.long()], sel)
+    assert torch.equal(pre[0], base[0][:n - 1])
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_round_concurrent_streams(cuda):
+    """Rounds launched from two threads on two streams at once (each
+    stream's own ticket elects its last CTA) equal serial rounds."""
+    import threading
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pools = [torch.randn((20_000, 512), generator=g, device=cuda) * 0.05,
+             torch.randn((2_048, 1_024), generator=g, device=cuda) * 0.05]
+
+    def rounds(x):
+        mind = torch.full((x.shape[0],), ref.BIG, device=cuda)
+        nxt = torch.tensor(1, dtype=torch.int32, device=cuda)
+        picks = []
+        for _ in range(40):
+            i = nxt.reshape(1)
+            mind, nxt, _ = ops.greedy_round(x, mind, i, i)
+            picks.append(nxt)
+        return torch.stack(picks), mind
+
+    serial = [rounds(x) for x in pools]
+    out, start = [None, None], threading.Barrier(2)
+
+    def lane(k):
+        s = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(s):
+            start.wait()
+            out[k] = rounds(pools[k])
+        s.synchronize()
+    threads = [threading.Thread(target=lane, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for (sp, sm), (cp, cm) in zip(serial, out):
+        assert torch.equal(sp, cp) and torch.equal(sm, cm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 96, 512, 513, 4_096])
+def test_cuda_round_layout_matches_plan(cuda, d):
+    import ctypes
+    from repro_torch.kernels import build
+    got = (ctypes.c_int * 4)()
+    build.load("greedy_round").greedy_round_layout(ctypes.c_int(d), got)
+    p = ops.round_plan(1000, d)
+    assert list(got) == [p.chunk, p.lanes, p.chunks_in_flight,
+                         p.rows_in_flight]

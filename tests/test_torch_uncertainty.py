@@ -119,6 +119,82 @@ def test_dispatch():
     assert ops.LAUNCHES["uncertainty_stats"] == 0   # the CPU launches none
 
 
+def _split_ties(v, split, pairs, seed=4):
+    """Logits on the bf16 grid whose row k has its top two tied at the
+    columns ``pairs[k]``."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.normal(size=(len(pairs), v)) * 8) / 8
+    for r, (a, b) in enumerate(pairs):
+        x[r, a] = x[r, b] = x[r].max() + 1.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("split", [64, 100, 4_096])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_split_ref_matches_reference(ref, shape, dtype, split):
+    """The kernel's split-and-merge arithmetic in plain form against the
+    reference's plain version, at its tolerances."""
+    rref, _ = ref
+    seed = shape[0] * 1000 + shape[1]
+    xj, xt = _logits(seed, shape, dtype)
+    got = ops.ref.uncertainty_stats_split_ref(xt, split)
+    want = rref.uncertainty_stats_ref(xj)
+    tol = 3e-5 if dtype == "fp32" else 2e-2
+    for k in KINDS:
+        assert got[k].dtype == torch.float32
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=tol, atol=tol, err_msg=k)
+
+
+def test_split_ref_extreme_logits(ref):
+    rref, _ = ref
+    xj, xt = _logits(7, (8, 512), "fp32", scale=80.0)
+    got = ops.ref.uncertainty_stats_split_ref(xt, 100)
+    want = rref.uncertainty_stats_ref(xj)
+    for k in KINDS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("split", [64, 100])
+def test_split_ref_ties_across_a_split_boundary(ref, split):
+    """Tied top-2 logits in two different splits (adjacent across a
+    boundary, far apart, and in one split) give mc == 0 and rc == 1
+    exactly, as in the reference."""
+    rref, _ = ref
+    x = _split_ties(300, split, [(split - 1, split), (3, 2 * split + 7),
+                                 (split, 299), (5, 6)])
+    got = ops.ref.uncertainty_stats_split_ref(torch.from_numpy(x), split)
+    assert torch.all(got["mc"] == 0) and torch.all(got["rc"] == 1)
+    want = rref.uncertainty_stats_ref(x)
+    assert (np.asarray(want["mc"]) == 0).all()
+    for k in KINDS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=3e-5, atol=3e-5, err_msg=k)
+
+
+def test_split_count_depends_on_v_and_dtype_alone():
+    """The kernel's splits a row (and their width) are fixed by V and the
+    dtype; the rows launched only multiply the grid."""
+    pytest.importorskip("hypothesis")
+    from hypothesis import given, settings, strategies as st
+
+    @settings(max_examples=300, deadline=None, database=None)
+    @given(n=st.integers(1, 100_000), m=st.integers(1, 100_000),
+           v=st.integers(1, 2_000_000),
+           dtype=st.sampled_from(list(ops.SPLIT_ELEMS)))
+    def check(n, m, v, dtype):
+        a, b = ops.split_plan(n, v, dtype), ops.split_plan(m, v, dtype)
+        assert (a.splits, a.split_elems) == (b.splits, b.split_elems)
+        assert a.split_elems == ops.SPLIT_ELEMS[dtype]
+        assert (a.splits - 1) * a.split_elems < v <= a.splits * a.split_elems
+        assert a.ctas == n * a.splits
+    check()
+    # 16 x 152,064 fp32, the decode shape: 19 splits of 32 KB a row
+    assert ops.split_plan(16, 152_064, torch.float32).ctas == 16 * 19
+
+
 # ------------------------------------------------------------- on the card --
 @pytest.fixture
 def gpu():
@@ -159,3 +235,36 @@ def test_kernel_extreme_ties_and_rows(gpu):
         assert torch.equal(whole[k][17:18], one[k])
     with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         ops.uncertainty_stats(big.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 152_064), (7, 300), (3, 8_193)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_cuda_kernel_matches_split_ref(gpu, shape, dtype):
+    x = _logits(shape[0] * 7 + shape[1], shape, "fp32")[1].to(gpu, dtype)
+    got = ops.uncertainty_stats(x)
+    want = ops.ref.uncertainty_stats_split_ref(x, ops.SPLIT_ELEMS[dtype])
+    for k in KINDS:
+        torch.testing.assert_close(got[k], want[k], rtol=3e-5, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_row_bytes_alone_and_among_4096_rows(gpu, dtype):
+    big = _logits(12, (4_096, 152_064), "fp32")[1].to(gpu, dtype)
+    whole = ops.uncertainty_stats(big)
+    for r in (0, 2_049, 4_095):
+        one = ops.uncertainty_stats(big[r:r + 1])
+        for k in KINDS:
+            assert torch.equal(whole[k][r:r + 1], one[k]), (r, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ties_straddle_split_boundary(gpu, dtype):
+    split = ops.SPLIT_ELEMS[dtype]
+    x = _split_ties(152_064, split, [(split - 1, split), (10, 150_000),
+                                     (2 * split, 3 * split - 1)])
+    got = ops.uncertainty_stats(torch.from_numpy(x).to(gpu, dtype))
+    assert torch.all(got["mc"] == 0) and torch.all(got["rc"] == 1)
