@@ -26,7 +26,13 @@ Phases, one line each (any failure raises and exits non-zero):
             block): live share all / ~10 % / none, pending zeros and
             seeded, R 1 and 8, weights or not, planted ties across two
             live blocks, dead rows bit for bit, all-live R 8 equal to
-            greedy_round bit for bit; timed at 100 % and ~10 % live;
+            greedy_round bit for bit; with per-center forms (single
+            centers in the difference form, chunks in the matmul form)
+            at d = 32, 192 and 512, gate blocks of 256 and 32 rows and
+            per-block cursors, bit for bit equal to one greedy_round
+            launch per entry, per-block pairs included; timed at 100 %
+            and ~10 % live in both forms, and as the prefilter engine
+            calls it (a shard's gate-block layout, 200 queued centers);
             uncertainty_stats over 152,064-wide logits (N 1, 16, 4,096),
             ragged V, bf16, scale-80 logits and planted top-2 ties (mc
             exactly 0), timed at the decode shape (16 rows) and a
@@ -82,9 +88,10 @@ Phases, one line each (any failure raises and exits non-zero):
             (the labeled set of phase 4) select keys equal to phase 4's
             ``replicas: 1`` server; with ``prefilter: true`` at slack 1e6
             (every cluster live) lc/kcg/coreset equal ``prefilter:
-            false``'s; at the default slack 0.05 lc equal, kcg/coreset's
-            key agreement and their ``pool_rows`` against the full scan
-            printed; with ``strategy_state_cache: false`` the warm
+            false``'s, and so do they at the default slack 0.05, with
+            their ``pool_rows`` against the full scan printed (kcg and
+            coreset at budget 1,000 and 200); with
+            ``strategy_state_cache: false`` the warm
             coreset (min-dists from scratch) equals the persisted state's
             keys. Then the reference benchmark's clumped pool (12,288 x
             192 vectors, 97 % near-duplicates in 48 clumps, MLP backend)
@@ -92,7 +99,10 @@ Phases, one line each (any failure raises and exits non-zero):
             1e9; gated lc/es/coreset/kcg keys equal the full scan's, and
             at 0.05 lc and coreset touch >= 10x fewer pool rows (the
             gate prunes clusters here). Launch counts zeroed before each
-            server, read after.
+            server, read after. Every gated k-center query logs the
+            prefilter engine's waves, gated_greedy_round launches and
+            host syncs per (slot, shard); its kcg launches no
+            greedy_round.
 7. bitwise  the text encoder (qwen3-8b widths, 4 layers, flash kernel):
             features of 64 sequences bit-identical at block sizes 96, 128
             and 512 (on the card ``block`` reaches no kernel, so this holds
@@ -649,16 +659,20 @@ def check_gated(ops, dev, rng):
 
 def time_gated(ops, dev, rng):
     """R = 1, zero pending, unweighted, n_block 256, at 100 % and ~10 %
-    live. Bound by bytes, each stream the timed call moves once: the live
-    rows of x, mind in and out (N each), the R centers, block_live and
-    block_pending in and the (max, index) partials out (nn each), all 4
-    bytes: 4 * (live rows * d + 2 * N + R * d + 4 * nn). No weights."""
+    live, in the matmul form (no forms, the reference's) and in the
+    difference form (forms [0], the prefilter's single centers), at the
+    plan's tile. Bound by bytes, each stream the timed call moves once:
+    the live rows of x, mind in and out (N each), the R centers,
+    block_live and block_pending in and the (max, index) pairs out (nn
+    each), all 4 bytes: 4 * (live rows * d + 2 * N + R * d + 4 * nn). No
+    weights."""
     x = torch.from_numpy((rng.standard_normal((POOL, D)) * 0.05).astype(
         np.float32)).to(dev)
     mind = torch.full((POOL,), 3.4e38, device=dev)
     nn = -(-POOL // GATED_NB)
     pend = torch.zeros(nn, dtype=torch.int32, device=dev)
     c = x[7:8]
+    diff = torch.zeros(1, dtype=torch.int8, device=dev)
     out = {}
     for share in (1.0, 0.1):
         live = (torch.ones(nn, dtype=torch.int32) if share == 1.0 else
@@ -666,21 +680,142 @@ def time_gated(ops, dev, rng):
                     np.int32))).to(dev)
         lv = live.cpu().numpy().nonzero()[0]
         rows = int(sum(min(GATED_NB, POOL - b * GATED_NB) for b in lv))
-        def call():
+        def call(forms=None):
             return ops.gated_greedy_round(x, mind, c, live, pend,
-                                          n_block=GATED_NB)
+                                          n_block=GATED_NB, forms=forms,
+                                          matmul=None if forms is None
+                                          else False)
         ms = median_ms(call)
         plain = median_ms(lambda: ops.gated_greedy_round(
             x, mind, c, live, pend, n_block=GATED_NB, impl="ref"))
         bnd, by = bound(4.0 * (rows * D + 2 * POOL + D + 4 * nn),
                         3.0 * rows * D)
         out[share] = {"live_blocks": len(lv), "blocks": nn, "live_rows": rows,
+                      "tile_rows": ops.gated_plan(POOL, D, GATED_NB),
                       "ms": ms, "device_ms": profiled_ms(
                           call, "gated_greedy_round"),
                       "call_device_ms": profiled_ms(call, ""),
                       "host_us": host_us(call), "plain_ms": plain,
-                      "bound_ms": bnd, "bound_by": by}
+                      "bound_ms": bnd, "bound_by": by,
+                      "difference_form": {
+                          "ms": median_ms(lambda: call(diff)),
+                          "device_ms": profiled_ms(lambda: call(diff),
+                                                   "gated_greedy_round")}}
     return out
+
+
+# The prefilter engine's wave at the sharded image pool: a shard's
+# ~16,700 rows in 64 segments padded to gate blocks of 32 rows, one queued
+# center a slot in the difference form (R = 200 by slot 200), every block
+# one center behind (the slot's new center), all or ~10 % of the segments'
+# blocks live.
+WAVE_ROWS, WAVE_R = 16_672 + 64 * 16, 200
+
+
+def time_wave(ops, dev, rng):
+    """``gated_greedy_round`` as the engine calls it (n_block =
+    prefilter.GATE_ROWS, forms all 0, block_pending R - 1, per-block
+    pairs), at 100 % and ~10 % live: CUDA-event ms, device ms,
+    the plain version's ms, the bound (bytes: live rows of x, mind in and
+    out, the pending centers, the block vectors and pairs) and the
+    library call's: none (no single PyTorch call folds a gate mask)."""
+    from repro_torch.core.prefilter import GATE_ROWS
+    n, nb, r = WAVE_ROWS, GATE_ROWS, WAVE_R
+    nn = n // nb
+    x = torch.from_numpy((rng.standard_normal((n, D)) * 0.05).astype(
+        np.float32)).to(dev)
+    c = torch.from_numpy((rng.standard_normal((r, D)) * 0.05).astype(
+        np.float32)).to(dev)
+    forms = torch.zeros(r, dtype=torch.int8, device=dev)
+    mind = torch.full((n,), 3.4e38, device=dev)
+    pend = torch.full((nn,), r - 1, dtype=torch.int32, device=dev)
+    out = {}
+    for share in (1.0, 0.1):
+        live_np = (np.ones(nn, np.int32) if share == 1.0 else
+                   (rng.uniform(size=nn) < share).astype(np.int32))
+        live = torch.from_numpy(live_np).to(dev)
+        rows = int(live_np.sum()) * nb
+
+        def call(impl="auto"):
+            return ops.gated_greedy_round(
+                x, mind, c, live, pend, impl=impl, n_block=nb, forms=forms,
+                matmul=False, blocks=True)
+        bnd, by = bound(4.0 * (rows * D + 2 * n + D + 4 * nn),
+                        3.0 * rows * D)
+        out[share] = {"shape": [n, D, r], "n_block": nb,
+                      "tile_rows": ops.gated_plan(n, D, nb),
+                      "live_rows": rows, "ms": median_ms(call),
+                      "device_ms": profiled_ms(call, "gated_greedy_round"),
+                      "host_us": host_us(call),
+                      "plain_ms": median_ms(lambda: call("ref")),
+                      "bound_ms": bnd, "bound_by": by, "library_ms": None}
+    return out
+
+
+# entries as the prefilter queues them: warm-start chunks (matmul form)
+# and single centers (difference form), a one-center last chunk included
+FORM_ENTRIES = (5, 1, 3, 1, 1, 2, 1)
+
+
+def check_gated_forms(ops, dev, rng):
+    """The mixed-form kernel against B1, bit for bit: at d = 32, 192 and
+    512 over 20,003 rows in gate blocks of 256 and 32 rows, ~half live,
+    each block folding the entries from its own cursor on, one gated
+    launch (forms 0 for single centers, 1 for chunks) must give the new
+    min-dists of one ``greedy_round`` launch per entry, and the per-block
+    pairs and the argmax that follow from them."""
+    rows = np.concatenate([[0], np.cumsum(FORM_ENTRIES)])
+    forms = torch.from_numpy(np.concatenate(
+        [np.full(k, int(k > 1), np.int8) for k in FORM_ENTRIES])).to(dev)
+    n, cases = 20_003, 0
+    for d in (32, 192, 512):
+        x = torch.from_numpy((rng.standard_normal((n, d)) * 0.25).astype(
+            np.float32)).to(dev)
+        c = torch.from_numpy((rng.standard_normal((int(rows[-1]), d))
+                              * 0.25).astype(np.float32)).to(dev)
+        mind = torch.full((n,), 3.4e38, device=dev)
+        mind[torch.from_numpy(rng.choice(n, 300, replace=False)).to(dev)] \
+            = -1.0
+        # from each cursor e0 on, one B1 launch per entry
+        seq = {}
+        for e0 in range(len(FORM_ENTRIES) + 1):
+            m = mind
+            for e in range(e0, len(FORM_ENTRIES)):
+                chunk = c[int(rows[e]):int(rows[e + 1])]
+                m = ops.greedy_round(x, m, chunk, torch.full(
+                    (chunk.shape[0],), -1, dtype=torch.int32, device=dev))[0]
+            seq[e0] = m
+        for nb in (256, 32):
+            nn = -(-n // nb)
+            live = (rng.uniform(size=nn) < 0.5).astype(np.int32)
+            ent = rng.integers(0, len(FORM_ENTRIES) + 1, nn)
+            nm, idx, score, pairs = ops.gated_greedy_round(
+                x, mind, c, torch.from_numpy(live).to(dev),
+                torch.from_numpy(rows[ent].astype(np.int32)).to(dev),
+                n_block=nb, forms=forms, blocks=True)
+            blk = np.repeat(np.arange(nn), nb)[:n]
+            want = mind.clone()
+            for e0 in range(len(FORM_ENTRIES)):
+                sel = torch.from_numpy((live[blk] > 0) & (ent[blk] == e0)
+                                       ).to(dev)
+                want = torch.where(sel, seq[e0], want)
+            torch.cuda.synchronize()
+            assert torch.equal(nm.view(torch.int32), want.view(torch.int32)), \
+                ("mixed forms != B1 per entry", d, nb)
+            sc = torch.where(torch.from_numpy(live[blk] > 0).to(dev)
+                             & ~(want < 0), want, -3.4e38)
+            padded = torch.full((nn * nb,), -3.4e38, device=dev)
+            padded[:n] = sc
+            bi = torch.argmax(padded.view(nn, nb), dim=1)
+            assert torch.equal(pairs[0], padded.view(nn, nb).gather(
+                1, bi[:, None])[:, 0]), ("block maxima", d, nb)
+            assert torch.equal(pairs[1].view(torch.int32), (
+                bi + torch.arange(nn, device=dev) * nb).to(torch.int32)), \
+                ("block indices", d, nb)
+            assert int(idx) == int(torch.argmax(sc)) and \
+                float(score) == float(sc.max()), ("argmax", d, nb)
+            cases += 1
+    return cases
 
 
 def check_argmin(ops, dev, rng):
@@ -1303,13 +1438,32 @@ def run_picker(dev, counters, tune_dir):
 
 # --------------------------------------------------------------- sharded --
 SHARDED_STRATEGIES = ("lc", "kcg", "dbal", "badge")
-# k-center depth on the prefilter servers. On this pool's unclumped
-# features the gate prunes no cluster, so each slot folds every segment
-# of every shard, one launch each (~0.9 ms a fold from Python on the
-# H100): budget 1,000 took ~170 s a query. Greedy picks are a prefix
-# property (slot j depends only on slots < j), so the first PF_BUDGET
-# keys are held against the full-depth server's first PF_BUDGET.
-PF_BUDGET = 200
+# a second, shorter k-center depth on the full-scan and prefilter servers:
+# the depth the prefilter's queries were timed at before its engine folded
+# a slot in one round (greedy picks are a prefix property, so its keys
+# are held against the first SHORT keys of replicas 1)
+SHORT = 200
+
+
+def engine_query(ops, fn):
+    """Runs ``fn()`` (one query) with the prefilter engine's counters and
+    the selection kernels' launches read around it. Returns (fn's result,
+    the engine's counts with per-(slot, shard) means, or None when the
+    query ran no gated k-center engine)."""
+    from repro_torch.core import prefilter as pf
+    pf.reset_engine_stats()
+    before = dict(ops.LAUNCHES)
+    res = fn()
+    eng = dict(pf.ENGINE_STATS)
+    if not eng["proposals"]:
+        return res, None
+    eng["b1_launches"] = ops.LAUNCHES["greedy_round"] - before["greedy_round"]
+    eng["b5_launches"] = (ops.LAUNCHES["gated_greedy_round"]
+                          - before["gated_greedy_round"])
+    per = eng["proposals"]
+    eng["per_slot_shard"] = {k: eng[k] / per for k in (
+        "waves", "syncs", "b5_launches", "segments_folded")}
+    return res, eng
 
 
 def run_sharded(base, counters):
@@ -1320,8 +1474,9 @@ def run_sharded(base, counters):
     the default slack. Each repeats the image phase's selections (rng 1
     before labels; label its lc picks, train_eval, warm coreset at rng 2)
     and is held against the ``replicas: 1`` server's keys ``base``; the
-    prefilter servers' k-center queries run to PF_BUDGET and are held
-    against the first PF_BUDGET keys. As in the reference's prefilter
+    prefilter servers' k-center queries log the engine's waves, B5
+    launches and host syncs per (slot, shard) and must launch no B1. As in
+    the reference's prefilter
     benchmark, a budget-1 lc query (and a budget-1 coreset query after
     labeling) builds the artifact columns, the centroid summaries and the
     persisted k-center state outside the ``pool_rows`` windows."""
@@ -1333,7 +1488,7 @@ def run_sharded(base, counters):
     picks, key2y = base["picks"], base["key2y"]
     xs, _ = image_pool(POOL, hw=HW, seed=3)
     full = {s: BUDGET for s in SHARDED_STRATEGIES + ("coreset",)}
-    gated = {"lc": BUDGET, "kcg": PF_BUDGET, "coreset": PF_BUDGET}
+    gated = {"lc": BUDGET, "kcg": BUDGET, "coreset": BUDGET}
     runs = (("replicas3", {}, full),
             # the from-scratch oracle of the persisted k-center state: its
             # warm coreset must equal the state-backed servers' keys
@@ -1348,7 +1503,7 @@ def run_sharded(base, counters):
                                   **extra)
         srv = ALServer(cfg, backend=base["backend"])
         cli = ALClient(local=srv)
-        wall, rows, keys_of = {}, {}, {}
+        wall, rows, keys_of, engine = {}, {}, {}, {}
         try:
             for reset in counters:
                 reset()                          # this server's path starts
@@ -1363,11 +1518,13 @@ def run_sharded(base, counters):
                 tag = tag or strategy
                 t = time.perf_counter()
                 with ops.track_ops() as st:
-                    res = cli.query(budget=budget, strategy=strategy,
-                                    rng_seed=seed)
+                    res, eng = engine_query(ops, lambda: cli.query(
+                        budget=budget, strategy=strategy, rng_seed=seed))
                 wall[f"query_{tag}"] = time.perf_counter() - t
                 rows[tag] = st["pool_rows"]
                 keys_of[tag] = res["keys"]
+                if eng is not None:
+                    engine[tag] = eng
 
             t = time.perf_counter()
             cli.query(budget=1, strategy="lc")   # columns and summaries
@@ -1375,16 +1532,16 @@ def run_sharded(base, counters):
             for strategy in SHARDED_STRATEGIES:
                 if strategy in budgets:
                     query(strategy, 1, budgets[strategy])
-            if name == "replicas3":              # the gated runs' baseline
-                query("kcg", 1, PF_BUDGET, f"kcg_{PF_BUDGET}")
+            if "kcg" in budgets:
+                query("kcg", 1, SHORT, f"kcg_{SHORT}")
             t = time.perf_counter()
             cli.label(picks["lc"], [key2y[k] for k in picks["lc"]])
             cli.train_eval()
             cli.query(budget=1, strategy="coreset")   # persisted state
             wall["label_train_eval_warm_coreset"] = time.perf_counter() - t
             query("coreset", 2, budgets["coreset"])
-            if name == "replicas3":
-                query("coreset", 2, PF_BUDGET, f"coreset_{PF_BUDGET}")
+            if "kcg" in budgets:
+                query("coreset", 2, SHORT, f"coreset_{SHORT}")
             torch.cuda.synchronize()
             launches = {}
             for counts in counters.values():     # ... and ends here
@@ -1405,21 +1562,21 @@ def run_sharded(base, counters):
         out[name] = {"keys": keys_of, "rows": rows}
         all_launches[name] = launches
         base_rows = out["replicas3"]["rows"]
-        ratio = ({s: base_rows[s if budgets[s] == BUDGET
-                               else f"{s}_{PF_BUDGET}"] / max(rows[s], 1)
-                  for s in rows} if name != "replicas3" else None)
+        ratio = ({s: base_rows[s] / max(rows[s], 1) for s in rows}
+                 if name != "replicas3" else None)
         log("sharded", server=name, replicas=3, wall_s=wall,
             keys_equal=equal, key_agreement_with_replicas1=agree,
             pool_rows=rows, pool_rows_ratio_full_over_this=ratio,
-            launches=launches, workers={k: stats["workers"][k] for k in
-                                        ("tasks", "restarts",
-                                         "straggler_events")},
+            launches=launches, engine=engine,
+            workers={k: stats["workers"][k] for k in
+                     ("tasks", "restarts", "straggler_events")},
             summary_builds=stats["artifacts"]["summary_builds"],
             strategy_state=stats["strategy_state"])
-        if name == "prefilter_default":
-            assert equal["lc"], "gated top-k must equal the full scan"
-        else:
-            assert all(equal.values()), (name, equal)
+        if name.startswith("prefilter"):
+            assert engine["kcg"]["b1_launches"] == 0, engine["kcg"]
+        # the bound prunes only clusters that cannot hold the argmax, at
+        # any slack: gated keys equal the full scan's at both slacks
+        assert all(equal.values()), (name, equal)
     all_launches.update(run_clumped(counters))
     total = {}
     for launches in all_launches.values():
@@ -1491,14 +1648,17 @@ def run_clumped(counters, device="cuda"):
             srv.query(budget=1, strategy="lc")   # columns, summaries
             srv.query(budget=1, strategy="coreset")   # persisted state
             wall["warm_lc_coreset_budget1"] = time.perf_counter() - t
+            engine = {}
             for strategy, budget in CLUMP_QUERIES:
                 t = time.perf_counter()
                 with ops.track_ops() as st:
-                    picks[name, strategy] = srv.query(
-                        budget=budget, strategy=strategy,
-                        rng_seed=7)["keys"]
+                    res, eng = engine_query(ops, lambda: srv.query(
+                        budget=budget, strategy=strategy, rng_seed=7))
+                picks[name, strategy] = res["keys"]
                 wall[f"query_{strategy}"] = time.perf_counter() - t
                 rows[name, strategy] = st["pool_rows"]
+                if eng is not None:
+                    engine[strategy] = eng
             if device == "cuda":
                 torch.cuda.synchronize()
             launches = {}
@@ -1516,7 +1676,9 @@ def run_clumped(counters, device="cuda"):
             wall_s=wall, keys_equal=equal,
             pool_rows={s: rows[name, s] for s, _ in CLUMP_QUERIES},
             pool_rows_ratio_full_over_this=ratio, launches=launches,
-            summary_builds=builds)
+            engine=engine, summary_builds=builds)
+        if extra:
+            assert engine["kcg"]["b1_launches"] == 0, engine["kcg"]
         assert all(equal.values()), (name, equal)
         if name == "clumped_default":
             assert ratio["lc"] >= 10 and ratio["coreset"] >= 10, ratio
@@ -1903,7 +2065,9 @@ def run(tune_dir, kernels_only=False) -> int:
     d_err, d_cases = check_decode(da, dev)
     d_time = time_decode(da, dev)
     gt_err, gt_cases = check_gated(ops, dev, rng)
+    gt_forms = check_gated_forms(ops, dev, rng)
     gt_time = time_gated(ops, dev, rng)
+    gt_wave = time_wave(ops, dev, rng)
     g_bytes = check_round_bytes(ops, dev, rng)
     g_streams = check_round_streams(ops, dev)
     us_err, us_cases = check_uncertainty_split(unc, dev)
@@ -1942,9 +2106,12 @@ def run(tune_dir, kernels_only=False) -> int:
                                         "bf16": DECODE_BF16_TOL},
                           **d_time},
         gated_greedy_round={"cases": gt_cases, "max_abs_err": gt_err,
+                            "mixed_forms_bitwise_b1_cases": gt_forms,
                             "timed_shape": [POOL, D, 1], "n_block": GATED_NB,
                             "live_100": gt_time[1.0],
-                            "live_10": gt_time[0.1]})
+                            "live_10": gt_time[0.1],
+                            "engine_wave": {"live_100": gt_wave[1.0],
+                                            "live_10": gt_wave[0.1]}})
     if kernels_only:
         return 0
 
@@ -1987,7 +2154,7 @@ def run(tune_dir, kernels_only=False) -> int:
          g_bound, g_by, None),
         ("gated_greedy_round", "pairwise/csrc/gated_greedy_round.cu",
          "src/repro/kernels/pairwise/kernel.py:263", gt_err,
-         *(gt_time[1.0][k] for k in ("ms", "plain_ms", "bound_ms",
+         *(gt_wave[1.0][k] for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by")), None),
         ("pairwise_min_argmin", "pairwise/csrc/pairwise_min_argmin.cu",
          "src/repro/kernels/pairwise/kernel.py:87",
@@ -2007,7 +2174,7 @@ def run(tune_dir, kernels_only=False) -> int:
                                "library_ms"))),
     ]
     device_ms = {"greedy_round": g_times[0]["device_ms"],
-                 "gated_greedy_round": gt_time[1.0]["device_ms"],
+                 "gated_greedy_round": gt_wave[1.0]["device_ms"],
                  "uncertainty_stats": u_times[SERVE_BATCH]["device_ms"],
                  "decode_attention": d_time["device_ms"]}
     kernels = []

@@ -3,14 +3,14 @@
 Run from the repo root on a machine with the CUDA toolkit:
 
     python3 scripts/kernel_variants.py [flash_bf16] [argmin] [flash32] \
-        [decode] [round] [unc] [--parent DIR]
+        [decode] [round] [unc] [gated] [engine] [--parent DIR]
 
 (no section named: every section). Each variant is the kernel's source
 (its local headers inlined) with one or two lines edited, built with
 ``nvcc`` into ``build/variants/`` (its ptxas registers and spills printed
 first). ``--parent DIR`` names an unpacked earlier tree (``git archive
 <commit> src/repro_torch/kernels | tar -x -C DIR``) whose kernels the
-round and unc sections time beside the variants.
+round, unc and gated sections time beside the variants.
 
 - flash_bf16: ``flash_attention_bf16.cu`` at warpgroups a CTA W = 1, 2,
   3, and W = 1 without the in-loop K/V copies (stale tiles, timed only),
@@ -48,6 +48,18 @@ round and unc sections time beside the variants.
   4,096 rows of 152,064 fp32 logits, each twice (in order, then
   backwards): split + merge device time, and the largest difference
   from the plain version.
+- gated: ``gated_greedy_round.cu`` at 50,000 x 512 by gate block (32, 64,
+  256 rows), live share (all, ~10 %), R and forms (R = 1 matmul or
+  difference form; R = 8 with per-block cursors, all matmul or mixed),
+  at every tile size up to the gate block (bytes against the plan's
+  tile), L2-cold at the plan's; the earlier tree's one-CTA-a-block grid
+  beside it with ``--parent``.
+- engine: the prefilter's gated k-center engine (``gated_greedy_select``,
+  no server) at chip_smoke's sharded shapes, budget 200, three thread
+  lanes: per query its wall, launches, waves (or per-segment folds) and
+  host syncs per (slot, shard), host seconds by part and a profiled
+  10-slot query; with ``--parent DIR`` (``git archive <commit> src``) the
+  earlier tree's engine first.
 
 One JSON object a line; the card's name and power limit first. Compare
 numbers only within one call.
@@ -60,13 +72,17 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
-from chip_smoke import profiled_ms, ptxas_report  # noqa: E402
+# the package the engine section drives (another tree's, for --parent)
+SRC = os.environ.get("KERNEL_VARIANTS_SRC", os.path.join(ROOT, "src"))
+sys.path[:0] = [SRC, ROOT]
+from chip_smoke import (CLUMP_D, CLUMP_K, CLUMP_N, D, POOL,  # noqa: E402
+                        dupe_pool, profiled_ms, ptxas_report)
 
 OUT = os.path.join(ROOT, "build", "variants")
 KWG = "constexpr int kWG = D <= 128 ? 3 : 2;"
@@ -476,6 +492,160 @@ def greedy_round_variants(build):
         del sets
 
 
+GATED_N, GATED_D = 50_000, 512
+
+
+def device_ms(fn, key, tries=3):
+    """``profiled_ms``, asked again when a profiler session saw no kernel
+    of ``key`` (after many sessions in one process it now and then
+    returns none)."""
+    for t in range(tries):
+        try:
+            return profiled_ms(fn, key)
+        except AssertionError:
+            if t == tries - 1:
+                raise
+# source edits of the gated round (its matmul body): a deeper cp.async
+# ring, and registers cut for three CTAs an SM
+GATED_VARIANTS = {
+    "stages4": [("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")],
+    "matmul_ctas3": [("constexpr int kMatmulCtas = 2;",
+                      "constexpr int kMatmulCtas = 3;")],
+}
+
+
+def gated_variants(build):
+    """B5 at 50,000 x 512 over gate blocks of 32, 64 and 256 rows, live
+    share all / ~10 %: R = 1 with nothing pending in the matmul form (the
+    reference's) and the difference form (forms [0], the prefilter's
+    single centers), and R = 8 with pending cursors seeded per block (all
+    matmul, and five matmul-form centers then three single ones); the
+    build at every tile size up to the gate block (torch.profiler device
+    ms, warm; L2-cold over three rotating pools at the plan's tile), the
+    bytes of every tile against the plan's; with ``--parent DIR`` the
+    earlier tree's kernel (one CTA a gate block, matmul form only) beside
+    it, warm and cold; then the source variants (``GATED_VARIANTS``) at
+    n_block 256, R = 1, both forms and live shares, at the plan's tile."""
+    from repro_torch.kernels.pairwise import ops
+    dev = torch.device("cuda")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    variants = {}
+    for name, lib in build_variants(build, "gated_greedy_round",
+                                    GATED_VARIANTS).items():
+        fn = variants[name] = lib.gated_greedy_round_f32
+        fn.argtypes = [p] * 11 + [i] * 6 + [p]
+        fn.restype = i
+    old = None
+    src = parent_source("gated_greedy_round")
+    if src is not None:
+        old = build_variants(build, "gated_greedy_round", {"parent": []},
+                             src)["parent"].gated_greedy_round_f32
+        old.argtypes = [p] * 10 + [i] * 4 + [p]
+        old.restype = i
+    build.load("gated_greedy_round")
+    stream = torch.cuda.current_stream().cuda_stream
+    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    n, d = GATED_N, GATED_D
+    sets, take = _rotating(lambda _: torch.randn(
+        (n, d), generator=g, device=dev) * 0.05, 3)
+    x = sets[0]
+    mind = torch.full((n,), 3.4e38, device=dev)
+    rng = np.random.default_rng(3)
+    for nb in (256, 64, 32):
+        nn = -(-n // nb)
+        for share in (1.0, 0.1):
+            live = (np.ones(nn, np.int32) if share == 1.0 else
+                    (rng.uniform(size=nn) < share).astype(np.int32))
+            live_rows = int(sum(min(nb, n - b * nb)
+                                for b in np.nonzero(live)[0]))
+            live_d = torch.from_numpy(live).to(dev)
+            for r, forms in ((1, None), (1, [0]), (8, None),
+                             (8, [1, 1, 1, 1, 1, 0, 0, 0])):
+                c = x[7:7 + r].clone()
+                pend = (np.zeros(nn, np.int32) if r == 1 else
+                        rng.integers(0, r, nn).astype(np.int32))
+                pend_d = torch.from_numpy(pend).to(dev)
+                f = None if forms is None else torch.tensor(
+                    forms, dtype=torch.int8, device=dev)
+                plan = ops.gated_plan(n, d, nb)
+                base = None
+                for tile in [t for t in ops.GATED_TILE_ROWS if t <= nb]:
+                    def call(xs=None, tile=tile):
+                        return ops._gated_greedy_round_cuda(
+                            x if xs is None else xs, mind, c, live_d,
+                            pend_d, None, nb, f, tile)
+                    outs = call()
+                    torch.cuda.synchronize()
+                    got = torch.cat([outs[0], outs[3].flatten()])
+                    base = got if base is None else base
+                    rec = {"kernel": "gated_greedy_round", "variant": "build",
+                           "shape": [n, d, r], "n_block": nb,
+                           "live_share": share, "live_rows": live_rows,
+                           "forms": forms, "tile_rows": tile,
+                           "plan_tile": tile == plan,
+                           "device_ms": device_ms(call,
+                                                    "gated_greedy_round"),
+                           "bytes_equal": torch.equal(got, base)}
+                    if tile == plan:
+                        rec["cold_device_ms"] = device_ms(
+                            lambda: call(take()), "gated_greedy_round")
+                    print(json.dumps(rec), flush=True)
+                if old is not None and forms is None:
+                    nmind = torch.empty((n,), device=dev)
+                    part = torch.empty((2 * nn + 2,), device=dev)
+
+                    def call_old(xs=None):
+                        xs = x if xs is None else xs
+                        base_p = part.data_ptr()
+                        err = old(xs.data_ptr(), mind.data_ptr(),
+                                  c.data_ptr(), live_d.data_ptr(),
+                                  pend_d.data_ptr(), None, nmind.data_ptr(),
+                                  base_p + 8, base_p, ticket.data_ptr(), n,
+                                  d, r, nb, stream)
+                        assert err == 0, err
+                    print(json.dumps({
+                        "kernel": "gated_greedy_round", "variant": "parent",
+                        "shape": [n, d, r], "n_block": nb,
+                        "live_share": share, "live_rows": live_rows,
+                        "device_ms": device_ms(call_old,
+                                                 "gated_greedy_round"),
+                        "cold_device_ms": device_ms(
+                            lambda: call_old(take()), "gated_greedy_round")}),
+                        flush=True)
+    nb, nn = 256, -(-n // 256)
+    tile = ops.gated_plan(n, d, nb)
+    tpb = -(-nb // tile)
+    buf = torch.empty((n + 2 + 2 * nn + 2 * nn * tpb,), device=dev)
+    c = x[7:8].clone()
+    pend_d = torch.zeros(nn, dtype=torch.int32, device=dev)
+    diff = torch.zeros(1, dtype=torch.int8, device=dev)
+    for share in (1.0, 0.1):
+        live = (np.ones(nn, np.int32) if share == 1.0 else
+                (np.random.default_rng(5).uniform(size=nn) < share).astype(
+                    np.int32))
+        live_d = torch.from_numpy(live).to(dev)
+        for forms in (None, diff):
+            for name, fn in variants.items():
+                def call(fn=fn, forms=forms):
+                    base_p = buf.data_ptr()
+                    err = fn(x.data_ptr(), mind.data_ptr(), c.data_ptr(),
+                             live_d.data_ptr(), pend_d.data_ptr(),
+                             None if forms is None else forms.data_ptr(),
+                             None, base_p, base_p + 4 * (n + 2),
+                             base_p + 4 * n, ticket.data_ptr(), n, d, 1, nb,
+                             tile, 1 if forms is None else 0, stream)
+                    assert err == 0, err
+                print(json.dumps({
+                    "kernel": "gated_greedy_round", "variant": name,
+                    "shape": [n, d, 1], "n_block": nb, "live_share": share,
+                    "forms": None if forms is None else [0],
+                    "tile_rows": tile,
+                    "device_ms": device_ms(call, "gated_greedy_round")}),
+                    flush=True)
+    del sets
+
+
 def uncertainty_variants(build):
     """B4 at the decode shape (16 x 152,064 fp32) and a pool-scoring shape
     (4,096 rows): split sizes (16-byte units a thread: S = 76, 38, 19 at
@@ -534,6 +704,170 @@ def uncertainty_variants(build):
         del x
 
 
+# The prefilter's gated k-center engine driven directly (no server) at
+# chip_smoke's sharded shapes: the image pool's 50,000 x 512 rows (random
+# features, which the gate prunes as little as the image pool's) and the
+# clumped pool's 12,288 rows projected to the MLP's 32 features, each on
+# three shards with their summaries built on the card.
+PROBE_CASES = (("image", POOL, D, 64, (1e6, 0.05)),
+               ("clumped", CLUMP_N, 32, 128, (0.05,)))
+
+
+def _probe_shards(name, n, d, k, dev):
+    from repro_torch.core import prefilter as pf
+    from repro_torch.core.selection import ShardView
+    rng = np.random.default_rng(17)
+    if name == "clumped":
+        x = dupe_pool(n, CLUMP_K, CLUMP_D)[0] @ (
+            rng.standard_normal((CLUMP_D, d)) / np.sqrt(CLUMP_D))
+        x = x.astype(np.float32)
+    else:
+        x = rng.standard_normal((n, d)).astype(np.float32)
+    shards = []
+    for si in range(3):
+        g = np.arange(si, n, 3, dtype=np.int64)
+        summ = pf.build_summary(x[g], k, f"probe/{si}", device=dev)
+        shards.append(ShardView(feats=x[g], probs=None, gidx=g,
+                                summary=summ, pool_rows=np.arange(g.size),
+                                pool_feats=x[g], device=dev))
+    return shards
+
+
+class _Timers:
+    """Host seconds spent in named functions (wrapped in place, restored
+    on exit), summed over threads."""
+
+    def __init__(self, targets):
+        self.targets, self.s, self.calls = targets, {}, {}
+
+    def __enter__(self):
+        import threading
+        lock = threading.Lock()
+        self.saved = []
+        for key, (obj, attr) in self.targets.items():
+            if not hasattr(obj, attr):
+                continue
+            orig = getattr(obj, attr)
+            self.saved.append((obj, attr, orig))
+            self.s[key], self.calls[key] = 0.0, 0
+
+            def wrap(*a, _orig=orig, _key=key, **kw):
+                t = time.perf_counter()
+                try:
+                    return _orig(*a, **kw)
+                finally:
+                    with lock:
+                        self.s[_key] += time.perf_counter() - t
+                        self.calls[_key] += 1
+            setattr(obj, attr, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, orig in self.saved:
+            setattr(obj, attr, orig)
+
+
+def engine_probe(build, budget=200):
+    """Per (case, slack): ``gated_greedy_select`` at ``budget`` over three
+    thread lanes: wall s, kernel launches, folds (one per folded slice:
+    the per-segment engine's fused-round calls, or the wave engine's
+    committed segments), waves and host syncs per (slot, shard); host
+    seconds in the folds, the kernel wrappers, the bounds (``_tighten``)
+    and the lanes' merge; then one 10-slot query under torch.profiler:
+    host time by operation class (copies, launches, syncs). With
+    ``--parent DIR`` (a whole unpacked ``src/``) the earlier tree's
+    engine first, in a process of its own; a per-segment engine (no
+    ``ENGINE_STATS``) is read by its ``_fold_slice`` calls, two syncs
+    each."""
+    if "--parent" in sys.argv and SRC == os.path.join(ROOT, "src"):
+        tree = os.path.join(sys.argv[sys.argv.index("--parent") + 1], "src")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "engine"],
+                       env={**os.environ, "KERNEL_VARIANTS_SRC": tree},
+                       check=True)
+    dev = torch.device("cuda")
+    from concurrent.futures import ThreadPoolExecutor
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.common import rng as rnglib
+    from repro_torch.core import prefilter as pf
+    from repro_torch.core import selection
+    from repro_torch.kernels.pairwise import ops
+    eng = pf._ShardEngine
+    targets = {"propose": (eng, "propose"), "tighten": (eng, "_tighten"),
+               "fold_slices": (eng, "_fold_slice"), "waves": (eng, "_wave"),
+               "greedy_round": (ops, "greedy_round"),
+               "gated_greedy_round": (ops, "gated_greedy_round"),
+               "merge": (selection, "_merge_proposals")}
+    out = {}
+    with ThreadPoolExecutor(3) as ex:
+        for name, n, d, k, slacks in PROBE_CASES:
+            shards = _probe_shards(name, n, d, k, dev)
+            for slack in slacks:
+                stats = getattr(pf, "ENGINE_STATS", None)
+                if stats is not None:
+                    pf.reset_engine_stats()
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                with _Timers(targets) as tm:
+                    t = time.perf_counter()
+                    sel = pf.gated_greedy_select(rnglib.key(5), budget,
+                                                 shards, slack=slack,
+                                                 executor=ex)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t
+                assert len(set(sel.tolist())) == budget
+                per = 3 * (budget - 1)
+                launches = dict(ops.LAUNCHES)
+                rec = {"wall_s": wall, "launches": launches,
+                       "host_s": tm.s, "calls": tm.calls,
+                       "per_slot_shard": {
+                           "b1_launches": launches["greedy_round"] / per,
+                           "b5_launches":
+                               launches["gated_greedy_round"] / per}}
+                if stats is not None:
+                    st = dict(stats)
+                    rec["engine"] = st
+                    rec["per_slot_shard"].update(
+                        waves=st["waves"] / per, syncs=st["syncs"] / per,
+                        segments_folded=st["segments_folded"] / per)
+                else:
+                    folds = tm.calls.get("fold_slices", 0)
+                    rec["per_slot_shard"].update(
+                        folds=folds / per, syncs=2 * folds / per)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    pf.gated_greedy_select(rnglib.key(6), 10, shards,
+                                           slack=slack, executor=ex)
+                    torch.cuda.synchronize()
+                by_class = {"copies": 0.0, "launches": 0.0, "syncs": 0.0,
+                            "other_ops": 0.0}
+                for ev in prof.key_averages():
+                    if ev.device_type == torch.autograd.DeviceType.CUDA:
+                        continue
+                    key = ev.key
+                    us = ev.self_cpu_time_total
+                    if "LaunchKernel" in key:
+                        by_class["launches"] += us
+                    elif ("local_scalar_dense" in key or "Synchronize" in key
+                          or key.startswith("cudaMemcpy")):
+                        by_class["syncs"] += us
+                    elif any(w in key for w in ("copy_", "zeros", "full",
+                                                "fill_", "empty", "_to_copy",
+                                                "where")):
+                        by_class["copies"] += us
+                    elif key.startswith("aten::") or key.startswith("cuda"):
+                        by_class["other_ops"] += us
+                rec["profile_10_slots_host_ms"] = {
+                    c: v / 1e3 for c, v in by_class.items()}
+                out[f"{name}_{slack:g}"] = rec
+                print(json.dumps({
+                    "engine": SRC, "case": name, "shape": [n, d],
+                    "clusters": k, "shards": 3, "budget": budget,
+                    "slack": slack, "wave_engine": stats is not None, **rec}),
+                    flush=True)
+            del shards
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -544,7 +878,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     sections = {"flash_bf16": flash, "argmin": argmin, "flash32": flash32,
                 "decode": decode, "round": greedy_round_variants,
-                "unc": uncertainty_variants}
+                "unc": uncertainty_variants, "gated": gated_variants,
+                "engine": engine_probe}
     args = sys.argv[1:]
     if "--parent" in args:
         k = args.index("--parent")

@@ -35,15 +35,22 @@ Rows appended after the last summary build form the *tail*: always
 scanned, folded with the same exact rounds. The summary rebuilds once the
 tail outgrows the covered prefix.
 
-On a CUDA server the summary's permuted rows (``xperm_dev``) are moved to
-the card once per summary build, and an engine's fold state (segment and
-tail min-dists, queued centers, the tail rows) lives there for the whole
-query, so a fold reads its segment from device memory. The host loop, the
-f64 bounds and the bucket padding stay as the reference has them.
+Each summary also lays its segments out in gate blocks of ``GATE_ROWS``
+rows on the server's device (``xgate_dev``, built once per build), so a
+segment is a run of whole gate blocks. An engine keeps its fold state
+(segment and tail min-dists, the queued centers, one row each) there for
+the whole query and folds a slot's segments in WAVES: one block-masked
+round (``ops.gated_greedy_round``) over a run of segments in bound order
+(the first wave also one over the tail's rows, which sit in a buffer of
+their own), one copy of the pairs to the host, where the reference's
+sequential stop rule is replayed; only the folded prefix is committed. The decisions, the floats and the ``pool_rows``
+tally are the per-segment loop's (``tests/test_torch_prefilter.py``
+keeps that loop as its oracle).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -56,6 +63,9 @@ from repro_torch.core.strategies.base import shard_tensor
 from repro_torch.kernels.pairwise import autotune, ops
 
 BIG = 3.4e38
+# rows a gate block of a summary's device layout: each segment is padded
+# to whole gate blocks, so one block belongs to one segment
+GATE_ROWS = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,41 +84,46 @@ class CentroidSummary:
     """Per-shard centroid summary (immutable once published).
 
     ``xperm`` is a permuted COPY of the shard's first ``covered`` feats
-    rows, contiguous per cluster (``xperm_dev`` the same rows on the
-    server's device): cluster ``j`` occupies ``xperm[starts[j]:starts[j+1]]``
-    and ``rowid`` maps each permuted position back to its shard-local pool
-    row (ascending within a cluster, so within-cluster argmax tie-breaks
-    match pool order). ``cents``/``radii`` (f64) anchor the triangle
-    bounds; ``caps`` maps a score kind to per-cluster exact maxima over
-    the covered rows, stamped with ``caps_head_epoch``. Caps refreshes
-    publish a NEW object sharing the geometry arrays.
+    rows, contiguous per cluster: cluster ``j`` occupies
+    ``xperm[starts[j]:starts[j+1]]`` and ``rowid`` maps each permuted
+    position back to its shard-local pool row (ascending within a
+    cluster, so within-cluster argmax tie-breaks match pool order).
+    ``cents``/``radii`` (f64) anchor the triangle bounds; ``caps`` maps a
+    score kind to per-cluster exact maxima over the covered rows, stamped
+    with ``caps_head_epoch``. Caps refreshes publish a NEW object sharing
+    the geometry arrays.
+
+    ``xgate_dev`` holds the same rows on the server's device, laid out for
+    the gated rounds: segment ``j`` starts at row ``gstarts[j]`` and is
+    padded with zero rows to a multiple of ``GATE_ROWS``; ``gpos`` maps
+    each permuted position to its row there.
     """
 
     __slots__ = ("k", "cents", "radii", "starts", "rowid", "xperm",
-                 "xperm_dev", "covered", "caps", "caps_head_epoch",
-                 "builds")
+                 "covered", "caps", "caps_head_epoch", "builds", "gstarts",
+                 "gpos", "xgate_dev")
 
     def __init__(self, k, cents, radii, starts, rowid, xperm, covered,
-                 caps=None, caps_head_epoch=-1, builds=0, xperm_dev=None):
+                 xgate_dev, caps=None, caps_head_epoch=-1, builds=0):
         self.k = int(k)
         self.cents = cents                  # (k, d) f64
         self.radii = radii                  # (k,) f64, sqrt-space
         self.starts = starts                # (k+1,) i64 segment offsets
         self.rowid = rowid                  # (covered,) i64 pool rows
         self.xperm = xperm                  # (covered, d) f32 permuted copy
-        self.xperm_dev = (xperm_dev if xperm_dev is not None
-                          else torch.as_tensor(np.asarray(xperm)))
         self.covered = int(covered)
         self.caps: Optional[Dict[str, np.ndarray]] = caps
         self.caps_head_epoch = int(caps_head_epoch)
         self.builds = int(builds)
+        self.gstarts, self.gpos = _gate_layout(starts)
+        self.xgate_dev = xgate_dev          # (gstarts[-1], d) f32
 
     def with_caps(self, probs: np.ndarray, head_epoch: int
                   ) -> "CentroidSummary":
         """Copy-on-write caps refresh from the covered probs rows."""
         from repro_torch.core.strategies.uncertainty import SCORE_FNS
         p = torch.as_tensor(np.asarray(probs[:self.covered], np.float32),
-                            device=self.xperm_dev.device)
+                            device=self.xgate_dev.device)
         caps: Dict[str, np.ndarray] = {}
         for kind, fn in SCORE_FNS.items():
             sc = fn(p).cpu().numpy()[self.rowid]      # permuted scores
@@ -120,8 +135,20 @@ class CentroidSummary:
             caps[kind] = cap
         return CentroidSummary(self.k, self.cents, self.radii, self.starts,
                                self.rowid, self.xperm, self.covered,
-                               caps=caps, caps_head_epoch=head_epoch,
-                               builds=self.builds, xperm_dev=self.xperm_dev)
+                               self.xgate_dev, caps=caps,
+                               caps_head_epoch=head_epoch, builds=self.builds)
+
+
+def _gate_layout(starts) -> Tuple[np.ndarray, np.ndarray]:
+    """Segments padded to whole gate blocks: (each segment's first row,
+    each permuted position's row)."""
+    starts = np.asarray(starts, np.int64)
+    counts = np.diff(starts)
+    gstarts = np.zeros(counts.size + 1, np.int64)
+    gstarts[1:] = np.cumsum(-(-counts // GATE_ROWS) * GATE_ROWS)
+    gpos = (np.arange(int(starts[-1]), dtype=np.int64)
+            + np.repeat(gstarts[:-1] - starts[:-1], counts))
+    return gstarts, gpos
 
 
 def build_summary(feats: np.ndarray, k: int, salt: str, spill=None,
@@ -145,15 +172,18 @@ def build_summary(feats: np.ndarray, k: int, salt: str, spill=None,
     xperm = np.ascontiguousarray(np.asarray(feats, np.float32)[order])
     if spill is not None:
         xperm = spill.adopt(xperm)
-    # the permuted rows go to the device once per build, not once per fold
-    xperm_dev = (torch.from_numpy(np.asarray(xperm)) if x.device.type == "cpu"
-                 else x[torch.as_tensor(order, device=x.device)])
+    # the gate layout goes to the device once per build, not once per fold
+    gstarts, gpos = _gate_layout(starts)
+    at = np.empty(rows, np.int64)
+    at[order] = gpos                          # pool row -> layout row
+    xgate = x.new_zeros((int(gstarts[-1]), d)).index_copy_(
+        0, torch.as_tensor(at, device=x.device), x)
     diffs = np.asarray(feats, np.float64) - cents[assign]
     d2 = np.einsum("ij,ij->i", diffs, diffs)
     radii = np.zeros(k, np.float64)
     np.maximum.at(radii, assign, d2)
     return CentroidSummary(k, cents, np.sqrt(radii), starts, order, xperm,
-                           covered=rows, xperm_dev=xperm_dev)
+                           covered=rows, xgate_dev=xgate)
 
 
 def maintain_summary(summary: Optional[CentroidSummary],
@@ -264,24 +294,59 @@ def gated_top_k(shards: Sequence, kind: str, budget: int,
 # ===========================================================================
 
 def _bucket(m: int) -> int:
-    """Pad slice lengths to the next power of two (min 8), as the
-    reference does (there it bounds jit retraces across ragged clusters).
-    Pad rows enter with mind=-1, so they fold harmlessly and can never win
-    an argmax."""
+    """The per-segment loop's padded slice length, the next power of two
+    (min 8), as the reference pads (there it bounds jit retraces across
+    ragged clusters): ``pool_rows`` counts a slice's fold in these rows."""
     p = 8
     while p < m:
         p <<= 1
     return p
 
 
+# Engine counters (``reset_engine_stats``/``ENGINE_STATS``): ``proposals``
+# counts (slot, shard) scans, ``waves`` the folds they made (each one
+# ``gated_greedy_round`` launch, and one more for the tail), ``syncs`` the
+# transfers that make the host wait for the device (one read of a wave's
+# pairs; the blocking uploads of an engine's setup and its first
+# centers), ``partial_commits`` the waves that discarded segments folded
+# past the stop, ``segments_folded`` the segments committed.
+ENGINE_STATS = {"proposals": 0, "waves": 0, "syncs": 0, "partial_commits": 0,
+                "segments_folded": 0}
+_ENGINE_LOCK = threading.Lock()
+
+
+def reset_engine_stats() -> None:
+    with _ENGINE_LOCK:
+        for k in ENGINE_STATS:
+            ENGINE_STATS[k] = 0
+
+
+def _engine_add(**kw) -> None:
+    with _ENGINE_LOCK:
+        for k, v in kw.items():
+            ENGINE_STATS[k] += v
+
+
 class _ShardEngine:
     """Per-shard gated greedy state: segment min-dists over the summary's
-    permuted layout + the always-live tail, a shared queue of folded
-    center entries, and per-segment pending cursors / bounds. Fold state
-    (min-dists, queued centers, tail rows) lives on the shard's device."""
+    gate-block layout + the always-live tail's (its rows in gate blocks of
+    their own, numbered after the segments'), a queue of folded center
+    entries (one device row per center, with its form), and per-segment
+    pending cursors / bounds.
+
+    ``propose`` makes the per-segment loop's decisions in its order (the
+    tail first, clusters by descending bound, stop at the first
+    ``ub * (1 + slack) < best``), but folds a run of segments per
+    block-masked round: wave 1 is every segment the stop rule could reach
+    given a lower bound on ``best`` known without folding, later waves
+    double. The host replays the stop rule on the round's per-block pairs
+    and commits only the prefix it folds, so min-dists, ``M``, the pending
+    cursors (``seg_pending``, in entries) and ``pool_rows`` are the
+    per-segment loop's after every slot. Fold state lives on the shard's
+    device."""
 
     def __init__(self, shard, slack: float, impl: str = "auto",
-                 warm_mind=None, warm_centers=None):
+                 warm_mind=None, warm_centers=None, capacity: int = 64):
         self.impl = impl
         self.slack = float(slack)
         self.device = torch.device(shard.device)
@@ -290,6 +355,7 @@ class _ShardEngine:
                  else np.asarray(shard.feats))
         self.pool_feats = feats
         n_pool = int(feats.shape[0])
+        self.d = d = int(feats.shape[1])
         pool_rows = (np.asarray(shard.pool_rows)
                      if shard.pool_rows is not None
                      else np.arange(n_pool, dtype=np.int64))
@@ -297,8 +363,14 @@ class _ShardEngine:
         self.gpos[pool_rows] = np.asarray(shard.gidx)
         in_view = np.zeros(n_pool, bool)
         in_view[pool_rows] = True
-        self.entries: List[torch.Tensor] = []    # queued center batches
-        self._masks: Dict[int, torch.Tensor] = {}  # R -> (R,) of -1
+        # the queue: entry e is centers [erow[e], erow[e + 1]), e < ne
+        self.erow = np.zeros(max(capacity, 1) + 1, np.int64)
+        self.ne = 0
+        self.centers = torch.empty((max(capacity, 1), d), dtype=torch.float32,
+                                   device=self.device)
+        self.forms = np.zeros(max(capacity, 1), np.int8)
+        self.forms_dev = torch.zeros(max(capacity, 1), dtype=torch.int8,
+                                     device=self.device)
         # warm_mind: persisted pool-level min-dists vs warm_centers
         # (core.selection.KCenterState). Segments/tail start from those
         # floats with ZERO entries queued; warm_centers still tighten the
@@ -308,18 +380,24 @@ class _ShardEngine:
             warm_mind = np.asarray(warm_mind, np.float32)
         summ = self.summary
         self.covered = 0 if summ is None else min(summ.covered, n_pool)
+        k = 0 if summ is None else summ.k
+        self.k = k
+        self.G = GATE_ROWS
+        gstarts = np.zeros(1, np.int64) if summ is None else summ.gstarts
+        self.x = torch.zeros((0, d), device=self.device)
+        m = np.zeros(0, np.float32)
         if summ is not None:
-            k = summ.k
             self.starts = np.asarray(summ.starts)
             self.rowid = np.asarray(summ.rowid)
-            self.xperm = summ.xperm_dev.to(self.device)
             self.inv_perm = np.empty(self.covered, np.int64)
             self.inv_perm[self.rowid] = np.arange(self.covered)
+            self.lay = summ.gpos                  # permuted pos -> layout row
             view_perm = in_view[self.rowid]
             live = (BIG if warm_mind is None
                     else warm_mind[self.rowid].astype(np.float64))
-            self.mind_x = self._dev(
-                np.where(view_perm, live, -1.0).astype(np.float32))
+            m = np.full(int(gstarts[-1]), -1.0, np.float32)
+            m[self.lay] = np.where(view_perm, live, -1.0)
+            self.x = summ.xgate_dev.to(self.device)
             self.seg_alive = np.array(
                 [int(view_perm[int(self.starts[j]):
                                int(self.starts[j + 1])].sum())
@@ -327,38 +405,109 @@ class _ShardEngine:
             self.seg_pending = np.zeros(k, np.int64)
             self.T_sqrt = np.full(k, np.inf, np.float64)
             self.M = np.full(k, np.inf, np.float64)
-        # the tail: rows past the covered prefix, always scanned
-        tail_live = (BIG if warm_mind is None
-                     else warm_mind[self.covered:].astype(np.float64))
-        self.tail_mind = self._dev(np.where(
-            in_view[self.covered:], tail_live, -1.0).astype(np.float32))
-        self.tail_x = self._dev(np.asarray(feats[self.covered:], np.float32))
+            # the lower bound's inputs: the nearest pending center to each
+            # centroid, and whether M[j] is a live row's exact min-dist
+            self.P_sqrt = np.full(k, np.inf, np.float64)
+            self.M_exact = np.zeros(k, bool)
+            self.seg_len = np.diff(self.starts).astype(np.int64)
+            # rows of the per-segment loop's padded slice (pool_rows' unit)
+            self.seg_bucket = np.array([_bucket(int(m)) for m in
+                                        self.seg_len], np.int64)
+        self.mind = self._dev(m)
+        # the tail: rows past the covered prefix, always scanned, padded to
+        # gate blocks in buffers of their own (its own round each wave 1)
+        self.n_tail = n_pool - self.covered
+        self.tail_off = int(gstarts[-1])      # the tail's first row number
+        tail_pad = -(-self.n_tail // self.G) * self.G
+        self.xt = self.mind_t = None
+        if self.n_tail:
+            tail_live = (BIG if warm_mind is None
+                         else warm_mind[self.covered:].astype(np.float64))
+            m = np.full(tail_pad, -1.0, np.float32)
+            m[:self.n_tail] = np.where(in_view[self.covered:], tail_live,
+                                       -1.0)
+            self.mind_t = self._dev(m)
+            xt = np.zeros((tail_pad, d), np.float32)
+            xt[:self.n_tail] = feats[self.covered:]
+            self.xt = self._dev(xt)
         self.tail_alive = int(in_view[self.covered:].sum())
         self.tail_pending = 0
+        # gate blocks: segment j owns blocks [blk0[j], blk0[j + 1]), the
+        # tail (index k) the ns.. ones after them
+        self.ns = self.tail_off // self.G
+        self.nn = self.ns + tail_pad // self.G
+        self.blk0 = np.append(gstarts // self.G, self.nn).astype(np.int64)
+        self.blk_seg = np.repeat(np.arange(k + 1), np.diff(self.blk0))
+        self.nonempty = np.nonzero(np.diff(self.blk0) > 0)[0]
+        # pinned staging for a wave's block vectors (rows 0-1) and its
+        # commit mask over the segments' blocks (row 2): uploads that do
+        # not make the host wait
+        self._stage = (torch.empty((3, self.nn), dtype=torch.int32,
+                                   pin_memory=True)
+                       if self.device.type == "cuda" else None)
+        self.last_folded: List[int] = []
         if warm_mind is not None and warm_centers is not None \
                 and len(warm_centers):
-            self._tighten(np.asarray(warm_centers, np.float32))
-
-    def _no_mask(self, r: int) -> torch.Tensor:
-        m = self._masks.get(r)
-        if m is None:
-            m = torch.full((r,), -1, dtype=torch.int32, device=self.device)
-            self._masks[r] = m
-        return m
+            self._tighten(np.asarray(warm_centers, np.float32), pending=False)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
+        """A blocking upload (the host waits on the card)."""
+        _engine_add(syncs=1)
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _upload(self, a: np.ndarray, row: int) -> torch.Tensor:
+        """(k, nn) int32 to the device through staging rows [row, row + k)
+        without a wait: each row set is rewritten only after the wave that
+        read it has returned its pairs, so its copy is done."""
+        if self._stage is None:
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32))
+        st = self._stage[row:row + a.shape[0], :a.shape[1]]
+        st.numpy()[:] = a
+        return st.to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------ state --
     def row_vec(self, pool_row: int) -> np.ndarray:
         return np.asarray(self.pool_feats[pool_row], np.float32)
 
-    def _queue(self, batch: np.ndarray) -> None:
-        self.entries.append(self._dev(batch))
+    def row_dev(self, pool_row: int) -> torch.Tensor:
+        """Pool row ``pool_row`` as a (1, d) view of the device layout."""
+        if pool_row >= self.covered:
+            r = pool_row - self.covered
+            return self.xt[r:r + 1]
+        r = int(self.lay[self.inv_perm[pool_row]])
+        return self.x[r:r + 1]
+
+    def _queue(self, batch: np.ndarray, rows=None) -> None:
+        """Append one entry: its centers as rows of the device queue, each
+        in the entry's form (difference for one center, matmul for more,
+        as ``greedy_round`` folds an entry). ``rows``: the same centers
+        already on a device (copied there without a wait)."""
+        r0 = int(self.erow[self.ne])
+        r1 = r0 + batch.shape[0]
+        if r1 > self.centers.shape[0]:
+            cap = max(r1, 2 * self.centers.shape[0])
+            grown = torch.empty((cap, self.d), dtype=torch.float32,
+                                device=self.device)
+            grown[:r0] = self.centers[:r0]
+            self.centers = grown
+            self.forms = np.concatenate(
+                [self.forms, np.zeros(cap - self.forms.shape[0], np.int8)])
+            self.forms_dev = self._dev(self.forms)
+        if self.ne + 2 > self.erow.shape[0]:
+            self.erow = np.concatenate([self.erow, np.zeros_like(self.erow)])
+        form = 0 if batch.shape[0] == 1 else 1
+        self.centers[r0:r1] = self._dev(batch) if rows is None else rows
+        self.forms[r0:r1] = form
+        if form:
+            self.forms_dev[r0:r1] = form
+        self.ne += 1
+        self.erow[self.ne] = r1
         self._tighten(batch)
 
-    def add_center(self, vec: np.ndarray) -> None:
-        self._queue(np.asarray(vec, np.float32)[None, :])
+    def add_center(self, vec: np.ndarray, row=None) -> None:
+        """Queue one center (``row``: the same (1, d) on a device, copied
+        on the caller's stream, which the lanes share)."""
+        self._queue(np.asarray(vec, np.float32)[None, :], row)
 
     def add_warm_start(self, centers: np.ndarray, r_block: int) -> None:
         """Queue init centers in the SAME r_block chunks the ungated
@@ -368,97 +517,196 @@ class _ShardEngine:
         for s in range(0, c.shape[0], r_block):
             self._queue(c[s:s + r_block])
 
-    def _tighten(self, batch: np.ndarray) -> None:
+    def _tighten(self, batch: np.ndarray, pending: bool = True) -> None:
         if self.summary is None:
             return
         c = np.asarray(batch, np.float64)                  # (R, d)
         diff = self.summary.cents[:, None, :] - c[None, :, :]
         d2 = np.einsum("krd,krd->kr", diff, diff)          # (k, R)
-        t = np.sqrt(d2) + self.summary.radii[:, None]
-        self.T_sqrt = np.minimum(self.T_sqrt, t.min(axis=1))
+        near = np.sqrt(d2).min(axis=1)
+        self.T_sqrt = np.minimum(self.T_sqrt, near + self.summary.radii)
+        if pending:
+            self.P_sqrt = np.minimum(self.P_sqrt, near)
 
     def mask_pool_row(self, pool_row: int) -> None:
         if pool_row >= self.covered:
-            self.tail_mind[pool_row - self.covered] = -1.0
+            self.mind_t[pool_row - self.covered] = -1.0
             self.tail_alive -= 1
             return
         xp = int(self.inv_perm[pool_row])
-        self.mind_x[xp] = -1.0
+        self.mind[int(self.lay[xp])] = -1.0
         j = int(np.searchsorted(self.starts, xp, side="right")) - 1
         self.seg_alive[j] -= 1
+        self.M_exact[j] = False
 
     # ------------------------------------------------------------ folds --
-    def _fold_slice(self, x_slice, mind_slice, pending_from: int):
-        """Fold entries[pending_from:] into one contiguous row slice (both
-        on the device) via the exact single/multi-center fused rounds,
-        padded to a bucketed length. Returns (new mind (m,) on the device,
-        best score, best slice-local row)."""
-        m = int(x_slice.shape[0])
-        p = _bucket(m)
-        d = x_slice.shape[1]
-        xp = torch.zeros((p, d), dtype=torch.float32, device=self.device)
-        xp[:m] = x_slice
-        nm = torch.full((p,), -1.0, dtype=torch.float32, device=self.device)
-        nm[:m] = mind_slice
-        li, lv = 0, -BIG
-        for entry in self.entries[pending_from:]:
-            nm, li, lv = ops.greedy_round(xp, nm, entry,
-                                          self._no_mask(entry.shape[0]),
-                                          impl=self.impl)
-        if pending_from >= len(self.entries):
-            # nothing pending: score the current min-dists (vector op, no
-            # pool rows read)
-            sc = ops.masked_weighted_score(nm)
-            li = torch.argmax(sc)
-            lv = sc[li]
-        return nm[:m], float(lv), int(li)
+    def _lower_bound(self) -> float:
+        """A lower bound on this slot's best score, known without folding:
+        a segment whose ``M`` is a live row's exact min-dist still scores
+        at least ``min(M, (dist(centroid, pending center) - radius)^2)``.
+        -inf where no segment gives one. It only sizes wave 1."""
+        ok = self.M_exact & (self.seg_alive > 0)
+        if not ok.any():
+            return -np.inf
+        gap = np.maximum(self.P_sqrt - self.summary.radii, 0.0)
+        lb = np.minimum(self.M, np.square(gap))[ok].max()
+        return float(lb) * (1.0 - 1e-6) if lb > 0 else float(lb)
 
-    def _fold_seg(self, j: int):
-        s, e = int(self.starts[j]), int(self.starts[j + 1])
-        nm, lv, li = self._fold_slice(self.xperm[s:e], self.mind_x[s:e],
-                                      int(self.seg_pending[j]))
-        self.mind_x[s:e] = nm
-        self.seg_pending[j] = len(self.entries)
-        self.M[j] = lv
-        if li >= e - s:                      # all rows dead: pad row won
-            return None
-        return (lv, int(self.rowid[s + li]))
+    def _wave(self, segs: np.ndarray, tail: bool):
+        """One block-masked round over ``segs``' gate blocks, and one over
+        the tail's with ``tail``, out of place. Returns (the segments' new
+        min-dists, the tail's, per-block max (nn,) f32, per-block row
+        number (nn,) i64) with the pairs on the host; the blocks of a part
+        not folded score -inf."""
+        on = np.zeros(self.k + 1, bool)
+        on[segs] = True
+        on[self.k] = tail
+        pending = np.empty(self.k + 1, np.int64)
+        pending[:self.k] = self.seg_pending if self.k else 0
+        pending[self.k] = self.tail_pending
+        live = on[self.blk_seg].astype(np.int32)
+        pend = self.erow[pending][self.blk_seg].astype(np.int32)
+        r = int(self.erow[self.ne])
+        vec = self._upload(np.stack([live, pend]), 0)
+        ns, parts, nm, nmt = self.ns, [], None, None
 
-    def _fold_tail(self):
-        n_tail = self.tail_mind.shape[0]
-        if n_tail == 0 or self.tail_alive <= 0:
-            return None
-        nm, lv, li = self._fold_slice(self.tail_x, self.tail_mind,
-                                      self.tail_pending)
-        self.tail_mind = nm
-        self.tail_pending = len(self.entries)
-        if li >= n_tail:
-            return None
-        return (lv, self.covered + li)
+        def fold(x, mind, lv, pn, lo):
+            return ops.gated_greedy_round(
+                x, mind, self.centers[:r], lv, pn, impl=self.impl,
+                n_block=self.G, forms=self.forms_dev[:r],
+                matmul=bool(self.forms[lo:r].any()), blocks=True,
+                account=False)
+        if len(segs):
+            nm, _, _, p = fold(self.x, self.mind, vec[0, :ns], vec[1, :ns],
+                               int(pend[:ns][live[:ns] > 0].min()))
+            parts.append(p)
+        if tail:
+            nmt, _, _, p = fold(self.xt, self.mind_t, vec[0, ns:],
+                                vec[1, ns:], int(self.erow[self.tail_pending]))
+            parts.append(p)
+        pairs = (torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+                 ).cpu().numpy()
+        _engine_add(waves=1, syncs=1)
+        bv = np.full(self.nn, -np.inf, np.float32)
+        bi = np.zeros(self.nn, np.int64)
+        got = pairs.shape[1] - (self.nn - ns if tail else 0)
+        if len(segs):
+            bv[:ns], bi[:ns] = pairs[0, :got], pairs[1, :got].view(np.int32)
+        if tail:
+            bv[ns:] = pairs[0, got:]
+            bi[ns:] = pairs[1, got:].view(np.int32) + self.tail_off
+        return nm, nmt, bv, bi
+
+    def _segment_pairs(self, bv, bi):
+        """Each segment's (max, lowest layout row reaching it), from the
+        per-block pairs (index k: the tail)."""
+        v = np.full(self.k + 1, -np.inf, np.float32)
+        i = np.zeros(self.k + 1, np.int64)
+        starts = self.blk0[self.nonempty]
+        v[self.nonempty] = np.maximum.reduceat(bv, starts)
+        top = np.where(bv == v[self.blk_seg], bi, np.iinfo(np.int32).max)
+        i[self.nonempty] = np.minimum.reduceat(top, starts)
+        return v, i
+
+    def _fold_tail(self, v: float, li: int):
+        """Record the tail's fold as the per-segment loop does (pool_rows
+        per pending entry, cursor). Returns its candidate or None."""
+        ops.record_folds(_bucket(self.n_tail), self.d,
+                         self.ne - self.tail_pending)
+        self.tail_pending = self.ne
+        return None if li >= self.n_tail else (v, self.covered + li)
+
+    def _fold_segments(self, segs: np.ndarray, sv, si, best, ub):
+        """Replay the sequential scan over ``segs`` (in bound order) on
+        this wave's segment pairs: the scan stops at the first segment
+        with ``ub * (1 + slack) < best``, ``best`` folding in each
+        candidate before it. Records the folded prefix as the
+        per-segment loop does (pool_rows per pending entry, cursor, M).
+        Returns (segments folded, best, stopped)."""
+        li = si[segs] - self.blk0[segs] * self.G
+        ok = li < self.seg_len[segs]          # else all rows dead: no cand
+        vals = sv[segs].astype(np.float64)
+        cand = np.where(ok, vals, -np.inf)
+        before = np.maximum.accumulate(np.concatenate(
+            [[-np.inf if best is None else best[0]], cand]))[:-1]
+        cut = ub[segs] * (1.0 + self.slack) < before
+        n = int(np.argmax(cut)) if cut.any() else len(segs)
+        done = segs[:n]
+        ops.record_folds(self.seg_bucket[done], self.d,
+                         self.ne - self.seg_pending[done])
+        self.seg_pending[done] = self.ne
+        self.M[done] = vals[:n]
+        self.M_exact[done] = True
+        self.P_sqrt[done] = np.inf
+        self.last_folded.extend(done.tolist())
+        keep = ok[:n]
+        if keep.any():
+            rows = self.rowid[self.starts[done[keep]] + li[:n][keep]]
+            top = np.lexsort((rows, -vals[:n][keep]))[0]
+            c = (float(vals[:n][keep][top]), int(rows[top]))
+            if best is None or c[0] > best[0] or (c[0] == best[0]
+                                                 and c[1] < best[1]):
+                best = c
+        return n, best, n < len(segs)
 
     # ---------------------------------------------------------- propose --
     def propose(self):
         """Best-first gated scan: evaluate the tail + clusters in
         descending upper-bound order until ``ub * (1 + slack) < best``.
         Returns ``(score, global index, pool row)`` or None."""
-        best = self._fold_tail()
+        self.last_folded = []
+        tail = self.n_tail > 0 and self.tail_alive > 0
+        order = np.zeros(0, np.int64)
         if self.summary is not None:
             ub = np.minimum(self.M, np.square(self.T_sqrt))
-            order = sorted((j for j in range(self.summary.k)
-                            if self.seg_alive[j] > 0),
-                           key=lambda j: (-ub[j], j))
-            for j in order:
-                if best is not None and ub[j] * (1.0 + self.slack) < best[0]:
-                    break                    # ordered desc: rest is pruned
-                cand = self._fold_seg(j)
-                if cand is not None and (best is None or cand[0] > best[0]
-                                         or (cand[0] == best[0]
-                                             and cand[1] < best[1])):
-                    best = cand
+            alive = np.nonzero(self.seg_alive > 0)[0]
+            order = alive[np.lexsort((alive, -ub[alive]))]
+            size = max(1, int(np.count_nonzero(
+                ub[order] * (1.0 + self.slack) >= self._lower_bound())))
+        best, pos = None, 0
+        while tail or pos < len(order):
+            segs = order[pos:pos + size] if len(order) else order
+            nm, nmt, bv, bi = self._wave(segs, tail)
+            sv, si = self._segment_pairs(bv, bi)
+            done = np.zeros(self.k + 1, bool)
+            if tail:
+                best = self._fold_tail(float(sv[self.k]),
+                                       int(si[self.k]) - self.tail_off)
+                done[self.k] = True
+                tail = False
+            n, stop = 0, False
+            if len(segs):
+                n, best, stop = self._fold_segments(segs, sv, si, best, ub)
+            done[segs[:n]] = True
+            pos += n
+            # a stop leaves this wave's later segments unfolded
+            self._apply(nm, nmt, done, partial=stop)
+            if stop or pos >= len(order) or (
+                    best is not None and
+                    ub[order[pos]] * (1.0 + self.slack) < best[0]):
+                break                        # the next segment is pruned
+            size *= 2
+        _engine_add(proposals=1, segments_folded=len(self.last_folded))
         if best is None:
             return None
         val, pool_row = best
         return (val, int(self.gpos[pool_row]), pool_row)
+
+    def _apply(self, nm, nmt, done: np.ndarray, partial: bool):
+        """Make the wave's new min-dists the state where ``done`` (by
+        segment, index k the tail); elsewhere keep the old ones."""
+        if done[self.k]:
+            self.mind_t = nmt
+        if not done[:self.k].any():
+            return
+        if not partial:
+            self.mind = nm
+            return
+        _engine_add(partial_commits=1)
+        keep = self._upload(done[self.blk_seg[:self.ns]][None, :], 2)[0] > 0
+        G = self.G
+        self.mind = torch.where(keep[:, None], nm.view(-1, G),
+                                self.mind.view(-1, G)).view(-1)
 
 
 def gated_greedy_select(rng, budget: int, shards: Sequence, *,
@@ -481,11 +729,13 @@ def gated_greedy_select(rng, budget: int, shards: Sequence, *,
         init = (init_centers.detach().cpu().numpy()
                 if isinstance(init_centers, torch.Tensor)
                 else np.asarray(init_centers, np.float32))
+    queued = budget + (init.shape[0] if warm and state is None else 0)
     engines = [(_ShardEngine(s, slack, impl,
                              warm_mind=(state.pool_mind(i)
                                         if state is not None and warm
                                         else None),
-                             warm_centers=init if state is not None else None)
+                             warm_centers=init if state is not None else None,
+                             capacity=queued)
                 if s.n else None)
                for i, s in enumerate(shards)]
     sel = np.zeros((budget,), np.int64)
@@ -527,9 +777,10 @@ def gated_greedy_select(rng, budget: int, shards: Sequence, *,
         _, g, wi, pool_row = selection._merge_proposals(props)
         sel[slot] = g
         center = engines[wi].row_vec(pool_row)
+        row = engines[wi].row_dev(pool_row)
         engines[wi].mask_pool_row(pool_row)
         if slot + 1 < budget:
             for e in engines:
                 if e is not None:
-                    e.add_center(center)
+                    e.add_center(center, row)
     return sel

@@ -5,10 +5,12 @@ Two block sizes steer the selection kernels:
 
 ``n_block``
     Rows per CTA of the fused round (``csrc/greedy_round.cu``) and the
-    gate block of the block-masked round (``csrc/gated_greedy_round.cu``).
-    It changes no float of either kernel's output (a row's sums run in an
-    order fixed by d whatever the block), only how many CTAs stream the
-    pool and how many partials the launch's last CTA reduces.
+    gate block of the block-masked round (``csrc/gated_greedy_round.cu``,
+    which cuts each gate block into row tiles of ``ops.gated_plan``'s
+    size, one CTA a tile). It changes no float of either kernel's output
+    (a row's sums run in an order fixed by d whatever the block), only
+    how many CTAs stream the pool and how many partials the launch's last
+    CTA reduces.
 ``r_block``
     Centers folded per fused pass in ``ops.warm_start_min_dist``. A
     one-center chunk takes the difference form and every other chunk the
@@ -26,9 +28,9 @@ equals the reference's ``autotune_blocks(measure=False)``. On the card
 occupancy and the fastest wins. The two kernels keep no whole row or
 center on chip: the difference form streams rows through registers and
 reads its one center through the L1 cache, the matmul form stages
-16-feature slices of a 64-row tile and its centers (at most 31 KB of
-static shared memory a CTA), whatever ``n_block`` and d are; so every
-candidate launches at every d.
+16-feature slices of a 64-row tile and its centers (at most 32 KB of
+static shared memory a CTA, the gated round's running min included),
+whatever ``n_block`` and d are; so every candidate launches at every d.
 
 Winners are cached per (N, d, dtype, variant) — ``"round"`` (the plain
 fused round) and ``"gated"`` (the block-masked round) never share an entry

@@ -155,27 +155,71 @@ struct Chunk<1> {
   }
 };
 
+// The difference form of rows row[0..P) (one step of a lane group; rows
+// at or past ``end`` add nothing) against the one center ``c``: on return
+// every lane of the group holds acc[p] for its row p. Lane gl keeps U
+// chunks of each of its P rows in flight.
+template <int W, bool VEC, int P, int U>
+__device__ __forceinline__ void diff_sums(const float* __restrict__ x,
+                                          const float* __restrict__ c,
+                                          const int (&row)[P], int end,
+                                          int d, float (&acc)[P]) {
+  using C = Chunk<W>;
+  const int G = row_lanes(d);
+  const int gl = threadIdx.x & (G - 1);
+  const int q = d / W;
+  const int tmax = (q + G - 1) / G;
+#pragma unroll
+  for (int p = 0; p < P; ++p) acc[p] = 0.f;
+  for (int t0 = 0; t0 < tmax; t0 += U) {
+    typename C::T xv[P][U];
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int ch = gl + (t0 + u) * G;
+        xv[p][u] = row[p] < end && ch < q
+                       ? C::template load<VEC>(x + (size_t)row[p] * d +
+                                               ch * W)
+                       : C::zero();
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int ch = gl + (t0 + u) * G;
+      if (ch < q) {
+        const typename C::T cv = C::template load<VEC>(c + ch * W);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          acc[p] = C::add_sq_diff(xv[p][u], cv, acc[p]);
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+    for (int off = G >> 1; off > 0; off >>= 1)
+      acc[p] += __shfl_xor_sync(0xffffffffu, acc[p], off);
+}
+
 // Rows [row0, row0 + rows) (clipped at n) against the one center ``c``.
 // Warp w's steps take S * P consecutive rows (S = 32 / G groups a warp, P
-// rows a group), steps strided by kWarps; each lane keeps U chunks of each
-// of its P rows in flight. ``sel0`` is the one selected row (or -1);
-// ``w`` may be null.
-template <int W, bool VEC, int P, int U>
+// rows a group), steps strided by kWarps. With FOLD each row's distance is
+// folded into its min-dist and scored (``sel0`` is the one selected row or
+// -1; ``w`` may be null); without, it only lowers ``tmin[row - row0]``
+// (shared memory, the caller's running min over centers).
+template <int W, bool VEC, int P, int U, bool FOLD = true>
 __device__ void diff_rows(const float* __restrict__ x,
                           const float* __restrict__ c,
                           const float* __restrict__ mind, int sel0,
                           const float* __restrict__ w,
                           float* __restrict__ nmind, int n, int d, int row0,
-                          int rows, float& v, int& vi) {
-  using C = Chunk<W>;
+                          int rows, float& v, int& vi,
+                          float* tmin = nullptr) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int G = row_lanes(d);
   const int S = 32 / G;
   const int gl = lane & (G - 1);
   const int grp = lane / G;
-  const int q = d / W;
-  const int tmax = (q + G - 1) / G;
   const int end = min(row0 + rows, n);
   for (int step = row0 + warp * S * P; step < end;      // uniform per warp
        step += kWarps * S * P) {
@@ -184,40 +228,22 @@ __device__ void diff_rows(const float* __restrict__ x,
 #pragma unroll
     for (int p = 0; p < P; ++p) {
       row[p] = step + p * S + grp;
-      acc[p] = 0.f;
-      const bool ok = row[p] < end && gl == 0;
-      m[p] = ok ? __ldg(mind + row[p]) : 0.f;
-      wt[p] = ok && w != nullptr ? __ldg(w + row[p]) : 1.f;
-    }
-    for (int t0 = 0; t0 < tmax; t0 += U) {
-      typename C::T xv[P][U];
-#pragma unroll
-      for (int p = 0; p < P; ++p)
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int ch = gl + (t0 + u) * G;
-          xv[p][u] = row[p] < end && ch < q
-                         ? C::template load<VEC>(x + (size_t)row[p] * d +
-                                                 ch * W)
-                         : C::zero();
-        }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int ch = gl + (t0 + u) * G;
-        if (ch < q) {
-          const typename C::T cv = C::template load<VEC>(c + ch * W);
-#pragma unroll
-          for (int p = 0; p < P; ++p)
-            acc[p] = C::add_sq_diff(xv[p][u], cv, acc[p]);
-        }
+      if constexpr (FOLD) {
+        const bool ok = row[p] < end && gl == 0;
+        m[p] = ok ? __ldg(mind + row[p]) : 0.f;
+        wt[p] = ok && w != nullptr ? __ldg(w + row[p]) : 1.f;
       }
     }
+    diff_sums<W, VEC, P, U>(x, c, row, end, d, acc);
 #pragma unroll
     for (int p = 0; p < P; ++p) {
-      for (int off = G >> 1; off > 0; off >>= 1)
-        acc[p] += __shfl_xor_sync(0xffffffffu, acc[p], off);
-      if (gl == 0 && row[p] < end)
-        fold_row(acc[p], m[p], wt[p], row[p] == sel0, row[p], nmind, v, vi);
+      if (gl == 0 && row[p] < end) {
+        if constexpr (FOLD)
+          fold_row(acc[p], m[p], wt[p], row[p] == sel0, row[p], nmind, v,
+                   vi);
+        else
+          tmin[row[p] - row0] = fminf(tmin[row[p] - row0], acc[p]);
+      }
     }
   }
 }
@@ -317,6 +343,9 @@ __device__ __forceinline__ void stage(TileSmem<Tl>& t, int st,
 // the matmul form, BM rows at a time; each row tile reads its rows once a
 // center tile (x2 with the first), every center tile in one pass over d.
 // ``sel`` (nsel entries, may be null) masks rows; ``w`` may be null.
+// With ``forms`` (may be null) only centers k with forms[k] != 0 count.
+// With ``tmin`` a row's min over those centers only lowers
+// ``tmin[row - row0]`` (shared memory) and nothing is folded or scored.
 template <class Tl, bool VEC>
 __device__ void matmul_rows(TileSmem<Tl>& t, const float* __restrict__ x,
                             const float* __restrict__ centers,
@@ -326,7 +355,9 @@ __device__ void matmul_rows(TileSmem<Tl>& t, const float* __restrict__ x,
                             const float* __restrict__ w,
                             float* __restrict__ nmind, int n, int d, int r,
                             int row0, int rows, int c_from, float& v,
-                            int& vi) {
+                            int& vi,
+                            const signed char* __restrict__ forms = nullptr,
+                            float* tmin = nullptr) {
   constexpr int TM = Tl::TM, TN = Tl::TN, GX = Tl::GX, GY = Tl::GY;
   const int tx = threadIdx.x % GX;
   const int ty = threadIdx.x / GX;
@@ -414,7 +445,8 @@ __device__ void matmul_rows(TileSmem<Tl>& t, const float* __restrict__ x,
       __syncthreads();            // the next tile's copies reuse the ring
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        if (ct + tx + j * GX < r) {
+        const int k = ct + tx + j * GX;
+        if (k < r && (forms == nullptr || __ldg(forms + k) != 0)) {
 #pragma unroll
           for (int i = 0; i < TM; ++i)
             best[i] = fminf(best[i], __double2float_rn(fmax(
@@ -429,10 +461,14 @@ __device__ void matmul_rows(TileSmem<Tl>& t, const float* __restrict__ x,
       for (int off = GX / 2; off > 0; off >>= 1)
         best[i] = fminf(best[i], __shfl_xor_sync(0xffffffffu, best[i], off));
       const int row = rt + ty + i * GY;
-      if (tx == 0 && row < end)
-        fold_row(best[i], __ldg(mind + row),
-                 w != nullptr ? __ldg(w + row) : 1.f,
-                 sel != nullptr && t.hit[row - rt], row, nmind, v, vi);
+      if (tx == 0 && row < end) {
+        if (tmin != nullptr)
+          tmin[row - row0] = fminf(tmin[row - row0], best[i]);
+        else
+          fold_row(best[i], __ldg(mind + row),
+                   w != nullptr ? __ldg(w + row) : 1.f,
+                   sel != nullptr && t.hit[row - rt], row, nmind, v, vi);
+      }
     }
   }
 }

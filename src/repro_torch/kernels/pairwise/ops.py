@@ -146,9 +146,12 @@ def _lib(name: str):
         from repro_torch.kernels import build
         lib = build.load(name)
         p, i = ctypes.c_void_p, ctypes.c_int
-        if name in ("greedy_round", "gated_greedy_round"):
-            fn = getattr(lib, name + "_f32")
+        if name == "greedy_round":
+            fn = lib.greedy_round_f32
             fn.argtypes = [p] * 10 + [i] * 4 + [p]
+        elif name == "gated_greedy_round":
+            fn = lib.gated_greedy_round_f32
+            fn.argtypes = [p] * 11 + [i] * 6 + [p]
         else:
             fn = lib.pairwise_min_argmin_f32
             fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
@@ -186,12 +189,11 @@ def _ticket(index: int, stream: int) -> int:
     return t.data_ptr()
 
 
-def _launch(fn, index: int, *args) -> int:
-    """Calls a greedy round's C launcher on device ``index``: ``args`` are
-    its pointers and its four ints; the current stream's ticket goes
-    between them and the stream itself last."""
+def _launch(fn, index: int, ptrs, ints) -> int:
+    """Calls a greedy round's C launcher on device ``index``: its pointers,
+    the current stream's ticket, its ints and the stream itself last."""
     stream = _stream_ptr(index)
-    args = args[:-4] + (_ticket(index, stream),) + args[-4:] + (stream,)
+    args = (*ptrs, _ticket(index, stream), *ints, stream)
     if index == torch.cuda.current_device():
         return fn(*args)
     with torch.cuda.device(index):
@@ -269,7 +271,7 @@ def pairwise_sq_dists(x, c):
     """Full (N, M) matrix — only for small M (DBAL centroid matching).
     A plain matrix product, as the reference leaves it to XLA."""
     _record(x, emb_reads=1)
-    return ref.pairwise_sq_dists_ref(x, c)
+    return ref.matmul_sq_dists_ref(x, c)
 
 
 def sq_dist_to_center(x, center):
@@ -374,12 +376,12 @@ def _greedy_round_cuda(x, mind, centers, sel_idx, weights,
     nb = -(-n // rows)
     buf = torch.empty((n + 2 + 2 * nb,), dtype=torch.float32, device=dev)
     base = buf.data_ptr()
-    _check(_launch(_lib("greedy_round"), dev.index, x.data_ptr(),
-                   mind.data_ptr(),
-                   None if centers is None else centers.data_ptr(),
-                   None if cidx is None else cidx.data_ptr(), sel.data_ptr(),
-                   None if w is None else w.data_ptr(), base,
-                   base + 4 * (n + 2), base + 4 * n, n, d, r, rows),
+    _check(_launch(_lib("greedy_round"), dev.index,
+                   (x.data_ptr(), mind.data_ptr(),
+                    None if centers is None else centers.data_ptr(),
+                    None if cidx is None else cidx.data_ptr(), sel.data_ptr(),
+                    None if w is None else w.data_ptr(), base,
+                    base + 4 * (n + 2), base + 4 * n), (n, d, r, rows)),
            "greedy_round")
     launches.bump(LAUNCHES, "greedy_round")
     return _out(buf, n)
@@ -423,8 +425,39 @@ def greedy_round(x, mind, centers, sel_idx, weights=None,
     return ref.greedy_round_ref(x, mind, centers, sel_idx, weights)
 
 
+# Rows a tile of the gated round: powers of two up to the most the
+# kernel's shared running min holds (kMaxTileRows in
+# csrc/gated_greedy_round.cu).
+GATED_TILE_ROWS = (8, 16, 32, 64, 128, 256)
+
+
+def gated_plan(n: int, d: int, n_block: int) -> int:
+    """Rows a CTA tile of ``gated_greedy_round`` for an (n, d) pool in
+    gate blocks of ``n_block`` rows: B1's rows per CTA at this d
+    (``round_plan``'s ROWS_PER_CTA * 512 / d, at least one row a warp),
+    clipped to the gate block. Not fewer for a few live rows: every tile
+    of a dead block is a CTA that copies its min-dists and joins the
+    launch's ticket and final merge, so smaller tiles cost more in dead
+    blocks than they win in live ones (on the H100 at 50,000 x 512 and
+    ~10 % live, 64-row tiles beat 32 and 16 in both forms; PERF.md). It
+    changes no float and no index."""
+    tile = max(CTA_THREADS // 32, ROWS_PER_CTA * 512 // max(d, 512))
+    tile = max(t for t in GATED_TILE_ROWS if t <= tile)
+    return min(tile, max(1, min(int(n_block), int(n))))
+
+
+def _gated_out(buf: torch.Tensor, n: int, nn: int):
+    """(new_mind, next_idx, next_score, blocks) views of a gated round's
+    buffer [nmind (n) | score | index bits | block maxima (nn) | block
+    index bits (nn) | tile pairs]; ``blocks`` is (2, nn) float32, its row
+    1 the int32 bits."""
+    return (buf[:n], buf.view(torch.int32)[n + 1], buf[n],
+            buf[n + 2:n + 2 + 2 * nn].view(2, nn))
+
+
 def _gated_greedy_round_cuda(x, mind, centers, live, pend, weights,
-                             n_block: int):
+                             n_block: int, forms=None, tile_rows=None,
+                             matmul=None):
     dev = x.device
     x, mind, centers = _f32(x, dev), _f32(mind, dev), _f32(centers, dev)
     w = None if weights is None else _f32(weights, dev)
@@ -434,20 +467,49 @@ def _gated_greedy_round_cuda(x, mind, centers, live, pend, weights,
             (w is not None and w.shape != (n,)):
         raise ValueError("gated_greedy_round: shapes do not match the "
                          "(N, d) pool")
-    nb = -(-n // min(int(n_block), n))
+    nb_rows = min(int(n_block), n)
+    nn = -(-n // nb_rows)
+    if tile_rows is None:
+        tile_rows = gated_plan(n, d, nb_rows)
+    tile = min(int(tile_rows), nb_rows)
+    if tile not in GATED_TILE_ROWS and tile != nb_rows:
+        raise ValueError(f"tile_rows {tile_rows}: one of {GATED_TILE_ROWS}")
+    tpb = -(-nb_rows // tile)
+    f = None
+    if forms is not None:
+        if matmul is None:
+            matmul = (forms.device.type != "cpu"
+                      or bool((forms != 0).any()))
+        f = forms.to(dev, torch.int8).contiguous()
+        if f.shape != (r,):
+            raise ValueError(f"forms must hold one entry per center: got "
+                             f"{tuple(f.shape)} for {r}")
     live, pend = _i32(live.to(dev), dev), _i32(pend.to(dev), dev)
-    if live.shape != (nb,) or pend.shape != (nb,):
+    if live.shape != (nn,) or pend.shape != (nn,):
         raise ValueError(f"block vectors must have one entry per row block: "
-                         f"got {live.shape[0]}/{pend.shape[0]} for {nb}")
-    buf = torch.empty((n + 2 + 2 * nb,), dtype=torch.float32, device=dev)
+                         f"got {live.shape[0]}/{pend.shape[0]} for {nn}")
+    buf = torch.empty((n + 2 + 2 * nn + 2 * nn * tpb,), dtype=torch.float32,
+                      device=dev)
     base = buf.data_ptr()
-    _check(_launch(_lib("gated_greedy_round"), dev.index, x.data_ptr(),
-                   mind.data_ptr(), centers.data_ptr(), live.data_ptr(),
-                   pend.data_ptr(), None if w is None else w.data_ptr(), base,
-                   base + 4 * (n + 2), base + 4 * n, n, d, r, int(n_block)),
+    _check(_launch(_lib("gated_greedy_round"), dev.index,
+                   (x.data_ptr(), mind.data_ptr(), centers.data_ptr(),
+                    live.data_ptr(), pend.data_ptr(),
+                    None if f is None else f.data_ptr(),
+                    None if w is None else w.data_ptr(), base,
+                    base + 4 * (n + 2), base + 4 * n),
+                   (n, d, r, int(n_block), tile,
+                    1 if f is None or matmul else 0)),
            "gated_greedy_round")
     launches.bump(LAUNCHES, "gated_greedy_round")
-    return _out(buf, n)
+    return _gated_out(buf, n, nn)
+
+
+def _matmul_pending(forms, live, pend) -> bool:
+    """Whether a live block has a form-1 center among ``[pend[b], R)``."""
+    f = forms.cpu().numpy() != 0
+    after = np.append(np.logical_or.accumulate(f[::-1])[::-1], False)
+    p = np.clip(pend.cpu().numpy(), 0, f.shape[0])
+    return bool((after[p] & (live.cpu().numpy() > 0)).any())
 
 
 def _int_vector(v) -> torch.Tensor:
@@ -456,18 +518,40 @@ def _int_vector(v) -> torch.Tensor:
 
 
 def gated_greedy_round(x, mind, centers, block_live, block_pending,
-                       weights=None, impl: str = "auto", n_block: int = 256):
+                       weights=None, impl: str = "auto", n_block: int = 256,
+                       *, forms=None, tile_rows: int | None = None,
+                       matmul: bool | None = None, blocks: bool = False,
+                       account: bool = True):
     """The BLOCK-MASKED round variant behind the centroid prefilter.
 
     Folds queued ``centers`` (R, d) into ``mind`` for LIVE row blocks only:
     block ``b`` (rows ``[b*n_block, (b+1)*n_block)``) is touched iff
     ``block_live[b]``, and folds only centers ``[block_pending[b]:R)``.
     Dead blocks pass ``mind`` through untouched and emit -BIG partials, so
-    the returned argmax ranges over live rows only. Winner masking stays
+    the returned argmax ranges over live rows only; a live block with
+    nothing pending scores its min-dists as they are. Winner masking stays
     with the caller (set the winner's ``mind`` slot to -1.0).
 
-    Returns ``(new_mind, next_idx, next_score)`` like ``greedy_round``.
-    Accounting: only live-block rows count as pool rows touched."""
+    ``forms`` (optional, (R,) 0/1): center ``k`` folds in the difference
+    form where it is 0 (the plain round's R = 1 body) and in the matmul
+    form where it is 1. Without it every center takes the matmul form, as
+    the reference's kernel does. The min over centers is exact, so one
+    call folding entries ``[p, R)`` equals one ``greedy_round`` call per
+    entry, bit for bit, when each single-center entry has form 0 and
+    each multi-center entry form 1. ``matmul=False`` (with ``forms``)
+    says that no live block has a form-1 center pending, so the card runs
+    its kernel without the matmul body; a launch where one is pending
+    stops with a device fault, and on the CPU raises ValueError. By
+    default it is read from ``forms`` where they lie on the CPU, else
+    assumed. ``tile_rows`` (rows a CTA on the card; default
+    ``gated_plan``'s over every row) changes no result.
+
+    Returns ``(new_mind, next_idx, next_score)`` like ``greedy_round``;
+    with ``blocks`` also the (2, nn) per-block pairs: row 0 each gate
+    block's max score, row 1 the int32 bits of the lowest row index
+    reaching it (``.view(torch.int32)``), in block order.
+    Accounting (``account``): only live-block rows count as pool rows
+    touched; a caller that keeps its own tally passes False."""
     nb = int(n_block)
     N = x.shape[0]
     nn = -(-N // min(nb, max(N, 1)))
@@ -476,15 +560,40 @@ def gated_greedy_round(x, mind, centers, block_live, block_pending,
     if live.shape[0] != nn:
         raise ValueError(f"block_live has {live.shape[0]} entries for "
                          f"{nn} blocks of {nb} rows over {N}")
-    if _TRACKING[0]:
+    if forms is not None and not isinstance(forms, torch.Tensor):
+        forms = torch.as_tensor(np.asarray(forms), dtype=torch.int8)
+    if matmul is False and forms is None:
+        raise ValueError("matmul=False needs forms: without them every "
+                         "center takes the matmul form")
+    if account and _TRACKING[0]:
         live_blocks = np.nonzero(live.cpu().numpy())[0]
         rows = int(sum(min(nb, N - b * nb) for b in live_blocks))
         _add(1 if rows else 0, 2, 4 * (rows * x.shape[1] + 2 * N), rows)
     if _use_kernel(x, impl):
-        return _gated_greedy_round_cuda(x, mind, centers, live, pend,
-                                        weights, nb)
-    return ref.gated_greedy_round_ref(x, mind, centers, live, pend, weights,
-                                      n_block=nb)
+        out = _gated_greedy_round_cuda(x, mind, centers, live, pend,
+                                       weights, nb, forms, tile_rows, matmul)
+    else:
+        if matmul is False and _matmul_pending(forms, live, pend):
+            raise ValueError("matmul=False, but a live block has a "
+                             "matmul-form center pending")
+        out = ref.gated_greedy_round_ref(x, mind, centers, live, pend,
+                                         weights, n_block=nb, forms=forms,
+                                         blocks=True)
+    return out if blocks else out[:3]
+
+
+def record_folds(rows, d: int, passes) -> None:
+    """Op accounting of ``passes`` fused rounds over ``rows`` rows of width
+    ``d`` (ints, or arrays of slices: ``passes[i]`` rounds over
+    ``rows[i]`` rows), as ``greedy_round`` records each (one pool read,
+    two vector streams): for a caller that folds them some other way."""
+    if not _TRACKING[0]:
+        return
+    passes = np.asarray(passes, np.int64)
+    n = int(passes.sum())
+    if n > 0:
+        r = int((np.asarray(rows, np.int64) * passes).sum())
+        _add(n, 2 * n, 4 * (r * d + 2 * r), r)
 
 
 def warm_start_min_dist(x, centers, impl: str = "auto",

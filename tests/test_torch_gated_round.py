@@ -11,6 +11,10 @@ few ulps); indices exactly equal; rows of dead blocks bit for bit.
 The ``cuda`` tests hold the CUDA kernel against the port's plain version
 on the card and skip where there is no GPU.
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -270,3 +274,274 @@ def test_cuda_greedy_round_rows_per_block_invisible(cuda):
         for nm, i, s in outs[1:]:
             assert torch.equal(nm, outs[0][0]) and int(i) == int(outs[0][1])
         assert int(outs[0][1]) == 123
+
+
+# ------------------------------------------------- per-center forms --
+# entries as the prefilter queues them: warm-start chunks (matmul form)
+# and single centers (difference form), a one-center last chunk included
+ENTRY_SIZES = (5, 1, 3, 1, 1, 2, 1)
+
+
+def _entries(rng, d, scale=1.0):
+    """(centers (R, d), forms (R,) int8, entry start rows (E + 1,))."""
+    rows = np.concatenate([[0], np.cumsum(ENTRY_SIZES)])
+    c = (rng.normal(size=(int(rows[-1]), d)) * scale).astype(np.float32)
+    forms = np.concatenate([np.full(k, 0 if k == 1 else 1, np.int8)
+                            for k in ENTRY_SIZES])
+    return c, forms, rows
+
+
+def _sequential(x, mind, c, rows, live, entry_of_block, nb, fold):
+    """``fold(x_rows, mind_rows, chunk)`` (one plain round) once per entry
+    for each live block, from its own cursor on; dead blocks and blocks
+    with nothing pending keep ``mind``. Returns the new min-dists."""
+    n = x.shape[0]
+    want = mind.clone()
+    for b in range(live.shape[0]):
+        lo, hi = b * nb, min((b + 1) * nb, n)
+        if live[b]:
+            for e in range(int(entry_of_block[b]), len(rows) - 1):
+                want[lo:hi] = fold(x[lo:hi], want[lo:hi],
+                                   c[int(rows[e]):int(rows[e + 1])])
+    return want
+
+
+def _block_pairs(nm, live, nb, w=None):
+    """The gated round's score rule and per-block (max, first index) pairs
+    over min-dists ``nm``: (scores, (2, nn) pairs as the wrapper gives)."""
+    n = nm.shape[0]
+    nn = live.shape[0]
+    blk_live = torch.from_numpy(np.repeat(live, nb)[:n] > 0).to(nm.device)
+    sc = nm if w is None else nm * w
+    sc = torch.where(blk_live & ~(nm < 0), sc, -ref.BIG)
+    padded = torch.full((nn * nb,), -ref.BIG, device=nm.device)
+    padded[:n] = sc
+    bi = torch.argmax(padded.view(nn, nb), dim=1)
+    bv = padded.view(nn, nb).gather(1, bi[:, None])[:, 0]
+    bi = (bi + torch.arange(nn, device=nm.device) * nb).to(torch.int32)
+    return sc, torch.stack([bv, bi.view(torch.float32)])
+
+
+def _ref_fold(x, m, chunk):
+    sel = torch.full((chunk.shape[0],), -1, dtype=torch.int32)
+    return ref.greedy_round_ref(x, m, chunk, sel)[0]
+
+
+@pytest.mark.parametrize("d", (32, 192, 513))
+@pytest.mark.parametrize("weighted", (False, True))
+def test_mixed_forms_equal_one_plain_round_per_entry(d, weighted):
+    """Forms 0/1 by entry: one gated fold of entries [p_b, R) per block
+    equals ``greedy_round_ref`` once per entry, bit for bit; the argmax
+    and the per-block pairs follow from those min-dists."""
+    rng = np.random.default_rng(d)
+    n, nb = 150, 16
+    nn = -(-n // nb)
+    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32))
+    c, forms, rows = _entries(rng, d)
+    mind = torch.from_numpy((np.abs(rng.normal(size=n)) * 4 * d).astype(
+        np.float32))
+    mind[torch.from_numpy(rng.choice(n, 9, replace=False))] = -1.0
+    live = rng.integers(0, 2, nn).astype(np.int32)
+    live[:2] = 1
+    ent = rng.integers(0, len(ENTRY_SIZES) + 1, nn)
+    ent[0], ent[1] = 0, len(ENTRY_SIZES)          # all pending / none
+    pend = rows[ent].astype(np.int32)
+    w = (torch.from_numpy(rng.uniform(0.1, 1, n).astype(np.float32))
+         if weighted else None)
+    nm, idx, score, pairs = ops.gated_greedy_round(
+        x, mind, torch.from_numpy(c), live, pend, w, n_block=nb,
+        forms=forms, blocks=True)
+    want = _sequential(x, mind, torch.from_numpy(c), rows, live, ent, nb,
+                       _ref_fold)
+    assert torch.equal(nm.view(torch.int32), want.view(torch.int32))
+    sc, want_pairs = _block_pairs(want, live, nb, w)
+    assert int(idx) == int(torch.argmax(sc)) and float(score) == float(
+        sc.max())
+    assert torch.equal(pairs.view(torch.int32), want_pairs.view(torch.int32))
+
+
+def test_forms_none_is_the_matmul_form_for_every_center():
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(40, 20)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(3, 20)).astype(np.float32))
+    mind = torch.full((40,), ref.BIG)
+    live, pend = np.ones(3, np.int32), np.zeros(3, np.int32)
+    a = ops.gated_greedy_round(x, mind, c, live, pend, n_block=16)
+    b = ops.gated_greedy_round(x, mind, c, live, pend, n_block=16,
+                               forms=np.ones(3, np.int8))
+    assert torch.equal(a[0], b[0]) and int(a[1]) == int(b[1])
+    one = ops.gated_greedy_round(x, mind, c[:1], live, pend, n_block=16,
+                                 forms=np.zeros(1, np.int8))[0]
+    assert torch.equal(one, ref.diff_sq_dists_ref(x, c[0]))
+
+
+def test_matmul_false_is_checked():
+    """``matmul=False`` needs forms, and on the CPU raises where a live
+    block has a matmul-form center pending; elsewhere it changes nothing."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(48, 20)).astype(np.float32))
+    c = torch.from_numpy(rng.normal(size=(4, 20)).astype(np.float32))
+    mind = torch.full((48,), ref.BIG)
+    forms = np.array([1, 1, 0, 0], np.int8)
+    live = np.array([1, 0, 1], np.int32)
+    with pytest.raises(ValueError):
+        ops.gated_greedy_round(x, mind, c, live, np.zeros(3, np.int32),
+                               n_block=16, matmul=False)
+    with pytest.raises(ValueError):
+        ops.gated_greedy_round(x, mind, c, live, np.array([2, 2, 1],
+                                                          np.int32),
+                               n_block=16, forms=forms, matmul=False)
+    # form-1 centers only behind the live blocks' cursors or in dead ones
+    pend = np.array([2, 0, 2], np.int32)
+    a = ops.gated_greedy_round(x, mind, c, live, pend, n_block=16,
+                               forms=forms, matmul=False, blocks=True)
+    b = ops.gated_greedy_round(x, mind, c, live, pend, n_block=16,
+                               forms=forms, blocks=True)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_plain_distances_are_row_and_center_local():
+    """The rounds' plain distances do not depend on the rows or centers
+    beside them (the kernels' property): slices and padded copies give the
+    bits of the whole product."""
+    rng = np.random.default_rng(4)
+    for d in (7, 32, 192, 513):
+        x = torch.from_numpy(rng.normal(size=(70, d)).astype(np.float32))
+        c = torch.from_numpy(rng.normal(size=(12, d)).astype(np.float32))
+        full = ref.pairwise_sq_dists_ref(x, c)
+        assert torch.equal(full[5:9, 3:10], ref.pairwise_sq_dists_ref(
+            x[5:9], c[3:10]))
+        pad = torch.zeros((64, d))
+        pad[:3] = x[40:43]
+        assert torch.equal(full[40:43, 1:2], ref.pairwise_sq_dists_ref(
+            pad, c[1:2])[:3])
+        assert torch.equal(ref.diff_sq_dists_ref(x, c[2])[10:20],
+                           ref.diff_sq_dists_ref(x[10:20], c[2]))
+
+
+def test_gated_plan_tiles():
+    """B1's rows per CTA at this d, clipped to the gate block."""
+    assert ops.gated_plan(50_000, 512, 256) == 64
+    assert ops.gated_plan(50_000, 192, 256) == 64
+    assert ops.gated_plan(50_000, 512, 32) == 32
+    assert ops.gated_plan(300, 32, 16) == 16
+    assert ops.gated_plan(2_048, 4_096, 256) == 8
+    assert ops.gated_plan(2_048, 1_000, 256) == 32
+    assert ops.gated_plan(5, 512, 256) == 5
+    for d in (1, 7, 100, 513, 2_000, 10 ** 5):
+        t = ops.gated_plan(10 ** 6, d, 256)
+        assert t in ops.GATED_TILE_ROWS and 8 <= t <= 64
+        assert t * max(d, 512) <= 64 * 512 or t == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (32, 192, 512))
+@pytest.mark.parametrize("nb,tile", [(256, 16), (256, 64), (64, 8),
+                                     (64, 64), (32, 32)])
+def test_cuda_mixed_forms_equal_b1_per_entry(cuda, d, nb, tile):
+    """On the card: one gated launch with forms equals one greedy_round
+    launch per entry, bit for bit, at every tile size; exact ties planted
+    in two tiles of one block and in two blocks go to the lowest index;
+    the per-block pairs equal the plain version's."""
+    rng = np.random.default_rng(d + nb + tile)
+    n = 3_001
+    nn = -(-n // nb)
+    x = torch.from_numpy((rng.normal(size=(n, d)) * 0.25).astype(
+        np.float32)).to(cuda)
+    far = x[5] * 6.0
+    ties = [nb + 3, nb + tile + 3, 3 * nb + 1]    # across tiles and blocks
+    x[ties] = far
+    c, forms, rows = _entries(rng, d, 0.25)
+    c = torch.from_numpy(c).to(cuda)
+    live = rng.integers(0, 2, nn).astype(np.int32)
+    ent = rng.integers(0, len(ENTRY_SIZES) + 1, nn)
+    tie_blocks = [t // nb for t in ties]        # live, every entry pending
+    live[tie_blocks] = 1
+    ent[tie_blocks] = 0
+    pend = rows[ent].astype(np.int32)
+    # rows of blocks with entries pending start far, the rest near: the
+    # ties (folded far rows) score highest
+    folds = np.repeat(ent < len(ENTRY_SIZES), nb)[:n]
+    mind = torch.from_numpy(np.where(folds, 3.4e38, 1.0).astype(
+        np.float32)).to(cuda)
+    mind[torch.from_numpy(rng.choice(n, 50, replace=False)).to(cuda)] = -1.0
+    mind[ties] = 3.4e38
+    for mm in (None, True):
+        nm, idx, score, pairs = ops.gated_greedy_round(
+            x, mind, c, live, pend, n_block=nb, forms=forms, tile_rows=tile,
+            matmul=mm, blocks=True)
+
+        def b1(xs, m, chunk):
+            sel = torch.full((chunk.shape[0],), -1, dtype=torch.int32,
+                             device=cuda)
+            return ops.greedy_round(xs, m, chunk, sel)[0]
+        want = _sequential(x, mind, c, rows, live, ent, nb, b1)
+        torch.cuda.synchronize()
+        assert torch.equal(nm.view(torch.int32), want.view(torch.int32))
+        _, want_pairs = _block_pairs(want, live, nb)
+        assert torch.equal(pairs.view(torch.int32),
+                           want_pairs.view(torch.int32))
+        assert int(idx) == nb + 3
+        # the plain version: values within its own rounding, the winner
+        pn, pi, ps, pp = ops.gated_greedy_round(
+            x, mind, c, live, pend, n_block=nb, forms=forms, blocks=True,
+            impl="ref")
+        assert int(pi) == nb + 3
+        torch.testing.assert_close(nm, pn, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(pairs[0], pp[0], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_rows_invisible(cuda):
+    """The tile size changes no float and no index, forms or not."""
+    n, d, nb = 5_003, 96, 256
+    x, c, mind, live, pend, w = _cuda_inputs(cuda, n, 6, d, nb, seed=12)
+    forms = torch.tensor([1, 1, 0, 1, 0, 0], dtype=torch.int8, device=cuda)
+    for f in (None, forms):
+        outs = [ops.gated_greedy_round(x, mind, c, live, pend, w,
+                                       n_block=nb, forms=f, tile_rows=t,
+                                       blocks=True)
+                for t in ops.GATED_TILE_ROWS]
+        for nm, i, s, p in outs[1:]:
+            assert torch.equal(nm, outs[0][0]) and int(i) == int(outs[0][1])
+            assert torch.equal(p, outs[0][3])
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_false_traps_on_a_matmul_center(cuda, tmp_path):
+    """On the card ``matmul=False`` runs the kernel without the matmul
+    body: with only difference-form centers pending it gives the bits of
+    the full kernel, and a launch with a matmul-form center pending stops
+    with a device fault (here in a process of its own) rather than skip
+    the center."""
+    n, d, nb = 3_001, 64, 32
+    x, c, mind, live, _, _ = _cuda_inputs(cuda, n, 4, d, nb, seed=21)
+    forms = torch.tensor([1, 1, 0, 0], dtype=torch.int8, device=cuda)
+    pend = torch.full(live.shape, 2, dtype=torch.int32, device=cuda)
+    a = ops.gated_greedy_round(x, mind, c, live, pend, n_block=nb,
+                               forms=forms, matmul=False, blocks=True)
+    b = ops.gated_greedy_round(x, mind, c, live, pend, n_block=nb,
+                               forms=forms, matmul=True, blocks=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    script = tmp_path / "broken_promise.py"
+    script.write_text(
+        "import torch\n"
+        "from repro_torch.kernels.pairwise import ops\n"
+        "dev = torch.device('cuda')\n"
+        "x = torch.randn(256, 64, device=dev)\n"
+        "c = torch.randn(2, 64, device=dev)\n"
+        "m = torch.full((256,), 3.4e38, device=dev)\n"
+        "one = torch.ones(8, dtype=torch.int32, device=dev)\n"
+        "zero = torch.zeros(8, dtype=torch.int32, device=dev)\n"
+        "f = torch.tensor([1, 0], dtype=torch.int8, device=dev)\n"
+        "ops.gated_greedy_round(x, m, c, one, zero, n_block=32, forms=f,\n"
+        "                       matmul=False)\n"
+        "torch.cuda.synchronize()\n")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    run = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=600,
+                         env={**os.environ, "PYTHONPATH": src})
+    assert run.returncode != 0, run.stdout
+    assert "Error" in run.stderr, run.stderr[-2000:]
