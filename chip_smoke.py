@@ -79,6 +79,18 @@ Phases, one line each (any failure raises and exits non-zero):
             it; each selection kernel must have launched, flash attention
             not at all (ResNet has no attention). A badge query too (the
             sharded phase compares it).
+   standing  then, on the same server over TCP, a coreset standing
+            query (budget 1,000, rng 2) registered after the lc picks are
+            labeled: six deltas of 256 near-duplicates of labeled images
+            (N(0, 1e-4) noise), each a sync push and a poll, then 1,024
+            fresh images, then a near-duplicate delta pushed
+            asynchronously (its emit is the ingest worker's). Every emit's
+            keys equal a one-shot query's at that moment; the modes are
+            replay x 6, then full; a replay emit runs 999 B1 rounds over
+            the delta rows and reads back once. Logs each emit's mode,
+            wall ms, B1 launches, ``pool_rows`` and readbacks, and the
+            full over replay ``pool_rows`` ratio. Launch counts zeroed
+            just before, read just after (the ``standing`` path).
 5. agree    k-center greedy (budget 1,000) over the server's own features
             through the kernel and through the plain version; prints the
             rounds before the first divergence.
@@ -102,7 +114,22 @@ Phases, one line each (any failure raises and exits non-zero):
             server, read after. Every gated k-center query logs the
             prefilter engine's waves, gated_greedy_round launches and
             host syncs per (slot, shard); its kcg launches no
-            greedy_round.
+            greedy_round. The ``replicas: 3`` server then runs the
+            standing phase on the same stream (same checks), and the
+            ``strategy_state_cache: false`` server takes the stream with
+            full emits only; both final selections equal replicas 1's.
+   process  ``worker_backend: process`` at ``replicas: 3`` (ResNet-18 on
+            the card in each spawned child, ``cache_bytes: 1`` so every
+            artifact build re-embeds through ``embed_batch`` jobs) beside
+            a ``thread`` server fed the same pushes; the pool cut to
+            8,192 images. The children's first jobs (start s, device
+            memory each) return the inline chunk's bytes exactly; coreset
+            and kcg at budget 256 select the thread server's keys; lane
+            0's child is SIGKILLed at its first job of a query after a
+            768-row push, and the query still returns the thread server's
+            keys with the lane restarted. Logs jobs and re-embed rows/s
+            through jobs against inline. Launch counts zeroed before,
+            read after (the ``process`` path).
 7. bitwise  the text encoder (qwen3-8b widths, 4 layers, flash kernel):
             features of 64 sequences bit-identical at block sizes 96, 128
             and 512 (on the card ``block`` reaches no kernel, so this holds
@@ -140,6 +167,7 @@ package is not beside this file.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import gc
 import json
@@ -156,6 +184,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 POOL, EVAL, HW, BUDGET, AUTO_BUDGET = 50_000, 10_000, 32, 1_000, 2_000
+BATCH_IMG = 256                          # the image path's batch
 D = 512                                  # resnet18 feat_dim
 HBM_BYTES_S = 3.35e12                    # H100 SXM HBM3
 FP32_FLOPS_S = 67e12                     # H100 SXM fp32, outside tensor cores
@@ -1279,7 +1308,7 @@ active_learning:
     type: "lc"
   model:
     name: "resnet18"
-    batch_size: 256
+    batch_size: {BATCH_IMG}
   device: cuda
   target_accuracy: 0.99
 al_worker:
@@ -1347,9 +1376,14 @@ def run_server(counters):
         for counts in counters.values():         # ... and ends here
             launches.update(counts)
         stats = cli.stats()
+        feats = srv.session()._artifact_snapshot()[0][0]
+        # the standing path on this server, over TCP, after its checks
+        stream = standing_stream(xs, keys, picks["lc"])
+        standing = run_standing("replicas1", srv, cli, counters, stream)
     finally:
         cli.close()
         rpc.stop()
+        srv.close()
     assert np.isfinite(acc) and 0.0 <= acc <= 1.0
     assert auto["budget_spent"] > 0 and auto["rounds"] >= 1
     assert stats["pool"] == POOL and stats["labeled"] == BUDGET
@@ -1357,7 +1391,6 @@ def run_server(counters):
         assert launches[name] > 0, f"{name} never launched on the main path"
     for name in ("flash_attention", "decode_attention", "uncertainty_stats"):
         assert launches[name] == 0, launches     # no LM on this path
-    feats = srv.session()._artifact_snapshot()[0][0]
     assert feats.shape == (POOL, D) and np.isfinite(feats).all()
     log("server", wall_s=wall, launches=launches,
         embed_rows=srv.embed_rows, accuracy=acc,
@@ -1365,7 +1398,118 @@ def run_server(counters):
         auto={k: auto[k] for k in ("strategy", "accuracy", "stop_reason",
                                    "rounds", "eliminated", "budget_spent")})
     return {"launches": launches, "feats": feats, "backend": srv.backend,
-            "picks": picks, "key2y": key2y}
+            "picks": picks, "key2y": key2y, "stream": stream,
+            "standing": standing}
+
+
+# -------------------------------------------------------------- standing --
+# the stream a coreset standing query (budget BUDGET, rng 2) watches: six
+# deltas of 256 near-duplicates of labeled images (each row a labeled
+# image plus N(0, 1e-4) noise, so a new content key), then 1,024 fresh
+# images from a new seed, then one more near-duplicate delta pushed
+# asynchronously (its emit is the ingest worker's)
+STANDING_DUPS, STANDING_ROWS, STANDING_FRESH, STANDING_SEED = 6, 256, 1_024, 2
+
+
+def standing_stream(xs, keys, labeled):
+    from repro_torch.data.synthetic import image_pool
+    rng = np.random.default_rng(5)
+    pos = {k: i for i, k in enumerate(keys)}
+    src = xs[np.asarray([pos[k] for k in labeled])]
+
+    def dups(i):
+        rows = src[(np.arange(STANDING_ROWS) + i * STANDING_ROWS) % len(src)]
+        return list(rows + rng.normal(scale=1e-4, size=rows.shape)
+                    .astype(np.float32))
+
+    fresh, _ = image_pool(STANDING_FRESH, hw=HW, seed=6)
+    return ([dups(i) for i in range(STANDING_DUPS)] + [list(fresh)],
+            dups(STANDING_DUPS))
+
+
+def run_standing(name, srv, cli, counters, stream, poll_each=True):
+    """A coreset standing query at budget BUDGET on ``cli``'s server,
+    watching ``stream``. With ``poll_each`` every sync delta is followed by
+    a poll on this thread, whose one emit is timed with its B1 launches,
+    ``pool_rows``, the replay's rounds and readbacks, and held against a
+    one-shot query at that moment; the modes must be replay x 6, then full.
+    Without it (the ``strategy_state_cache: false`` server: full emits
+    only) the sync deltas go in unpolled. Either way the async delta's
+    emit is the ingest worker's, and its keys equal a one-shot query.
+    Launch counts are zeroed just before and read just after. Returns
+    (final keys, launch counts)."""
+    from repro_torch.kernels.pairwise import ops
+    sync_deltas, async_delta = stream
+    oneshot = dict(budget=BUDGET, strategy="coreset", rng_seed=STANDING_SEED)
+    for reset in counters:
+        reset()                                  # the standing path starts
+    t = time.perf_counter()
+    reg = cli.standing_register(**oneshot)
+    register_ms = (time.perf_counter() - t) * 1e3
+    qid, seq = reg["query_id"], reg["seq"]
+    assert reg["keys"] == cli.query(**oneshot)["keys"], name
+    emits = []
+    for rows in sync_deltas:
+        cli.push_data(rows)
+        if not poll_each:
+            continue
+        sq0 = srv.stats()["standing_queries"]
+        b1 = ops.LAUNCHES["greedy_round"]
+        t = time.perf_counter()
+        with ops.track_ops() as st:
+            r = cli.standing_poll(qid, since=seq)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+        pool_rows = st["pool_rows"]
+        b1 = ops.LAUNCHES["greedy_round"] - b1
+        sq1 = srv.stats()["standing_queries"]
+        assert len(r["emits"]) == 1, (name, r["emits"])
+        seq = r["seq"]
+        e = r["emits"][0]
+        emits.append({
+            "mode": e["mode"], "rows": len(rows), "wall_ms": wall_ms,
+            "b1_launches": b1, "pool_rows": pool_rows,
+            "replay_rounds": sq1["replay_rounds"] - sq0["replay_rounds"],
+            "host_readbacks": (sq1["replay_readbacks"]
+                               - sq0["replay_readbacks"]),
+            "added": len(e["added"]),
+            "keys_equal_oneshot": r["keys"] == cli.query(**oneshot)["keys"]})
+    cli.push_data(async_delta, asynchronous=True)
+    cli.flush()
+    r = cli.standing_poll(qid, since=seq)
+    assert len(r["emits"]) == 1, (name, r["emits"])
+    final = r["keys"]
+    async_equal = final == cli.query(**oneshot)["keys"]
+    torch.cuda.synchronize()
+    launches = {}
+    for counts in counters.values():             # ... and ends here
+        launches.update(counts)
+    sq = srv.stats()["standing_queries"]
+    cli.standing_cancel(qid)
+    replay = [e for e in emits if e["mode"] == "replay"]
+    full = [e for e in emits if e["mode"] == "full"]
+    ratio = (np.mean([e["pool_rows"] for e in full])
+             / np.mean([e["pool_rows"] for e in replay])
+             if replay and full else None)
+    log("standing", server=name, budget=BUDGET, register_ms=register_ms,
+        emits=emits, async_emit_mode=r["emits"][0]["mode"],
+        pool_rows_ratio_full_over_replay=ratio, counters=sq,
+        launches=launches)
+    assert async_equal, name
+    assert all(e["keys_equal_oneshot"] for e in emits), (name, emits)
+    if poll_each:
+        assert [e["mode"] for e in emits] == ["replay"] * STANDING_DUPS + [
+            "full"], (name, emits)
+        for e in replay:
+            # budget - 1 B1 rounds, one readback; the rest of its launches
+            # extend the persisted state over the delta rows
+            assert e["replay_rounds"] == BUDGET - 1, e
+            assert e["host_readbacks"] == 1 and e["b1_launches"] >= \
+                BUDGET - 1, e
+    else:
+        assert sq["replay_emits"] == 0 and sq["full_emits"] == sq["emits"]
+    assert launches["greedy_round"] > 0, (name, launches)
+    return final, launches
 
 
 def agreement(feats, dev):
@@ -1498,6 +1642,7 @@ def run_sharded(base, counters):
              gated),
             ("prefilter_default", dict(prefilter=True), gated))
     out, all_launches = {}, {}
+    standing = dict(base["standing"][1])
     for name, extra, budgets in runs:
         cfg = dataclasses.replace(ALServiceConfig.from_yaml(YML), replicas=3,
                                   **extra)
@@ -1547,6 +1692,14 @@ def run_sharded(base, counters):
             for counts in counters.values():     # ... and ends here
                 launches.update(counts)
             stats = srv.stats()
+            if name in ("replicas3", "replicas3_no_state"):
+                # the same stream as the replicas 1 server's standing query
+                final, sl = run_standing(name, srv, cli, counters,
+                                         base["stream"],
+                                         poll_each=name == "replicas3")
+                assert final == base["standing"][0], name
+                for k, v in sl.items():
+                    standing[k] = standing.get(k, 0) + v
         finally:
             cli.close()
             srv.close()
@@ -1582,7 +1735,131 @@ def run_sharded(base, counters):
     for launches in all_launches.values():
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-    return total
+    return total, standing
+
+
+# --------------------------------------------------------------- process --
+# the process lanes' pool: cut from 50,000 to 8,192 images to stay in the
+# run's time (every artifact build re-embeds through the children)
+PROC_POOL, PROC_EXTRA, PROC_LABELED, PROC_BUDGET = 8_192, 768, 512, 256
+
+
+def run_process(counters):
+    """``worker_backend: process`` at ``replicas: 3`` (ResNet-18 on the
+    card in every child) against a ``thread`` server fed the same pushes,
+    both with ``cache_bytes: 1`` so every artifact build re-embeds through
+    ``_embed_chunk`` (as ``embed_batch`` jobs on the process server). The
+    children start together on a first job each (their start time and the
+    device memory they took); each job's bytes equal the inline chunk's;
+    coreset and kcg keys at budget 256 equal the thread server's; then
+    lane 0's child is SIGKILLed at its first job of a query (after a
+    768-row push), which must still return the thread server's keys with
+    the lane restarted. Launch counts zeroed before, read after."""
+    from repro_torch.data.synthetic import image_pool
+    from repro_torch.service.config import ALServiceConfig
+    from repro_torch.service.server import ALServer
+    base = dataclasses.replace(ALServiceConfig.from_yaml(YML), replicas=3,
+                               cache_bytes=1, worker_timeout_s=600.0)
+    xs, ys = image_pool(PROC_POOL, hw=HW, seed=7)
+    extra, _ = image_pool(PROC_EXTRA, hw=HW, seed=8)
+    for reset in counters:
+        reset()                                  # the process path starts
+    srvs = {kind: ALServer(dataclasses.replace(base, worker_backend=kind))
+            for kind in ("thread", "process")}
+    proc, thread = srvs["process"], srvs["thread"]
+    rt = proc.shard_runtime()
+    jobs = {"jobs": 0, "rows": 0, "kill_armed": False}
+    run_job = rt.run_job
+
+    def counted(shard, name, payload, on_death=None):
+        jobs["jobs"] += 1
+        jobs["rows"] += len(payload["raw"])
+        if jobs["kill_armed"] and shard == 0:
+            jobs["kill_armed"] = False
+            rt.kill(0)                           # SIGKILL, mid-query
+        return run_job(shard, name, payload, on_death)
+
+    wall, keys_of = {}, {}
+    try:
+        rt.run_job = counted
+        job = {"config": dataclasses.asdict(proc.config),
+               "raw": xs[:BATCH_IMG], "bs": BATCH_IMG}
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+
+        def first_job(i):
+            t = time.perf_counter()
+            out = rt.run_job(i, "embed_batch", job)
+            return time.perf_counter() - t, out
+
+        with cf.ThreadPoolExecutor(3) as ex:
+            started = list(ex.map(first_job, range(3)))
+        free1 = torch.cuda.mem_get_info()[0]
+        inline = thread._embed_chunk(job["raw"], BATCH_IMG, shard_hint=0,
+                                     backend=thread.backend)
+        bytes_equal = [bool(np.array_equal(out, inline))
+                       for _, out in started]
+        ragged = xs[BATCH_IMG:BATCH_IMG + 100]
+        bytes_equal.append(bool(np.array_equal(
+            proc._embed_chunk(ragged, BATCH_IMG, shard_hint=1,
+                              backend=proc.backend),
+            thread._embed_chunk(ragged, BATCH_IMG, shard_hint=1,
+                                backend=thread.backend))))
+        jobs_before = dict(jobs)
+        for kind, srv in srvs.items():
+            t = time.perf_counter()
+            keys = []
+            for s in range(0, PROC_POOL, 2_048):
+                keys += srv.push_data(list(xs[s:s + 2_048]))
+            wall[f"{kind}_push"] = time.perf_counter() - t
+            t = time.perf_counter()
+            srv.query(budget=1, strategy="lc")   # re-embeds all 8,192 rows
+            torch.cuda.synchronize()
+            wall[f"{kind}_reembed"] = time.perf_counter() - t
+            srv.label(keys[:PROC_LABELED], [int(y) for y in
+                                            ys[:PROC_LABELED]])
+            srv.train_and_eval()
+            for strategy in ("coreset", "kcg"):
+                t = time.perf_counter()
+                keys_of[kind, strategy] = srv.query(
+                    budget=PROC_BUDGET, strategy=strategy,
+                    rng_seed=1)["keys"]
+                wall[f"{kind}_query_{strategy}"] = time.perf_counter() - t
+            srv.push_data(list(extra))
+            jobs["kill_armed"] = kind == "process"
+            t = time.perf_counter()
+            keys_of[kind, "coreset_after_kill"] = srv.query(
+                budget=PROC_BUDGET, strategy="coreset", rng_seed=3)["keys"]
+            wall[f"{kind}_query_coreset_after_push"] = \
+                time.perf_counter() - t
+        torch.cuda.synchronize()
+        launches = {}
+        for counts in counters.values():         # ... and ends here
+            launches.update(counts)
+        workers = rt.stats()
+    finally:
+        for srv in srvs.values():
+            srv.close()
+    equal = {s: keys_of["process", s] == keys_of["thread", s]
+             for s in ("coreset", "kcg", "coreset_after_kill")}
+    rows = PROC_POOL
+    log("process", replicas=3, pool=PROC_POOL, budget=PROC_BUDGET,
+        child_first_job_s=[s for s, _ in started],
+        child_device_mib=(free0 - free1) / 3 / 2**20,
+        job_bytes_equal_inline=bytes_equal, keys_equal=equal,
+        jobs=jobs["jobs"], job_rows=jobs["rows"],
+        reembed_rows_per_s={"jobs": rows / wall["process_reembed"],
+                            "inline": rows / wall["thread_reembed"]},
+        jobs_in_reembed=jobs["jobs"] - jobs_before["jobs"],
+        wall_s=wall, launches=launches,
+        workers={k: workers[k] for k in ("tasks", "restarts",
+                                         "generations", "deaths")})
+    assert all(bytes_equal), bytes_equal
+    assert all(equal.values()), equal
+    assert workers["restarts"] >= 1 and workers["generations"][0] >= 1, \
+        workers
+    assert launches["greedy_round"] > 0, launches
+    return launches
 
 
 # The reference's prefilter benchmark (benchmarks/table2_pipeline.py,
@@ -2123,8 +2400,11 @@ def run(tune_dir, kernels_only=False) -> int:
     base = run_server(counters)
     launches = base["launches"]
     agreement(base.pop("feats"), dev)
-    sharded_launches = run_sharded(base, counters)
+    sharded_launches, standing_launches = run_sharded(base, counters)
     del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    process_launches = run_process(counters)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2142,6 +2422,8 @@ def run(tune_dir, kernels_only=False) -> int:
     def counts(name):
         by_path = {"picker": picker_launches[name], "image": launches[name],
                    "sharded": sharded_launches.get(name, 0),
+                   "standing": standing_launches[name],
+                   "process": process_launches[name],
                    "text": text_launches[name],
                    "serve": serve_launches[name]}
         return sum(by_path.values()), by_path

@@ -1,4 +1,4 @@
-"""Shard-worker runtime, thread lanes (port of repro/distributed/worker.py).
+"""Shard-worker runtime (port of repro/distributed/worker.py).
 
 Each replica shard runs its embed / ingest / propose work on its own
 supervised worker lane. ``ShardWorkerPool`` duck-types the ``executor.map``
@@ -6,34 +6,39 @@ protocol that ``core.selection.replica_map`` (and every ``select_sharded``
 strategy) fans out on, so the local-propose / global-merge selection is
 the cross-worker protocol unchanged, but each map runs under supervision:
 
-  * one LANE per shard: a dedicated single-thread executor;
+  * one LANE per shard: a dedicated single-thread executor (``thread``
+    backend, the default), paired under the ``process`` backend with an OS
+    process that executes registered picklable jobs such as the canonical
+    embed batch;
   * every task is timed and fed to a ``StragglerMonitor``
     (``distributed.fault_tolerance``); straggler events surface in
     ``stats()``;
   * a ``PhaseFailureInjector`` can deterministically kill a worker at the
-    Nth task of a named phase (``embed`` / ``propose`` / ``ingest``), and
-    ``kill()`` marks a lane dead for non-deterministic tests;
-  * a dead worker (injected kill, hard kill, or a task hung past
-    ``timeout_s``) is detected by the supervising caller, the lane is
-    RESTARTED (generation bump, fresh thread), the caller's
-    ``on_death(shard)`` recovery hook runs (the AL service resets the
-    shard's artifact columns there, forcing a re-embed from raw + content
-    keys), and the task retries with bounded backoff. Selections stay
-    bit-identical to the no-failure run because every retried task is a
-    pure function of pinned inputs.
+    Nth task of a named phase (``embed`` / ``propose`` / ``ingest`` /
+    ``job``), and ``kill()`` hard-kills a lane (SIGKILL for its process);
+  * a dead worker (injected kill, hard kill, a task hung past
+    ``timeout_s``, or a broken process pipe) is detected by the
+    supervising caller, the lane is RESTARTED (generation bump, fresh
+    thread and process), the caller's ``on_death(shard)`` recovery hook
+    runs (the AL service resets the shard's artifact columns there,
+    forcing a re-embed from raw + content keys), and the task retries with
+    bounded backoff. Selections stay bit-identical to the no-failure run
+    because every retried task is a pure function of pinned inputs.
+
+Process lanes start their processes with the ``spawn`` method, never
+``fork``: the parent holds a live CUDA context, which a forked child cannot
+use. A child builds what a job needs on the device its payload names (the
+embed job: the config's ``device``).
 
 Device pinning: on a host with more than one CUDA device, lanes are pinned
 round-robin to ``torch.cuda`` devices and each task runs under
 ``torch.cuda.device(lane.device)``; on one device (or none) nothing is
 pinned.
-
-Process lanes (the reference's ``kind="process"``, which ships registered
-jobs to a spawned OS process per lane) are not ported: asking for them
-raises ``NotImplementedError`` naming ROADMAP A7.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import multiprocessing as mp
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -45,16 +50,16 @@ from repro_torch.distributed.fault_tolerance import (SimulatedFailure,
 
 
 class WorkerDeath(RuntimeError):
-    """A shard worker died (injected, killed, or hung)."""
+    """A shard worker died (injected, killed, hung, or broken pipe)."""
 
 
 class PhaseFailureInjector:
     """Deterministic worker-kill schedule keyed by PHASE of the shard path.
 
-    ``fail_at`` maps a phase name (``embed`` / ``propose`` / ``ingest``) to
-    the 0-based task indices *within that phase* at which the worker
-    executing the task dies (raises ``SimulatedFailure``, which the pool
-    treats exactly like a hard kill: restart + recover + retry). Each
+    ``fail_at`` maps a phase name (``embed`` / ``propose`` / ``ingest`` /
+    ``job``) to the 0-based task indices *within that phase* at which the
+    worker executing the task dies (raises ``SimulatedFailure``, which the
+    pool treats exactly like a hard kill: restart + recover + retry). Each
     scheduled index fires once, so the retried task survives.
     """
 
@@ -76,26 +81,101 @@ class PhaseFailureInjector:
                     f"injected worker death at {phase}[{i}]")
 
 
+# --------------------------------------------------------------------------
+# Registered process jobs: the only work shipped across the process
+# boundary. Jobs are pure functions of their (picklable) payload plus a
+# per-process cache dict for expensive lazy state (e.g. the backend).
+# --------------------------------------------------------------------------
+_JOBS: Dict[str, Callable[[Any, dict], Any]] = {}
+
+
+def register_job(name: str):
+    def deco(fn):
+        _JOBS[name] = fn
+        return fn
+    return deco
+
+
+@register_job("echo")
+def _job_echo(payload, cache):
+    return payload
+
+
+@register_job("embed_batch")
+def _job_embed_batch(payload, cache):
+    """The canonical embed chunk (the service layer's ``_feats_for``
+    contract): preprocess the raw rows, zero-pad to the one canonical
+    ``bs``-row shape, run the feature forward, return the valid rows. Pure
+    in (config, raw bytes): the process rebuilds the backend from the
+    config once (on the config's ``device``) and caches it, so the feature
+    bytes match the in-process path bit for bit (backend construction is
+    deterministic from the config)."""
+    import numpy as np
+
+    from repro_torch.service.backends import make_backend
+    from repro_torch.service.config import ALServiceConfig
+
+    cfg_d = payload["config"]
+    key = repr(sorted(cfg_d.items()))
+    backend = cache.get(key)
+    if backend is None:
+        cfg = ALServiceConfig(**cfg_d)
+        backend = make_backend(cfg.model_name, config=cfg)
+        cache[key] = backend
+    raw = np.asarray(payload["raw"])
+    bs = max(int(payload["bs"]), 1)
+    x = np.asarray(backend.preprocess(raw))
+    n = x.shape[0]
+    if n < bs:
+        x = np.concatenate([x, np.zeros((bs - n,) + x.shape[1:], x.dtype)])
+    return np.asarray(backend.features(x))[:n]
+
+
+def _process_main(conn):
+    """Worker-process loop: execute registered jobs until EOF/None."""
+    cache: dict = {}
+    while True:
+        try:
+            msg = conn.recv()
+        except EOFError:
+            return
+        if msg is None:
+            return
+        name, payload = msg
+        try:
+            conn.send(("ok", _JOBS[name](payload, cache)))
+        except Exception as e:  # ship the failure, keep serving
+            conn.send(("err", f"{type(e).__name__}: {e}"))
+
+
 class _Lane:
-    """One shard's worker lane: a dedicated single-thread executor.
-    ``generation`` bumps on every restart."""
+    """One shard's worker lane: a dedicated single-thread executor, plus a
+    paired OS process under the ``process`` backend. ``generation`` bumps
+    on every restart."""
 
     def __init__(self, index: int, device=None):
         self.index = index
         self.device = device
         self.generation = 0
         self.dead = False
+        self._proc = None
+        self._conn = None
         self._ex = cf.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix=f"shard{index}-g0")
 
     def alive(self) -> bool:
-        return not self.dead
+        if self.dead:
+            return False
+        return self._proc is None or self._proc.is_alive()
 
     def kill(self) -> None:
-        """Mark the lane dead so its next task raises ``WorkerDeath``: a
-        thread cannot be preempted mid-task, so an in-flight task is caught
+        """Hard-kill the lane: SIGKILL the paired process (if any) and mark
+        the lane dead so its next task raises ``WorkerDeath``. A thread
+        cannot be preempted mid-task, so an in-flight thread task is caught
         by the supervisor's timeout instead."""
         self.dead = True
+        if self._proc is not None and self._proc.is_alive():
+            self._proc.kill()
 
     def restart(self) -> None:
         self.generation += 1
@@ -105,12 +185,64 @@ class _Lane:
             max_workers=1,
             thread_name_prefix=f"shard{self.index}-g{self.generation}")
         old.shutdown(wait=False)   # a hung task finishes into the void
+        self._stop_process()
 
     def submit(self, fn, *args) -> cf.Future:
         return self._ex.submit(fn, *args)
 
+    # -- process jobs -----------------------------------------------------
+    def _ensure_process(self):
+        if self._proc is None or not self._proc.is_alive():
+            # spawn, never fork: the parent holds a live CUDA context
+            ctx = mp.get_context("spawn")
+            self._conn, child = ctx.Pipe()
+            self._proc = ctx.Process(target=_process_main, args=(child,),
+                                     daemon=True,
+                                     name=f"shard{self.index}-proc")
+            self._proc.start()
+            child.close()
+        return self._conn
+
+    def run_job(self, name: str, payload, timeout_s: float):
+        """One registered job on the paired process; raises ``WorkerDeath``
+        on a dead or hung process, ``RuntimeError`` on a job error."""
+        if self.dead:
+            raise WorkerDeath(f"lane {self.index} was killed")
+        try:
+            conn = self._ensure_process()
+            conn.send((name, payload))
+            if not conn.poll(timeout_s):
+                raise WorkerDeath(
+                    f"shard {self.index} job {name!r} hung past "
+                    f"{timeout_s}s")
+            status, value = conn.recv()
+        except (EOFError, BrokenPipeError, OSError) as e:
+            raise WorkerDeath(
+                f"shard {self.index} worker process died during "
+                f"{name!r}: {e!r}") from e
+        if status != "ok":
+            raise RuntimeError(f"job {name!r} failed on shard "
+                               f"{self.index}: {value}")
+        return value
+
+    def _stop_process(self):
+        if self._proc is not None:
+            if self._proc.is_alive():
+                try:
+                    self._conn.send(None)
+                except (BrokenPipeError, OSError):
+                    pass
+                self._proc.join(timeout=1.0)
+                if self._proc.is_alive():
+                    self._proc.kill()
+                    self._proc.join(timeout=1.0)
+            self._conn.close()
+            self._proc = None
+            self._conn = None
+
     def shutdown(self):
         self._ex.shutdown(wait=False)
+        self._stop_process()
 
 
 def _lane_devices(n_lanes: int, devices=None) -> List[Any]:
@@ -142,11 +274,7 @@ class ShardWorkerPool:
                  injector: Optional[PhaseFailureInjector] = None,
                  monitor: Optional[StragglerMonitor] = None,
                  devices=None):
-        if kind == "process":
-            raise NotImplementedError(
-                "process worker lanes are not ported yet (ROADMAP queue A7: "
-                "process lanes)")
-        if kind != "thread":
+        if kind not in ("thread", "process"):
             raise ValueError(f"worker backend must be 'thread' or "
                              f"'process', got {kind!r}")
         self.n_shards = max(int(n_shards), 1)
@@ -235,6 +363,45 @@ class ShardWorkerPool:
                     f"{attempt} attempts: {death}") from death
             time.sleep(self.backoff_s * attempt)
             fut = lane.submit(self._wrap, phase, fn, item, lane)
+
+    # -- process jobs ------------------------------------------------------
+    def run_job(self, shard: int, name: str, payload,
+                on_death: Optional[Callable] = None):
+        """A registered job on the shard's paired worker process, under the
+        same supervision as tasks (injection phase ``"job"``, straggler
+        timing, restart + bounded retry). The thread backend runs jobs
+        inline, for parity."""
+        shard = shard % self.n_shards
+        lane = self._lanes[shard]
+        attempt = 0
+        while True:
+            try:
+                if self.injector is not None:
+                    self.injector.maybe_fail("job")
+                t0 = time.perf_counter()
+                if self.kind == "process":
+                    out = lane.run_job(name, payload, self.timeout_s)
+                else:
+                    out = _JOBS[name](payload, {})
+                with self._lock:
+                    self.tasks += 1
+                    self.monitor.observe(self.tasks,
+                                         time.perf_counter() - t0)
+                return out
+            except (SimulatedFailure, WorkerDeath) as e:
+                death = e
+            with self._lock:
+                self.restarts += 1
+                self.deaths.append(f"job/{name}/shard{shard}: {death}")
+            lane.restart()
+            if on_death is not None:
+                on_death(shard)
+            attempt += 1
+            if attempt > self.max_retries:
+                raise WorkerDeath(
+                    f"shard {shard} job {name!r} failed after "
+                    f"{attempt} attempts: {death}") from death
+            time.sleep(self.backoff_s * attempt)
 
     # -- probes / chaos ----------------------------------------------------
     def kill(self, shard: int) -> None:

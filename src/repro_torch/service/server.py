@@ -21,8 +21,10 @@ Query path:
 Replica sharding (config ``replicas: N``): each session's pool is
 hash-partitioned by content key across N shards, each with its own
 artifact columns. Artifacts are built per shard on the shard-worker lanes
-(``distributed.worker``, thread lanes: supervised, straggler-timed,
-restartable), every query strategy runs its replica-sharded path (local
+(``distributed.worker``: supervised, straggler-timed, restartable; with
+``worker_backend: process`` each lane's re-embeds run as ``embed_batch``
+jobs in a spawned process of its own, bit for bit the in-process bytes),
+every query strategy runs its replica-sharded path (local
 propose, global merge — core.selection), and selections are bit-identical
 to ``replicas: 1``. ``prefilter: true`` gates the uncertainty top-k and the
 unweighted k-center lineage through per-shard centroid summaries
@@ -30,18 +32,24 @@ unweighted k-center lineage through per-shard centroid summaries
 persisted min-dist vectors (``KCenterStateCache``); both ride the sharded
 path, so either routes a query through it even at ``replicas: 1``.
 
+Standing queries (``standing_register`` / ``_poll`` / ``_cancel``): a
+registered ``(budget, strategy)`` subscription re-emits after every
+integrated ingest batch (on the ingest worker) and lazily at a poll after
+sync mutations; every emit is the exact one-shot ``query()`` selection at
+that moment. A coreset emit over near-duplicate deltas replays the stored
+selection against just the delta rows (``_standing_replay``): budget - 1
+fused rounds on the device and one readback, O(delta) instead of
+O(pool).
+
 The server computes on ``config.device``: "cuda" (the default) or "cpu".
 A cuda server on a machine without a GPU raises; it never carries on on
 the CPU. Random draws go through the draw seam (``common.rng``); ``draws=``
 swaps in another implementation of it.
-
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): standing queries (A5, standing queries) and the process worker
-backend (A7, process lanes).
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import os
 import shutil
 import tempfile
@@ -83,10 +91,6 @@ def _strategy_seed(strategy: str, round_index: int) -> int:
     many candidates are live and of the order they execute in — the property
     that makes parallel PSHEA bit-identical to the serial schedule."""
     return zlib.crc32(f"{strategy}/{round_index}".encode())
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class PushTicket:
@@ -134,6 +138,69 @@ class PushTicket:
                     f"push not integrated within {timeout}s (ingest queue "
                     f"busy or stalled); flush() is the hard barrier"
                 ) from None
+
+
+class StandingQuery:
+    """One registered ``(budget, strategy)`` subscription on a session.
+
+    Every emit is the EXACT selection a one-shot ``query()`` would return
+    over the pool at that moment (emits carry added/removed diffs against
+    the previous emit), so the final emit after the stream settles equals
+    a one-shot query over the final pool. Between emits the replay engine
+    (``ALSession._standing_replay``) keeps the previous selection plus the
+    per-slot merged winner scores captured by ``replica_greedy_select``;
+    when no delta row beats any recorded winner, the selection is provably
+    unchanged and the emit streams only the delta rows.
+
+    All mutable fields are guarded by ``lock``; an emit holds it end to
+    end, so concurrent triggers (ingest worker + a poll) serialize and the
+    second sees fresh versions and stays quiet.
+    """
+
+    def __init__(self, qid: str, budget: int, strategy: str, rng_seed: int):
+        self.qid = qid
+        self.budget = int(budget)
+        self.strategy = strategy
+        self.rng_seed = int(rng_seed)
+        self.lock = threading.RLock()
+        self.emits: List[dict] = []
+        self.seq = 0
+        self.cancelled: Optional[str] = None      # cancellation reason
+        self.error: Optional[BaseException] = None
+        # -- replay state (valid when the last emit used the full budget) --
+        self.keys: Optional[List[str]] = None     # last emitted selection
+        self.values: Optional[List[float]] = None  # per-slot winner scores
+        self.n_unlabeled = 0      # unlabeled-list length at the last emit
+        self.pool_version = -1
+        self.labels_version = -1
+        self.head_version = -1
+
+
+def replay_holds(x: torch.Tensor, mind: torch.Tensor,
+                 centers: torch.Tensor, values: Sequence[float]) -> bool:
+    """Whether a stored k-center selection survives appended rows.
+
+    ``x`` (n, d) are the appended rows, ``mind`` (n,) their min sq-dists to
+    the warm-start centers, ``centers`` (budget - 1, d) the stored picks in
+    slot order, ``values`` the stored per-slot winner scores. Slot j is
+    displaced iff the best appended row's score after folding centers
+    0..j-1 STRICTLY beats ``values[j]`` (a tie loses on the higher global
+    index every appended row has). The reference folds one round a slot
+    and reads each round's max back; here every round's max stays on the
+    device (a fused round leaves it in its output), the ``budget`` maxima
+    come back in one copy, and the first displaced slot decides — the same
+    decision, since a round after the first displaced slot changes nothing
+    the answer reads. ``values`` are ``float()`` of fp32 scores, so the
+    fp32 comparison is exact."""
+    from repro_torch.kernels.pairwise import ops
+    no_mask = torch.full((1,), -1, dtype=torch.int32, device=x.device)
+    best = [ops.masked_weighted_score(mind).max()]
+    for j in range(centers.shape[0]):
+        mind, _, lv = ops.greedy_round(x, mind, centers[j:j + 1], no_mask)
+        best.append(lv)
+    maxima = torch.stack(best).cpu()           # the emit's one readback
+    want = torch.tensor(list(values)[:len(best)], dtype=torch.float32)
+    return not bool((maxima > want).any())
 
 
 class ALSession:
@@ -195,6 +262,17 @@ class ALSession:
         # persisted k-center strategy state (strategy_state_cache): per-
         # shard min-dist vectors delta-extended on push, dropped on retrain
         self._kstate = KCenterStateCache()
+        # -- standing queries -------------------------------------------
+        # qid -> StandingQuery; the ingest worker emits after every
+        # integrated batch, polls emit lazily for sync mutations
+        self._standing: Dict[str, StandingQuery] = {}
+        self._standing_lock = threading.Lock()
+        self.standing_emits = 0
+        self.standing_replay_emits = 0
+        self.standing_full_emits = 0
+        # replay work: fused rounds launched and device-to-host readbacks
+        self.standing_replay_rounds = 0
+        self.standing_replay_readbacks = 0
         # -- async ingest queue -----------------------------------------
         self._ingest_queue: List[tuple] = []
         self._ingest_cv = threading.Condition()
@@ -356,6 +434,12 @@ class ALSession:
                         except BaseException as one_err:
                             err = one_err
                             fut.set_exception(one_err)
+            # standing-query emits ride the ingest worker: every integrated
+            # batch re-emits for each live subscription (still marked busy,
+            # so flush()-takers observe the emit as part of the drain).
+            # _standing_refresh never raises — an emit failure parks on the
+            # query for the next poll to surface
+            self._notify_standing()
             with self._ingest_cv:
                 self._ingest_busy = False
                 self.ingest_batches += 1
@@ -422,7 +506,13 @@ class ALSession:
 
     def close(self) -> None:
         """Stop the ingest worker (drains what is already queued) and
-        remove the session's spill directory, if any."""
+        remove the session's spill directory, if any. Standing queries are
+        cancelled FIRST, so the draining worker integrates the remaining
+        pushes without emitting to a subscription whose owner is gone."""
+        with self._standing_lock:
+            for sq in self._standing.values():
+                if sq.cancelled is None:
+                    sq.cancelled = "session closed"
         with self._ingest_cv:
             self._ingest_stop = True
             self._ingest_cv.notify_all()
@@ -490,7 +580,11 @@ class ALSession:
             for s in range(0, len(missing), bs):
                 grp = missing[s:s + bs]
                 raw = np.stack([np.asarray(self._raw[k]) for k in grp])
-                for k, f in zip(grp, self.server._embed_chunk(raw, bs)):
+                feats = self.server._embed_chunk(
+                    raw, bs, shard_hint=(replica_of(grp[0], self.replicas)
+                                         if self.replicas > 1 else 0),
+                    backend=self.server.backend)
+                for k, f in zip(grp, feats):
                     f = np.asarray(f)
                     cache.put(k, f)
                     out[k] = f
@@ -663,7 +757,8 @@ class ALSession:
                                 target_accuracy or config.target_accuracy,
                                 workers)
 
-    def _query_one(self, unlabeled, budget, strategy, rng_seed) -> dict:
+    def _query_one(self, unlabeled, budget, strategy, rng_seed,
+                   _capture=None) -> dict:
         if (self.replicas > 1 or self._prefilter_cfg is not None
                 or self._use_kstate(strategy)):
             # the prefilter and the persisted k-center state live in the
@@ -671,7 +766,7 @@ class ALSession:
             # step), so either routes through them even at replicas=1 —
             # the 1-shard case of the same bit-identical merge
             return self._query_one_sharded(unlabeled, budget, strategy,
-                                           rng_seed)
+                                           rng_seed, _capture=_capture)
         strat = get_strategy(strategy)
         feats_l, probs_l, rows_l, index = self._artifact_snapshot()
         feats_all, probs_all, n_rows = feats_l[0], probs_l[0], rows_l[0]
@@ -717,7 +812,7 @@ class ALSession:
                     and strategy in _WARM_STATE_STRATEGIES)
 
     def _query_one_sharded(self, unlabeled, budget, strategy,
-                           rng_seed) -> dict:
+                           rng_seed, _capture=None) -> dict:
         """One strategy over the replica-sharded pool: per-shard views of
         the unlabeled rows (global order preserved inside each shard) feed
         the strategy's sharded path — selections bit-identical to
@@ -770,7 +865,7 @@ class ALSession:
             state = self._kstate.prepare(
                 feats_l=feats_l, rows_l=rows_l, lineages=lineages,
                 head_version=self.head_version, locs=lab, centers=centers,
-                device=dev)
+                capture=_capture, device=dev)
         idx = np.asarray(strat.select_sharded(
             rnglib.key(rng_seed, self.server.draws), budget, shards,
             labeled_embeddings=labeled_emb,
@@ -834,6 +929,214 @@ class ALSession:
                 "history": result.history,
                 "budget_spent": result.budget_spent}
 
+    # --------------------------------------------------- standing queries --
+    def standing_register(self, budget: int, strategy: Optional[str] = None,
+                          rng_seed: int = 0) -> dict:
+        """Register a ``(budget, strategy)`` subscription: one initial emit
+        now, then the ingest worker re-emits after every integrated batch
+        and ``standing_poll`` re-emits lazily after sync mutations. Every
+        emit is the exact one-shot ``query()`` selection at that moment."""
+        strategy = strategy or self.server.config.strategy
+        if strategy == "auto":
+            raise ValueError(
+                "standing queries need a concrete strategy (the PSHEA "
+                "auto agent consumes oracle labels per round)")
+        get_strategy(strategy)            # unknown names fail at register
+        if int(budget) < 1:
+            raise ValueError("standing query budget must be >= 1")
+        self.flush()
+        sq = StandingQuery(uuid.uuid4().hex[:12], budget, strategy,
+                           rng_seed)
+        with self._standing_lock:
+            self._standing[sq.qid] = sq
+        self._standing_refresh(sq)
+        with sq.lock:
+            if sq.error is not None:
+                err = sq.error
+                with self._standing_lock:
+                    self._standing.pop(sq.qid, None)
+                raise RuntimeError(
+                    "standing query initial emit failed") from err
+            return {"query_id": sq.qid, "seq": sq.seq,
+                    "keys": list(sq.keys or [])}
+
+    def standing_cancel(self, query_id: str,
+                        reason: str = "cancelled by client") -> None:
+        """Cancel a subscription: later emits are suppressed (including
+        from an ingest worker mid-drain) and polls raise."""
+        sq = self._standing_query(query_id)
+        with sq.lock:
+            if sq.cancelled is None:
+                sq.cancelled = reason
+
+    def standing_poll(self, query_id: str, since: int = 0) -> dict:
+        """Emits with ``seq > since`` plus the current cumulative
+        selection. Takes the flush() barrier FIRST, so a dead ingest
+        worker or a failed async push raises here ticket-style instead of
+        the poll serving a stale selection; sync mutations since the last
+        emit trigger a fresh emit on this thread."""
+        sq = self._standing_query(query_id)
+        if sq.cancelled is not None:
+            raise RuntimeError(
+                f"standing query {query_id} cancelled: {sq.cancelled}")
+        self.flush()
+        self._standing_refresh(sq)
+        with sq.lock:
+            if sq.error is not None:
+                raise RuntimeError(
+                    "standing query emit failed") from sq.error
+            emits = [dict(e) for e in sq.emits if e["seq"] > int(since)]
+            return {"query_id": query_id, "seq": sq.seq,
+                    "keys": list(sq.keys or []), "emits": emits,
+                    "pool_version": sq.pool_version,
+                    "labels_version": sq.labels_version,
+                    "head_version": sq.head_version}
+
+    def _standing_query(self, query_id: str) -> StandingQuery:
+        with self._standing_lock:
+            sq = self._standing.get(query_id)
+        if sq is None:
+            raise KeyError(f"unknown standing query {query_id!r}")
+        return sq
+
+    def _notify_standing(self) -> None:
+        """Ingest-worker hook: re-emit every live subscription after an
+        integrated batch. Emit failures park on the query (``sq.error``),
+        never kill the worker."""
+        with self._standing_lock:
+            sqs = [sq for sq in self._standing.values()
+                   if sq.cancelled is None]
+        for sq in sqs:
+            self._standing_refresh(sq)
+
+    def _standing_refresh(self, sq: StandingQuery) -> None:
+        """Emit iff the session moved since ``sq``'s last emit. Never
+        raises: failures park on ``sq.error`` for the next poll."""
+        if sq.cancelled is not None:
+            return
+        with sq.lock:
+            if sq.cancelled is not None:
+                return
+            try:
+                self._standing_emit_locked(sq)
+                sq.error = None
+            except Exception as e:
+                sq.error = e
+
+    def _standing_emit_locked(self, sq: StandingQuery) -> None:
+        """One emit attempt; caller holds ``sq.lock``. Replays the stored
+        selection against just the delta rows when provably unchanged,
+        otherwise runs the full (equal to ``query()``) path."""
+        with self._lock:
+            unlabeled = [k for k in self._keys if k not in self._labels]
+            pv, lv, hv = (self.pool_version, self.labels_version,
+                          self.head_version)
+        if sq.keys is not None and (pv, lv, hv) == (
+                sq.pool_version, sq.labels_version, sq.head_version):
+            return                           # nothing moved: stay quiet
+        keys = self._standing_replay(sq, unlabeled, lv, hv)
+        if keys is not None:
+            mode, values = "replay", sq.values
+        else:
+            cap: List[float] = []
+            res = self._query_one(unlabeled, sq.budget, sq.strategy,
+                                  sq.rng_seed, _capture=cap)
+            keys, mode = res["keys"], "full"
+            values = (cap if len(cap) == sq.budget
+                      and len(keys) == sq.budget else None)
+        prev = sq.keys or []
+        prev_set, new_set = set(prev), set(keys)
+        sq.seq += 1
+        sq.emits.append({
+            "seq": sq.seq, "mode": mode,
+            "pool_version": pv, "labels_version": lv, "head_version": hv,
+            "keys": list(keys),
+            "added": [k for k in keys if k not in prev_set],
+            "removed": [k for k in prev if k not in new_set]})
+        sq.keys = list(keys)
+        sq.values = values
+        sq.n_unlabeled = len(unlabeled)
+        sq.pool_version, sq.labels_version, sq.head_version = pv, lv, hv
+        with self._standing_lock:
+            self.standing_emits += 1
+            if mode == "replay":
+                self.standing_replay_emits += 1
+            else:
+                self.standing_full_emits += 1
+
+    def _standing_replay(self, sq: StandingQuery, unlabeled, lv,
+                         hv) -> Optional[List[str]]:
+        """O(delta) emit: prove the stored selection is unchanged over the
+        grown pool by streaming ONLY the delta rows, or return None for an
+        honest full recompute.
+
+        Eligibility: unweighted warm-started coreset with no prefilter, a
+        full-budget previous emit and unchanged labels/head — then the
+        previous unlabeled list is an exact prefix of the current one
+        (append-only keys), every old row's min-dist trajectory is
+        unchanged, and the stored per-slot winner scores remain the max
+        over all old rows. ``replay_holds`` then decides the emit with
+        budget - 1 fused rounds over the delta rows on the server's
+        device."""
+        cfg = self.server.config
+        if not (cfg.standing_replay and cfg.strategy_state_cache
+                and cfg.artifact_cache):
+            return None
+        if sq.strategy != "coreset" or self._prefilter_cfg is not None:
+            return None
+        if sq.keys is None or sq.values is None:
+            return None
+        if (sq.labels_version, sq.head_version) != (lv, hv):
+            return None
+        if len(sq.keys) != sq.budget or len(sq.values) != sq.budget:
+            return None
+        n_prev = sq.n_unlabeled
+        if len(unlabeled) < n_prev:
+            return None
+        delta = unlabeled[n_prev:]
+        if not delta:
+            return list(sq.keys)
+        feats_l, _, rows_l, index, _, _, lineages = \
+            self._artifact_snapshot_ex()
+
+        def covered(k):
+            e = index.get(k)
+            return e is not None and e[1] < rows_l[e[0]]
+
+        if not all(covered(k) for k in delta):
+            return None                      # racing snapshot: full path
+        lab = [index[k] for k in self._labeled_keys if covered(k)]
+        if not lab:
+            return None
+        dev = self.server.device
+        state = self._kstate.prepare(
+            feats_l=feats_l, rows_l=rows_l, lineages=lineages,
+            head_version=self.head_version, locs=lab,
+            centers=np.stack([feats_l[si][li] for si, li in lab]),
+            device=dev)
+        if state is None:
+            return None
+        if not all(covered(k) for k in sq.keys):
+            return None
+        # the stored picks the replay folds (the last one never is), the
+        # delta rows' persisted min-dists and their embeddings: O(delta)
+        # gathers, each copied to the device once
+        sel = np.asarray([feats_l[si][li] for si, li in
+                          (index[k] for k in sq.keys[:-1])],
+                         np.float32).reshape(-1, self.server.backend.feat_dim)
+        drows = [index[k] for k in delta]
+        mj = torch.as_tensor(np.asarray(
+            [state.minds[si][li] for si, li in drows], np.float32),
+            device=dev)
+        ej = torch.as_tensor(np.stack([feats_l[si][li] for si, li in drows]),
+                             dtype=torch.float32, device=dev)
+        held = replay_holds(ej, mj, torch.as_tensor(
+            sel, dtype=torch.float32, device=dev), sq.values)
+        with self._standing_lock:
+            self.standing_replay_rounds += sq.budget - 1
+            self.standing_replay_readbacks += 1
+        return list(sq.keys) if held else None
+
     # -------------------------------------------------------------- misc --
     def stats(self) -> dict:
         with self._ingest_cv:
@@ -890,7 +1193,19 @@ class ALSession:
                 "strategy_state": {
                     "enabled": self.server.config.strategy_state_cache,
                     **self._kstate.stats()},
+                "standing_queries": self._standing_stats(),
                 "pipeline": self.last_pipeline_stats}
+
+    def _standing_stats(self) -> dict:
+        with self._standing_lock:
+            live = sum(1 for sq in self._standing.values()
+                       if sq.cancelled is None)
+            return {"registered": len(self._standing), "live": live,
+                    "emits": self.standing_emits,
+                    "replay_emits": self.standing_replay_emits,
+                    "full_emits": self.standing_full_emits,
+                    "replay_rounds": self.standing_replay_rounds,
+                    "replay_readbacks": self.standing_replay_readbacks}
 
 
 class ALServer:
@@ -909,9 +1224,6 @@ class ALServer:
         if config is None:
             config = (ALServiceConfig.from_yaml(config_path)
                       if config_path else ALServiceConfig())
-        if config.worker_backend == "process":
-            raise _not_ported("the process worker backend",
-                              "A7: process lanes")
         self.device = torch.device(str(config.device).lower())
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -919,6 +1231,10 @@ class ALServer:
                 f"is available; set device: cpu to run on the CPU")
         self.config = config
         self.draws = draws if draws is not None else rnglib.DEFAULT_DRAWS
+        # process-backed embed jobs rebuild the backend from the config in
+        # the worker process; only valid when OUR backend came from the
+        # same config (a hand-constructed backend can't be reproduced)
+        self._backend_from_config = backend is None
         self.backend = (backend if backend is not None
                         else make_backend(config.model_name, config=config))
         self.cache = EmbeddingCache(config.cache_bytes,
@@ -946,10 +1262,11 @@ class ALServer:
 
     def shard_runtime(self) -> Optional[ShardWorkerPool]:
         """The shard-worker runtime (distributed.worker): one supervised
-        thread lane per replica shard — straggler-timed, failure-
-        injectable, restartable, pinned round-robin to CUDA devices on a
-        multi-device host. Lazy; None at replicas=1 (the serial path needs
-        no workers)."""
+        lane per replica shard (``worker_backend``: a thread, or a thread
+        paired with a spawned process for embed jobs) — straggler-timed,
+        failure-injectable, restartable, pinned round-robin to CUDA
+        devices on a multi-device host. Lazy; None at replicas=1 (the
+        serial path needs no workers)."""
         if self.config.replicas <= 1:
             return None
         with self._shard_pool_lock:
@@ -1049,15 +1366,27 @@ class ALServer:
             batcher.close()
         return pipe.stats()
 
-    def _embed_chunk(self, raw: np.ndarray, bs: int) -> np.ndarray:
-        """One canonical embed chunk: preprocess, zero-pad to the one
-        ``bs``-row shape, feature forward."""
-        x = np.asarray(self.backend.preprocess(raw))
+    def _embed_chunk(self, raw: np.ndarray, bs: int, *, shard_hint: int,
+                     backend: FeatureBackend) -> np.ndarray:
+        """One canonical embed chunk (preprocess, zero-pad to the one
+        ``bs``-row shape, feature forward). On a process-backed worker
+        runtime the chunk ships to the shard's paired worker process as the
+        registered ``embed_batch`` job — the backend there is rebuilt from
+        the SAME config, so the bytes match the in-process path bit for
+        bit; any other configuration computes inline."""
+        rt = self.shard_runtime()
+        if (rt is not None and rt.kind == "process"
+                and self._backend_from_config):
+            feats = rt.run_job(shard_hint, "embed_batch", {
+                "config": dataclasses.asdict(self.config),
+                "raw": raw, "bs": bs})
+            return np.asarray(feats)
+        x = np.asarray(backend.preprocess(raw))
         n = x.shape[0]
-        if n < bs:
+        if n < bs:           # zero-pad to the one canonical shape
             x = np.concatenate(
                 [x, np.zeros((bs - n,) + x.shape[1:], x.dtype)])
-        return np.asarray(self.backend.features(x))[:n]
+        return np.asarray(backend.features(x))[:n]
 
     def _infer_batch(self, stacked: np.ndarray, n_valid: int):
         feats = self.backend.features(stacked)
@@ -1132,10 +1461,20 @@ class ALServer:
         return self.session(session).query(budget, strategy, target_accuracy,
                                            rng_seed, pshea_workers)
 
-    def standing_register(self, *args, **kwargs):
-        raise _not_ported("standing queries", "A5: standing queries")
+    def standing_register(self, budget: int, strategy: Optional[str] = None,
+                          rng_seed: int = 0,
+                          session: Optional[str] = None) -> dict:
+        return self.session(session).standing_register(
+            budget, strategy, rng_seed)
 
-    standing_cancel = standing_poll = standing_register
+    def standing_cancel(self, query_id: str,
+                        reason: str = "cancelled by client",
+                        session: Optional[str] = None) -> None:
+        return self.session(session).standing_cancel(query_id, reason)
+
+    def standing_poll(self, query_id: str, since: int = 0,
+                      session: Optional[str] = None) -> dict:
+        return self.session(session).standing_poll(query_id, since)
 
     @property
     def last_pipeline_stats(self):

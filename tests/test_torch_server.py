@@ -261,18 +261,37 @@ def test_async_push_flush_and_sessions(pair):
 
 
 def test_unported_paths_raise_naming_their_queue(pair):
-    """Standing queries (the rest of A5) and process lanes (A7) still
-    raise; replica sharding and the prefilter construct and serve."""
-    port_srv = pair[1]
-    with pytest.raises(NotImplementedError, match="A5: standing queries"):
-        port_srv.standing_register(budget=3, strategy="coreset")
-    with pytest.raises(NotImplementedError, match="A7: process lanes"):
-        ALServer(ALServiceConfig(device="cpu", worker_backend="process"),
-                 backend=port_srv.backend)
+    """Standing queries (A5) and process lanes (A7) no longer raise (the
+    name is the one this check has always had): a standing query over TCP
+    emits the one-shot coreset keys, a ``worker_backend: process`` server
+    constructs and serves; replica sharding and the prefilter construct
+    and serve."""
+    port_srv, port = pair[1], pair[5]
+    cli = ALClient(url=f"127.0.0.1:{port}", session="new")
+    try:
+        xs, ys = image_pool(24, seed=31)
+        keys = cli.push_data(list(xs))
+        cli.label(keys[:4], [int(y) for y in ys[:4]])
+        reg = cli.standing_register(budget=3, strategy="coreset")
+        assert reg["keys"] == cli.query(budget=3, strategy="coreset")["keys"]
+        assert cli.standing_poll(reg["query_id"])["seq"] == reg["seq"]
+        cli.standing_cancel(reg["query_id"])
+    finally:
+        cli.close()
+    xs, _ = image_pool(12, seed=32)
     for cfg in (ALServiceConfig(device="cpu", replicas=2),
-                ALServiceConfig(device="cpu", prefilter=True)):
+                ALServiceConfig(device="cpu", prefilter=True),
+                ALServiceConfig(device="cpu", replicas=2, batch_size=8,
+                                worker_backend="process", cache_bytes=1,
+                                worker_timeout_s=120.0)):
         srv = ALServer(cfg, backend=port_srv.backend)
-        srv.close()
+        try:
+            srv.push_data(list(xs))
+            assert len(srv.query(budget=3, strategy="kcg")["keys"]) == 3
+            assert srv.stats()["workers"]["backend"] == (
+                cfg.worker_backend if cfg.replicas > 1 else "inline")
+        finally:
+            srv.close()
 
 
 @pytest.mark.parametrize("knob", ["artifact_cache", "incremental_artifacts"])

@@ -1,9 +1,12 @@
-"""The port's shard-worker runtime, thread lanes (``distributed.worker``):
-supervision, failure injection, kill-recovery bit-identity against the AL
-service, and the copied fault-tolerance helpers — twins of
-tests/test_worker_runtime.py without the process lanes, which are not
-ported (ROADMAP A7) and must say so.
+"""The port's shard-worker runtime (``distributed.worker``): supervision,
+failure injection, kill-recovery bit-identity against the AL service, the
+copied fault-tolerance helpers, and the process lanes (spawned children
+running registered jobs) — twins of tests/test_worker_runtime.py.
+
+The process tests spawn real children (about 2 s each here, importing
+torch); every pool they build is shut down, which stops its children.
 """
+import dataclasses
 import time
 
 import numpy as np
@@ -12,6 +15,7 @@ import pytest
 from repro_torch.distributed.fault_tolerance import (SimulatedFailure,
                                                      StragglerMonitor,
                                                      supervise)
+from repro_torch.data.synthetic import image_pool
 from repro_torch.distributed.worker import (PhaseFailureInjector,
                                             ShardWorkerPool, WorkerDeath,
                                             _lane_devices)
@@ -113,8 +117,16 @@ def test_kill_marks_lane_dead_probe_detects_next_task_recovers():
 
 
 def test_process_lanes_are_not_ported_and_devices_pin_round_robin():
-    with pytest.raises(NotImplementedError, match="A7: process lanes"):
-        ShardWorkerPool(2, kind="process")
+    """Process lanes construct (ROADMAP A7's process lanes are ported; the
+    name is the one this check has always had); an unknown kind raises;
+    lanes pin round robin to CUDA devices on a multi-device host."""
+    pool = ShardWorkerPool(2, kind="process")
+    try:
+        st = pool.stats()
+        assert st["backend"] == "process" and st["lanes"] == 2
+        assert pool.probe() == [True, True]        # no process spawned yet
+    finally:
+        pool.shutdown()
     with pytest.raises(ValueError, match="thread"):
         ShardWorkerPool(2, kind="fiber")
     assert _lane_devices(3, devices=["cuda:0"]) == [None, None, None]
@@ -226,3 +238,143 @@ def test_recovery_reembeds_from_raw_when_cache_evicted(clean_selection):
         clean_selection["coreset"]
     assert srv.stats()["worker_recoveries"] >= 1
     srv.close()
+
+
+# ---------------------------------------------------------------------------
+# process-backed lanes (real OS children, spawned)
+# ---------------------------------------------------------------------------
+
+def test_process_lane_kill_probe_restart_roundtrip():
+    pool = ShardWorkerPool(2, kind="process", timeout_s=60.0, backoff_s=0.0)
+    try:
+        assert pool.run_job(0, "echo", {"v": 42}) == {"v": 42}
+        pool.kill(0)
+        deadline = time.monotonic() + 5.0
+        while pool.probe()[0] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert pool.probe() == [False, True]
+        assert pool.run_job(0, "echo", 7) == 7     # restarted + retried
+        st = pool.stats()
+        assert st["restarts"] >= 1 and st["generations"][0] >= 1
+        # a job that raises in the child is a job error, not a death
+        with pytest.raises(RuntimeError, match="failed on shard 1"):
+            pool.run_job(1, "no_such_job", None)
+        assert pool.stats()["restarts"] == st["restarts"]
+        assert pool.run_job(1, "echo", "alive") == "alive"
+    finally:
+        pool.shutdown()
+
+
+def test_injected_job_death_retries_then_exhausts():
+    """An injected death in phase ``"job"`` restarts the lane and retries
+    (the retried job runs in a fresh child); a death on every attempt
+    raises ``WorkerDeath`` after ``max_retries`` retries."""
+    inj = PhaseFailureInjector({"job": [0]})
+    pool = ShardWorkerPool(1, kind="process", injector=inj, timeout_s=60.0,
+                           backoff_s=0.0)
+    deaths = []
+    try:
+        assert pool.run_job(0, "echo", 3, on_death=deaths.append) == 3
+        st = pool.stats()
+        assert st["restarts"] == 1 and st["generations"] == [1]
+        assert deaths == [0] and inj.fired == [("job", 0)]
+    finally:
+        pool.shutdown()
+    inj = PhaseFailureInjector({"job": [0, 1, 2]})
+    pool = ShardWorkerPool(1, kind="process", injector=inj, max_retries=2,
+                           backoff_s=0.0)
+    try:
+        with pytest.raises(WorkerDeath, match="after 3 attempts"):
+            pool.run_job(0, "echo", 1)
+        assert pool.stats()["restarts"] == 3
+    finally:
+        pool.shutdown()
+
+
+def _process_cfg(kind, **kw):
+    # cache_bytes=1 forces every artifact build through the re-embed
+    # path, which is what ships to the worker processes
+    return ALServiceConfig(device="cpu", replicas=2, batch_size=8,
+                           worker_backend=kind, cache_bytes=1,
+                           worker_timeout_s=120.0, worker_backoff_s=0.0,
+                           model_name="synthetic_cnn", **kw)
+
+
+def test_process_backend_selections_match_thread_backend():
+    sel, jobs = {}, {}
+    for kind in ("thread", "process"):
+        srv = ALServer(config=_process_cfg(kind))
+        try:
+            keys = srv.push_data(list(_pool(24, seed=3)))
+            srv.label(keys[:4], [0, 1, 0, 1])
+            srv.train_and_eval()
+            sel[kind] = [srv.query(5, strategy=s, rng_seed=3)["keys"]
+                         for s in ("coreset", "kcg")]
+            st = srv.stats()["workers"]
+            assert st["backend"] == kind
+            jobs[kind] = st["tasks"]
+        finally:
+            srv.close()
+    assert sel["process"] == sel["thread"]
+    # the process server ran its re-embeds as jobs, on top of the tasks
+    assert jobs["process"] > jobs["thread"]
+
+
+def test_embed_batch_job_bytes_equal_inline_embed():
+    """The ``embed_batch`` job's feature bytes equal the in-process
+    ``_embed_chunk`` bytes for the same chunk (full and ragged)."""
+    xs, _ = image_pool(13, seed=5)
+    inline = ALServer(config=_process_cfg("thread"))
+    proc = ALServer(config=_process_cfg("process"))
+    try:
+        rt = proc.shard_runtime()
+        for raw in (xs[:8], xs[8:]):
+            want = inline._embed_chunk(raw, 8, shard_hint=0,
+                                       backend=inline.backend)
+            got = rt.run_job(1, "embed_batch", {
+                "config": dataclasses.asdict(proc.config), "raw": raw,
+                "bs": 8})
+            assert got.dtype == want.dtype and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(
+                proc._embed_chunk(raw, 8, shard_hint=0,
+                                  backend=proc.backend), want)
+        assert rt.stats()["tasks"] == 4          # every chunk was a job
+    finally:
+        inline.close()
+        proc.close()
+
+
+def test_process_lane_killed_mid_query_recovers_same_keys():
+    """SIGKILL lane 0's child while a query's re-embeds are in flight:
+    the job retries in a fresh child and the query returns the keys of a
+    run that lost no worker."""
+    xs = _pool(30, seed=9)
+    keys_of = {}
+    for kill in (False, True):
+        srv = ALServer(config=_process_cfg("process"))
+        try:
+            keys = srv.push_data(list(xs[:24]))
+            srv.label(keys[:4], [0, 1, 0, 1])
+            srv.train_and_eval()
+            srv.push_data(list(xs[24:]))
+            rt = srv.shard_runtime()
+            if kill:
+                run_job = rt.run_job
+
+                def killing(shard, name, payload, on_death=None):
+                    if shard == 0 and rt.stats()["restarts"] == 0:
+                        rt.kill(0)
+                    return run_job(shard, name, payload, on_death)
+
+                rt.run_job = killing
+            keys_of[kill] = srv.query(5, strategy="coreset",
+                                      rng_seed=4)["keys"]
+            st = rt.stats()
+            if kill:
+                assert st["restarts"] >= 1 and st["generations"][0] >= 1
+            else:
+                assert st["restarts"] == 0
+        finally:
+            srv.close()
+    assert keys_of[True] == keys_of[False]
