@@ -21,7 +21,10 @@ Phases, one line each (any failure raises and exits non-zero):
             shape; the bf16 tensor-core kernel over 96 masks/shapes (D 16,
             64, 96 padded, 128; causal or not; row bytes independent of
             the rows launched) and at the serve path's prefill shape
-            (bf16 out), timed there;
+            (bf16 out), timed there; B3 (bf16), B6 and B4 also held and
+            timed at the other served archs' shapes (``at_serve_shapes``:
+            prefill H/KH 48/8, 40/10, 20/20, 16/16; their decode steps;
+            scores at 16 x 92,672, 100,352, 152,064 and 102,400);
             gated_greedy_round at 50,000 x 512, n_block 256 (ragged last
             block): live share all / ~10 % / none, pending zeros and
             seeded, R 1 and 8, weights or not, planted ties across two
@@ -40,7 +43,8 @@ Phases, one line each (any failure raises and exits non-zero):
             reference's four cases and the qwen3-8b decode shape (B 16,
             cache 1,024, cur_len 577, bf16, window none and 128; bytes
             equal across cache capacities 640 and 1,024 and across
-            runs), timed there warm in L2, L2-cold over rotating caches
+            runs, as at each other served arch's decode shape), timed
+            there warm in L2, L2-cold over rotating caches
             and by torch.profiler (the kernels' own device time), with
             the host's time to enqueue a call; greedy_round also timed
             at the prefilter's fold shape (256 x 512, R = 1).
@@ -146,9 +150,11 @@ Phases, one line each (any failure raises and exits non-zero):
             are zeroed just before and read just after; all three kernels
             must have launched, flash attention once per layer per encoder
             call (64 pool batches and the eval set's one call).
-9. serve    LLM serving with per-step uncertainty scores:
-            ``run_serving("qwen3_8b", smoke=False)`` at full width and all
-            36 layers in bf16 (random weights from seed 0), batch 16,
+9. serve    LLM serving with per-step uncertainty scores, one path per
+            served arch (qwen3-8b, internlm2-20b, phi3-medium-14b,
+            qwen1.5-4b, deepseek-moe-16b):
+            ``run_serving(arch, smoke=False)`` at full width and all
+            layers in bf16 (random weights from seed 0), batch 16,
             512-token prompts, 64 greedy decode steps, cache 1,024. Launch
             counts are zeroed just before and read just after: flash
             attention once per layer (prefill), decode attention once per
@@ -156,9 +162,12 @@ Phases, one line each (any failure raises and exits non-zero):
             kernels never. Then prefill + 8 teacher-forced steps through
             the kernel path and through the plain path
             (``attention_impl="chunked"``, plain scores), same weights and
-            tokens, held within AGREE_TOL; and a torch.profiler window
-            over a prefill and 4 decode steps (device time by kernel
-            class: the device's busy share).
+            tokens, held within AGREE_TOL (the MoE's plain path first
+            with its own routes, the route-flip shares printed, then with
+            the kernel path's routes forced, held); and a torch.profiler
+            window over a prefill and 4 decode steps (device time by
+            kernel class: the device's busy share). Each model is freed
+            before the next; peak device memory is printed per arch.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -213,6 +222,10 @@ UNC_TOL = {"fp32": 3e-5, "scale80": 1e-4}
 ATT_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 DECODE_BF16_TOL = 1e-2
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 16, 512, 64, 1_024
+# the served configs, each at full width and depth in bf16; qwen3-8b first
+SERVE_ARCHS = ("qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",
+               "deepseek_moe_16b")
+SERVE_CUR = 577                          # a decode step's cur_len, timed
 AGREE_STEPS = 8
 KINDS = ("lc", "mc", "rc", "es")
 
@@ -1037,11 +1050,8 @@ def check_flash_bf16(fa, dev):
     attention) over D in {16, 64, 96 (zero-padded to 128), 128}, G in
     {1, 4}, S in {96, 500, 512}, window in {None, 128}, causal or not, at
     B 2 and KH 2: out bf16 and within ATT_TOL, and each row bit-identical
-    when fewer query rows are launched. Then the serve path's prefill: B
-    16, S 512, H 32, KH 8, D 128, causal, bf16, checked the same way and
-    timed. Bound: the two products at the bf16 peak against q, k, v, out
-    in bf16."""
-    import torch.nn.functional as F
+    when fewer query rows are launched. Then the qwen3-8b serve prefill
+    (``time_flash_bf16``)."""
     tol = ATT_TOL[torch.bfloat16]
     worst, cases = 0.0, 0
     g = torch.Generator(device=dev).manual_seed(3)
@@ -1063,7 +1073,18 @@ def check_flash_bf16(fa, dev):
         assert torch.equal(part, got[:, :rows]), ("query rows changed a row",
                                                   case)
         cases += 1
-    b, s, h, kh, hd = SERVE_BATCH, SERVE_PROMPT, 32, 8, 128
+    return {"cases": cases, "max_abs_err_cases": worst,
+            **time_flash_bf16(fa, dev, 32, 8, 128)}
+
+
+def time_flash_bf16(fa, dev, h, kh, hd):
+    """The bf16 kernel at a serve prefill (B 16, S 512, the arch's H, KH
+    and D, causal): out bf16 and within ATT_TOL of the plain version, and
+    timed. Bound: the two products at the bf16 peak against q, k, v, out
+    in bf16."""
+    import torch.nn.functional as F
+    tol = ATT_TOL[torch.bfloat16]
+    b, s = SERVE_BATCH, SERVE_PROMPT
     g = torch.Generator(device=dev).manual_seed(2)
     q = torch.randn((b, s, h, hd), generator=g, device=dev).bfloat16()
     k = torch.randn((b, s, kh, hd), generator=g, device=dev).bfloat16()
@@ -1081,7 +1102,7 @@ def check_flash_bf16(fa, dev):
     flops = 4.0 * b * h * hd * s * (s + 1) / 2
     nbytes = 2.0 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
     bnd, by = bound(nbytes, flops, BF16_FLOPS_S)
-    return {"cases": cases, "max_abs_err_cases": worst, "max_abs_err": err,
+    return {"max_abs_err": err,
             "out_dtype": str(got.dtype), "tolerance": tol,
             "timed_shape": [b, s, h, kh, hd], "kv_block": "fixed 64 keys",
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
@@ -1094,10 +1115,11 @@ def _logits(g, n, v, dev, scale=3.0):
 
 def check_uncertainty(unc, dev):
     """uncertainty_stats against its plain version: V = 152,064 at N 1,
-    16 and 4,096 (fp32), ragged V 37 and 300, bf16 logits, scale-80
-    logits, and rows with a planted top-2 tie (mc exactly 0, rc exactly
-    1). Returns the worst |d| of the cases held at the fp32 tolerance (fp32
-    and bf16 inputs) and the case count."""
+    16 and 4,096 (fp32), the other served archs' padded vocabularies at
+    N 16 (92,672, 100,352, 102,400: ragged last splits), ragged V 37 and
+    300, bf16 logits, scale-80 logits, and rows with a planted top-2 tie
+    (mc exactly 0, rc exactly 1). Returns the worst |d| of the cases held
+    at the fp32 tolerance (fp32 and bf16 inputs) and the case count."""
     g = torch.Generator(device=dev).manual_seed(3)
     cases = [(1, VOCAB, torch.float32, 3.0, "fp32"),
              (16, VOCAB, torch.float32, 3.0, "fp32"),
@@ -1106,6 +1128,7 @@ def check_uncertainty(unc, dev):
              (16, 300, torch.float32, 3.0, "fp32"),
              (16, VOCAB, torch.bfloat16, 3.0, "fp32"),
              (8, VOCAB, torch.float32, 80.0, "scale80")]
+    cases += [(16, v, torch.float32, 3.0, "fp32") for v in serve_vocabs()]
     worst = 0.0
     for n, v, dtype, scale, tol in cases:
         x = _logits(g, n, v, dev, scale).to(dtype)
@@ -1133,7 +1156,8 @@ def check_uncertainty(unc, dev):
 def check_uncertainty_split(unc, dev):
     """B4 against its split-and-merge plain version
     (``ref.uncertainty_stats_split_ref``, the kernel's split size) at
-    16 x 152,064, fp32 and bf16, within UNC_TOL; a row's score bytes
+    16 x 152,064, fp32 and bf16, and at 16 x each other served arch's
+    padded vocabulary, fp32, within UNC_TOL; a row's score bytes
     alone equal its bytes among 4,096 rows (fp32 and bf16, rows 0, 1,234
     and 4,095); top-2 ties straddling split boundaries (the last column of
     a split and the first of the next; column 10 and column 150,000):
@@ -1167,25 +1191,34 @@ def check_uncertainty_split(unc, dev):
         assert bool((tied["mc"] == 0).all()) and \
             bool((tied["rc"] == 1).all()), (dtype, tied["mc"], tied["rc"])
         cases += 3
+    for v in serve_vocabs():
+        x = _logits(g, 16, v, dev)
+        got = unc.uncertainty_stats(x)
+        want = uref.uncertainty_stats_split_ref(x, unc.SPLIT_ELEMS[x.dtype])
+        worst = max([worst] + [within(got[k], want[k], UNC_TOL["fp32"])
+                               for k in KINDS])
+        cases += 1
     return worst, cases
 
 
-def time_uncertainty(unc, dev):
+def time_uncertainty(unc, dev, vocab=VOCAB, rows=(SERVE_BATCH, 4_096)):
     """At the decode shape (16 x 152,064 fp32; 9.7 MB, which stays in the
     50 MB L2 between launches as it does after the LM head's product) and
-    at a pool-scoring shape (4,096 x 152,064; 2.5 GB). Bound: one read of
+    at a pool-scoring shape (4,096 x 152,064; 2.5 GB), or at 16 rows of
+    another served arch's padded vocabulary. Bound: one read of
     the logits and the (4, N) write, against ~5 operations a logit. The
     library yardstick is torch.logsumexp alone ("lse only"): no single
     PyTorch call computes the four scores."""
     g = torch.Generator(device=dev).manual_seed(4)
     out = {}
-    for n in (SERVE_BATCH, 4_096):
-        x = _logits(g, n, VOCAB, dev)
+    for n in rows:
+        x = _logits(g, n, vocab, dev)
         ms = median_ms(lambda: unc.uncertainty_stats(x))
         plain = median_ms(lambda: unc.uncertainty_stats(x, impl="ref"))
         library = median_ms(lambda: torch.logsumexp(x, -1))
-        bnd, by = bound(4.0 * n * VOCAB + 16.0 * n, 5.0 * n * VOCAB)
-        out[n] = {"timed_shape": [n, VOCAB], "ms": ms,
+        bnd, by = bound(4.0 * n * vocab + 16.0 * n, 5.0 * n * vocab)
+        out[n] = {"timed_shape": [n, vocab], "ms": ms,
+                  "splits": unc.split_plan(n, vocab, x.dtype).splits,
                   "device_ms": profiled_ms(lambda: unc.uncertainty_stats(x),
                                            "uncertainty_stats"),
                   "host_us": host_us(lambda: unc.uncertainty_stats(x)),
@@ -1200,8 +1233,32 @@ DECODE_CASES = [dict(B=2, H=4, KH=2, D=32, S=128, cur=77, win=None),
                 dict(B=1, H=8, KH=1, D=64, S=96, cur=96, win=None),
                 dict(B=2, H=4, KH=4, D=16, S=64, cur=13, win=8),
                 dict(B=3, H=16, KH=2, D=64, S=200, cur=1, win=None)]
-QWEN3_DECODE = [dict(B=SERVE_BATCH, H=32, KH=8, D=128, S=SERVE_MAX, cur=577,
-                     win=w) for w in (None, 128)]
+QWEN3_DECODE = [dict(B=SERVE_BATCH, H=32, KH=8, D=128, S=SERVE_MAX,
+                     cur=SERVE_CUR, win=w) for w in (None, 128)]
+
+
+def serve_layout(arch):
+    """(H, KH, head_dim, padded vocab) of a served arch's full config."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.padded_vocab
+
+
+def serve_vocabs():
+    """The other served archs' padded vocabularies, qwen3-8b's left out."""
+    return sorted({serve_layout(a)[3] for a in SERVE_ARCHS[1:]} - {VOCAB})
+
+
+def layout_decode():
+    """The other served archs' decode shapes (B 16, cache 1,024, cur_len
+    577, window none): G 6 (internlm2), KH 10 (phi3), G 1 (qwen1.5,
+    deepseek-moe)."""
+    out = []
+    for arch in SERVE_ARCHS[1:]:
+        h, kh, hd, _ = serve_layout(arch)
+        out.append(dict(B=SERVE_BATCH, H=h, KH=kh, D=hd, S=SERVE_MAX,
+                        cur=SERVE_CUR, win=None, arch=arch))
+    return out
 
 
 def _decode_inputs(g, c, dtype, dev):
@@ -1216,16 +1273,18 @@ def _decode_inputs(g, c, dtype, dev):
 
 def check_decode(da, dev):
     """decode_attention against its plain version on the reference's four
-    cases and the qwen3-8b decode shape (window none and 128), each at
-    fp32 (ATT_TOL) and bf16 (DECODE_BF16_TOL); cur_len read from the
-    device. At the qwen3 shape a row's bytes must not depend on the
-    cache's capacity (the same live prefix in caches of 640 and 1,024
-    entries) and must repeat from run to run."""
+    cases, the qwen3-8b decode shape (window none and 128) and the other
+    served archs' decode shapes, each at fp32 (ATT_TOL) and bf16
+    (DECODE_BF16_TOL); cur_len read from the device. At every served
+    shape a row's bytes must not depend on the cache's capacity (the same
+    live prefix in caches of 640 and 1,024 entries) and must repeat from
+    run to run."""
     g = torch.Generator(device=dev).manual_seed(5)
     tol = {torch.float32: ATT_TOL[torch.float32],
            torch.bfloat16: DECODE_BF16_TOL}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for c in DECODE_CASES + QWEN3_DECODE:
+    served = QWEN3_DECODE + layout_decode()
+    for c in DECODE_CASES + served:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, cur = _decode_inputs(g, c, dtype, dev)
             got = da.decode_attention_auto(q, k, v, cur, window=c["win"])
@@ -1235,7 +1294,7 @@ def check_decode(da, dev):
             assert got.dtype == dtype
             worst[dtype] = max(worst[dtype],
                                within(got, want, tol[dtype]))
-            if c in QWEN3_DECODE:
+            if c in served:
                 again = da.decode_attention_auto(q, k, v, cur,
                                                  window=c["win"])
                 small = da.decode_attention_auto(
@@ -1243,11 +1302,13 @@ def check_decode(da, dev):
                     window=c["win"])
                 assert torch.equal(got, again), ("repeat", c, dtype)
                 assert torch.equal(got, small), ("capacity", c, dtype)
-    return worst, 2 * len(DECODE_CASES + QWEN3_DECODE)
+            del q, k, v
+    return worst, 2 * len(DECODE_CASES + served)
 
 
-def time_decode(da, dev):
-    """At the qwen3-8b decode shape (bf16, window none). Bound: the live
+def time_decode(da, dev, c=QWEN3_DECODE[0]):
+    """At a served arch's decode shape (bf16, window none; qwen3-8b's by
+    default). Bound: the live
     K/V (cur_len keys) read once, q read and out written, against the two
     products at the bf16 peak. Library: scaled_dot_product_attention with
     a length mask and enable_gqa.
@@ -1261,7 +1322,6 @@ def time_decode(da, dev):
     enqueue: where host_us exceeds the device time, back-to-back events
     measure the host."""
     import torch.nn.functional as F
-    c = QWEN3_DECODE[0]
     g = torch.Generator(device=dev).manual_seed(6)
     q, k, v, cur = _decode_inputs(g, c, torch.bfloat16, dev)
     ms = median_ms(lambda: da.decode_attention_auto(q, k, v, cur))
@@ -1289,7 +1349,7 @@ def time_decode(da, dev):
     cold = {"caches": n_sets, "ms": median_ms(rotating),
             "device_ms": profiled_ms(rotating, "decode_attention")}
     del sets
-    return {"timed_shape": [b, c["S"], n, h, kh, hd],
+    return {"timed_shape": [b, c["S"], n, h, kh, hd], "group": h // kh,
             "split_keys": da.SPLIT_KEYS,
             "ms": ms, "device_ms": profiled_ms(warm, "decode_attention"),
             "split_merge_device_ms": [
@@ -1298,6 +1358,21 @@ def time_decode(da, dev):
             "host_us": host_us(warm), "cold": cold,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": library}
+
+
+def time_serve_shapes(fa, da, unc, dev):
+    """B3 (bf16), B6 and B4 timed at each other served arch's shapes (B3
+    also held there; B6's and B4's checks at these shapes are
+    ``check_decode``'s and ``check_uncertainty``'s)."""
+    out = {}
+    for c in layout_decode():
+        h, kh, hd, vocab = serve_layout(c["arch"])
+        out[c["arch"]] = {
+            "flash_attention_bf16": time_flash_bf16(fa, dev, h, kh, hd),
+            "decode_attention": time_decode(da, dev, c),
+            "uncertainty_stats": time_uncertainty(
+                unc, dev, vocab, (SERVE_BATCH,))[SERVE_BATCH]}
+    return out
 
 
 # ---------------------------------------------------------------- server --
@@ -2136,15 +2211,17 @@ AGREE_TOL = {"logits": 0.2, "log_p1": 0.15, "mc_over_p1": 0.15, "rc": 0.15,
 PROFILE_STEPS = 4
 
 
-def run_serve(counters):
-    """``run_serving`` at qwen3-8b, full width and depth, bf16. Returns
-    this path's launch counts."""
+def run_serve(counters, arch):
+    """``run_serving(arch)`` at full width and depth, bf16. Returns this
+    path's launch counts."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serving
+    cfg = get_config(arch)
     for reset in counters:
         reset()                                  # the serve path starts here
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    out = run_serving("qwen3_8b", smoke=False, batch=SERVE_BATCH,
+    out = run_serving(arch, smoke=False, batch=SERVE_BATCH,
                       prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
                       max_len=SERVE_MAX, seed=0, log=False, device="cuda")
     torch.cuda.synchronize()
@@ -2153,20 +2230,22 @@ def run_serve(counters):
     for counts in counters.values():             # ... and ends here
         launches.update(counts)
     peak = torch.cuda.max_memory_allocated()
-    from repro_torch.configs import get_config
-    n_layers = get_config("qwen3_8b").n_layers
+    n_layers = cfg.n_layers
     assert launches["flash_attention"] == n_layers, launches
     assert launches["decode_attention"] == n_layers * SERVE_STEPS, launches
     assert launches["uncertainty_stats"] == SERVE_STEPS, launches
     assert launches["greedy_round"] == launches["pairwise_min_argmin"] == 0
     assert out["final_len"] == SERVE_PROMPT + SERVE_STEPS, out
     assert 0.0 <= out["mean_lc"] <= 1.0, out
-    assert 0.0 <= out["mean_es"] <= float(np.log(VOCAB)) + 1e-3, out
+    assert 0.0 <= out["mean_es"] <= float(np.log(cfg.padded_vocab)) + 1e-3, \
+        out
     log("serve", **out, run_serving_wall_s=wall,
         peak_allocated_gb=peak / 1e9, launches=launches,
         shape={"batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
                "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX,
-               "layers": n_layers, "dtype": "bfloat16"})
+               "layers": n_layers, "heads": [cfg.n_heads, cfg.n_kv_heads],
+               "padded_vocab": cfg.padded_vocab, "moe": cfg.moe is not None,
+               "dtype": "bfloat16"})
     return launches
 
 
@@ -2206,27 +2285,54 @@ def profile_device(fn):
     return by_class, kernels, wall
 
 
-def serve_checks(dev):
+def route_flips(kernel, plain, mo):
+    """Shares of (token, layer, choice) routes that differ between two
+    runs' recorded routes (``moe.Routes`` lists in call order): the expert
+    chosen, and whether the choice was kept, over the prefill's calls and
+    the decode steps'."""
+    from repro_torch.models.layers import moe
+    n_moe = len(kernel) // (1 + AGREE_STEPS)
+    out = {}
+    for part, calls in (("prefill", slice(0, n_moe)),
+                        ("decode", slice(n_moe, None))):
+        n = expert = kept = 0
+        for a, b in zip(kernel[calls], plain[calls]):
+            C = moe.capacity(mo, a.topi.shape[1])
+            n += a.topi.numel()
+            expert += int((a.topi != b.topi).sum())
+            kept += int(((a.slot < C) != (b.slot < C)).sum())
+        out[part] = {"routes": n, "expert_share": expert / n,
+                     "kept_share": kept / n}
+    return out
+
+
+def serve_checks(dev, arch):
     """On the same weights (seed 0): (1) prefill + AGREE_STEPS
     teacher-forced decode steps through the kernel path and the plain
     path (``attention_impl="chunked"``, plain scores), max |d| of the
     logits and of the four scores, on the scales of AGREE_TOL, against
-    it; (2) a torch.profiler
+    it. For a MoE config the plain path first routes by its own router
+    (the share of routes that differ from the kernel path's is printed,
+    not held: routing is discontinuous and the paths differ by bf16
+    rounding), then again with the kernel path's routes forced
+    (``moe.RouteTape``), and that run is held; (2) a torch.profiler
     window over the kernel path's prefill and over PROFILE_STEPS decode
     steps: device time by kernel class, for the device's busy share."""
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_pool
     from repro_torch.kernels.uncertainty import ops as unc
+    from repro_torch.models.layers import moe
     from repro_torch.models.transformer import Model
-    cfg = get_config("qwen3_8b")
+    cfg = get_config(arch)
     prompt = torch.from_numpy(lm_pool(SERVE_BATCH, SERVE_PROMPT, cfg.vocab,
                                       seed=0)[0]).to(dev)
     feed = torch.from_numpy(lm_pool(SERVE_BATCH, AGREE_STEPS, cfg.vocab,
                                     seed=1)[0].T.copy()).to(dev)
     params = Model(cfg).init(0, dev)
-    runs = {}
-    for impl, score_impl in (("pallas", "auto"), ("chunked", "ref")):
-        model = Model(dataclasses.replace(cfg, attention_impl=impl))
+
+    def agree_run(impl, score_impl, routes=None):
+        model = Model(dataclasses.replace(cfg, attention_impl=impl),
+                      routes=routes)
         cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + AGREE_STEPS,
                                  dev)
         t = time.perf_counter()
@@ -2239,32 +2345,55 @@ def serve_checks(dev):
             outs.append(logits)
             scores.append(torch.stack([s[k] for k in KINDS]))
         torch.cuda.synchronize()
-        runs[impl] = (torch.stack(outs), torch.stack(scores, 1),
-                      time.perf_counter() - t)
-        del cache
-    (lk, sk, tk), (lp, sp, tp) = runs["pallas"], runs["chunked"]
-    del runs
-    same = lk.argmax(-1) == lp.argmax(-1)
+        return (torch.stack(outs), torch.stack(scores, 1),
+                time.perf_counter() - t)
 
     def compared(s):                             # (4, steps, B) -> by name
         lc, mc, rc, es = s
         return {"log_p1": torch.log(1.0 - lc), "mc_over_p1": mc / (1.0 - lc),
                 "rc": rc, "es": es}
-    ck, cp = compared(sk), compared(sp)
-    res = {"logits": float((lk - lp).abs().max())}
-    res.update({k: float((ck[k] - cp[k]).abs().max()) for k in ck})
+
+    def diffs(lk, sk, lp, sp):
+        ck, cp = compared(sk), compared(sp)
+        res = {"logits": float((lk - lp).abs().max())}
+        res.update({k: float((ck[k] - cp[k]).abs().max()) for k in ck})
+        return res, ck, cp
+
+    extra = {}
+    if cfg.moe is None:
+        lk, sk, tk = agree_run("pallas", "auto")
+        lp, sp, tp = agree_run("chunked", "ref")
+    else:
+        taken = moe.RouteTape()
+        lk, sk, tk = agree_run("pallas", "auto", taken)
+        own = moe.RouteTape()
+        lo, so, _ = agree_run("chunked", "ref", own)
+        unforced, _, _ = diffs(lk, sk, lo, so)
+        extra = {"unforced_route_flips": route_flips(
+                     taken.recorded, own.recorded, cfg.moe),
+                 "unforced_max_abs_diff": unforced,
+                 "unforced_argmax_agree_all_rows": float(
+                     (lk.argmax(-1) == lo.argmax(-1)).float().mean()),
+                 "routes_forced": "kernel path's"}
+        del lo, so, own
+        lp, sp, tp = agree_run("chunked", "ref",
+                               moe.RouteTape(force=taken.recorded))
+        del taken
+    same = lk.argmax(-1) == lp.argmax(-1)
+    res, ck, cp = diffs(lk, sk, lp, sp)
     spread = {k: [float(cp[k].min()), float(cp[k].max())] for k in cp}
     finite = bool(torch.isfinite(lk).all() and torch.isfinite(sk).all()
                   and all(torch.isfinite(v).all() for v in ck.values()))
-    log("serve_agree", steps=AGREE_STEPS, rows=int(same.numel()),
-        max_abs_diff=res, tolerance=AGREE_TOL, finite=finite,
-        logits_abs_max=float(lp.abs().max()), plain_range=spread,
+    log("serve_agree", arch=arch, layers=cfg.n_layers, steps=AGREE_STEPS,
+        rows=int(same.numel()), max_abs_diff=res, tolerance=AGREE_TOL,
+        finite=finite, logits_abs_max=float(lp.abs().max()),
+        plain_range=spread,
         argmax_agree_all_rows=float(same.float().mean()),
-        kernel_path_s=tk, plain_path_s=tp)
+        kernel_path_s=tk, plain_path_s=tp, **extra)
     assert finite, res
     for key in AGREE_TOL:
-        assert res[key] <= AGREE_TOL[key], (key, res)
-    del lk, lp, sk, sp
+        assert res[key] <= AGREE_TOL[key], (arch, key, res)
+    del lk, lp, sk, sp, ck, cp
 
     model = Model(dataclasses.replace(cfg, attention_impl="pallas"))
     n_steps = 2 + PROFILE_STEPS
@@ -2286,7 +2415,7 @@ def serve_checks(dev):
     steps(2)                                     # warm
     dec, dec_kernels, dec_wall = profile_device(lambda: steps(PROFILE_STEPS))
     per_step = {k: v / PROFILE_STEPS for k, v in dec.items()}
-    log("serve_profile", prefill_device_ms=pre,
+    log("serve_profile", arch=arch, prefill_device_ms=pre,
         prefill_device_busy_ms=sum(pre.values()),
         prefill_kernels=pre_kernels, prefill_profiled_wall_s=pre_wall,
         decode_steps=PROFILE_STEPS, decode_device_ms_per_step=per_step,
@@ -2294,6 +2423,19 @@ def serve_checks(dev):
         decode_kernels_per_step=dec_kernels / PROFILE_STEPS,
         decode_profiled_wall_ms_per_step=dec_wall / PROFILE_STEPS * 1e3)
     del params, cache, state
+
+
+def run_serve_archs(counters, dev):
+    """Each served arch in turn (launch counts zeroed just before its
+    ``run_serving``, read just after), its agreement and profile checks,
+    and its weights freed before the next. Returns launches by arch."""
+    out = {}
+    for arch in SERVE_ARCHS:
+        out[arch] = run_serve(counters, arch)
+        serve_checks(dev, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2341,6 +2483,7 @@ def run(tune_dir, kernels_only=False) -> int:
     u_times = time_uncertainty(unc, dev)
     d_err, d_cases = check_decode(da, dev)
     d_time = time_decode(da, dev)
+    at_serve = time_serve_shapes(fa, da, unc, dev)
     gt_err, gt_cases = check_gated(ops, dev, rng)
     gt_forms = check_gated_forms(ops, dev, rng)
     gt_time = time_gated(ops, dev, rng)
@@ -2388,7 +2531,8 @@ def run(tune_dir, kernels_only=False) -> int:
                             "live_100": gt_time[1.0],
                             "live_10": gt_time[0.1],
                             "engine_wave": {"live_100": gt_wave[1.0],
-                                            "live_10": gt_wave[0.1]}})
+                                            "live_10": gt_wave[0.1]}},
+        at_serve_shapes=at_serve)
     if kernels_only:
         return 0
 
@@ -2416,16 +2560,16 @@ def run(tune_dir, kernels_only=False) -> int:
     gc.collect()
     torch.cuda.empty_cache()                 # free the text encoder
 
-    serve_launches = run_serve(counters)
-    serve_checks(dev)
+    serve_launches = run_serve_archs(counters, dev)
 
     def counts(name):
         by_path = {"picker": picker_launches[name], "image": launches[name],
                    "sharded": sharded_launches.get(name, 0),
                    "standing": standing_launches[name],
                    "process": process_launches[name],
-                   "text": text_launches[name],
-                   "serve": serve_launches[name]}
+                   "text": text_launches[name]}
+        by_path.update({"serve_" + arch: counts_[name]
+                        for arch, counts_ in serve_launches.items()})
         return sum(by_path.values()), by_path
 
     src = "src/repro_torch/kernels/"
@@ -2475,6 +2619,17 @@ def run(tune_dir, kernels_only=False) -> int:
     flash.update({"bf16_" + k: f_bf16[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")})
+    # B3 (bf16), B6 and B4 at the other served archs' shapes
+    for row in kernels:
+        key = ("flash_attention_bf16" if row["name"] == "flash_attention"
+               else row["name"])
+        if key in at_serve[SERVE_ARCHS[1]]:
+            row["at_serve_shapes"] = {
+                arch: {k: v for k, v in at_serve[arch][key].items()
+                       if k in ("timed_shape", "max_abs_err", "ms",
+                                "device_ms", "plain_ms", "bound_ms",
+                                "library_ms")}
+                for arch in SERVE_ARCHS[1:]}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,15 @@ reference leaves out of fan-in anyway); the embedding has std 0.02; norm
 scales are ones and biases zeros. Draws are rounded to bf16, the
 reference's parameter dtype, and then held in ``dtype``: fp32 for the
 blockwise encoder (which computes in fp32), bf16 for the LM and its KV
-cache, as the reference holds them.
+cache, as the reference holds them. A declaration that names no dtype
+takes the tree's (``with_dtype``), else fp32; one that names it keeps it,
+as the MoE router keeps fp32 in the bf16 LM.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,7 +26,11 @@ import torch
 class ParamDecl:
     shape: Tuple[int, ...]
     init: str = "normal"          # normal | zeros | ones | embed
-    dtype: torch.dtype = torch.float32
+    dtype: Optional[torch.dtype] = None     # None: the tree's, else fp32
+
+    @property
+    def held(self) -> torch.dtype:
+        return torch.float32 if self.dtype is None else self.dtype
 
 
 def fan_in(shape: Tuple[int, ...]) -> float:
@@ -33,12 +39,12 @@ def fan_in(shape: Tuple[int, ...]) -> float:
 
 def init_one(decl: ParamDecl, g: torch.Generator, device) -> torch.Tensor:
     if decl.init == "zeros":
-        return torch.zeros(decl.shape, dtype=decl.dtype, device=device)
+        return torch.zeros(decl.shape, dtype=decl.held, device=device)
     if decl.init == "ones":
-        return torch.ones(decl.shape, dtype=decl.dtype, device=device)
+        return torch.ones(decl.shape, dtype=decl.held, device=device)
     std = 0.02 if decl.init == "embed" else 1.0 / math.sqrt(fan_in(decl.shape))
     x = torch.randn(decl.shape, generator=g, device=device) * std
-    return x.to(torch.bfloat16).to(decl.dtype)
+    return x.to(torch.bfloat16).to(decl.held)
 
 
 def init_params(decls, g: torch.Generator, device):
@@ -52,8 +58,11 @@ def init_params(decls, g: torch.Generator, device):
 
 
 def with_dtype(decls, dtype: torch.dtype):
-    """The same declaration tree with every ``dtype`` set to ``dtype``."""
+    """The same declaration tree with ``dtype`` on every declaration that
+    names none."""
     if isinstance(decls, ParamDecl):
+        if decls.dtype is not None:
+            return decls
         return dataclasses.replace(decls, dtype=dtype)
     if isinstance(decls, list):
         return [with_dtype(d, dtype) for d in decls]

@@ -3,17 +3,22 @@
 """Arch config registry: ``get_config(name)`` / ``get_smoke_config(name)``.
 
 A name is the module's (``"qwen3_8b"``) or the reference's canonical id
-(``"qwen3-8b"``)."""
+(``"qwen3-8b"``). The ported archs are the dense ones and deepseek-moe;
+the others (MLA, RWKV, RG-LRU, the enc-dec and patch frontends) raise
+``KeyError``."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, pad_to  # noqa: F401
+from repro_torch.configs.base import ArchConfig, MoEConfig, pad_to  # noqa: F401
 
-ARCH_IDS = ["qwen3_8b"]
+ARCH_IDS = ["qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",
+            "deepseek_moe_16b"]
 
 # canonical ids -> module names
-ALIASES = {"qwen3-8b": "qwen3_8b"}
+ALIASES = {"qwen3-8b": "qwen3_8b", "internlm2-20b": "internlm2_20b",
+           "phi3-medium-14b": "phi3_medium_14b", "qwen1.5-4b": "qwen15_4b",
+           "deepseek-moe-16b": "deepseek_moe_16b"}
 
 
 def _module(name: str):

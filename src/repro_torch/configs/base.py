@@ -1,12 +1,13 @@
-# Copied from repro/configs/base.py: ArchConfig, pad_to and the two
-# properties the encoder and the dense decode stack use (hd,
-# padded_vocab), with the fields the dense stack reads: q_chunk and
-# kv_chunk (prefill attention). The LM head is always untied and uncapped:
+# Copied from repro/configs/base.py: MoEConfig, ArchConfig, pad_to and the
+# two properties the encoder and the decode stack use (hd, padded_vocab),
+# with the fields the dense and MoE stacks read: q_chunk and kv_chunk
+# (prefill attention) and moe. The LM head is always untied and uncapped:
 # tie_embeddings and logits_soft_cap come back with the first config that
-# sets them (ROADMAP A12). Dropped: the MoE, MLA, RWKV and Griffin sub-configs, the enc-dec, patch
-# and MTP fields, n_params, tp_friendly, active_params and the dry-run
-# shapes, which only the TPU dry run and the rest of the LLM stack use
-# (ROADMAP A12); and the remat knob, which inference has no use for.
+# sets them (ROADMAP A12). Dropped: the MLA, RWKV and Griffin sub-configs,
+# the enc-dec, patch and MTP fields, n_params, tp_friendly, active_params
+# and the dry-run shapes, which only the TPU dry run and the rest of the
+# LLM stack use (ROADMAP A12); and the remat knob, which inference has no
+# use for.
 """Architecture configuration.
 
 One ``ArchConfig`` describes a backbone; each arch file under
@@ -16,6 +17,7 @@ One ``ArchConfig`` describes a backbone; each arch file under
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 def pad_to(x: int, m: int) -> int:
@@ -23,9 +25,22 @@ def pad_to(x: int, m: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int
+    top_k: int
+    d_ff_expert: int
+    n_shared: int = 0
+    first_dense: int = 0          # leading dense layers (deepseek-v3: 3)
+    capacity_factor: float = 1.25
+    group_size: int = 2048        # tokens per dispatch group
+    aux_loss_alpha: float = 0.001
+    router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense (the only family ported)
+    family: str                   # dense | moe (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -39,6 +54,7 @@ class ArchConfig:
     norm: str = "rms"             # rms | ln
     mlp: str = "swiglu"           # swiglu | gelu
     norm_eps: float = 1e-6
+    moe: Optional[MoEConfig] = None
     # runtime knobs
     q_chunk: int = 512
     kv_chunk: int = 1024

@@ -6,13 +6,18 @@ fused uncertainty scores from every step's logits (the paper's technique,
 uncertainty scoring, in the serving path itself), so an AL sweep over a
 pool is just "serve the pool, keep the scores".
 
+``--arch`` names a ported config by module name or canonical id:
+``qwen3_8b``, ``internlm2_20b``, ``phi3_medium_14b``, ``qwen15_4b`` (the
+dense stack) or ``deepseek_moe_16b`` (token-choice MoE); ``--full`` serves
+its full-size config, else its smoke config.
+
 On the card every kernel of the path runs: flash attention in prefill,
 decode attention in every layer of every step, and the uncertainty-stats
 pass over every step's logits. Scores and tokens stay on the device until
 the loop ends; the only host syncs are the timers'.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --batch 4 \\
-      --prompt-len 32 --decode-steps 16 [--device cpu] [--full]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen15_4b \\
+      --batch 4 --prompt-len 32 --decode-steps 16 [--device cpu] [--full]
 """
 from __future__ import annotations
 

@@ -1,14 +1,18 @@
-"""Dense causal LM: prefill, single-token decode over a KV cache, and the
-stateless forward (port of repro/models/transformer.py, its dense half).
+"""Causal LM: prefill, single-token decode over a KV cache, and the
+stateless forward (port of repro/models/transformer.py, its dense and MoE
+stacks).
 
 A model is a list of *segments*; each segment is ``count`` repetitions of a
-*unit* (a short list of LayerSpecs). The dense stack ported here is one
-segment of ``n_layers`` units of one ``(attn, dense)`` layer: norm1, GQA
-attention with rope (and qk_norm), norm2, a SwiGLU or GELU MLP. The MoE,
-MLA, RWKV and RG-LRU mixers, local attention's ring buffer, the
-encoder-decoder and patch frontends and the MTP head wait for ROADMAP A12;
-a config that needs them raises ``NotImplementedError``. ``loss`` and its
-chunked cross-entropy wait for A13.
+*unit* (a short list of LayerSpecs). A dense config is one segment of
+``n_layers`` units of one ``(attn, dense)`` layer: norm1, GQA attention
+with rope (and qk_norm, qkv bias), norm2, a SwiGLU or GELU MLP. A MoE
+config (``cfg.moe``) is ``first_dense`` ``(attn, dense)`` layers, if any,
+then ``n_layers - first_dense`` ``(attn, moe)`` layers, whose MLP is the
+token-choice MoE of ``layers/moe.py``. The MLA, RWKV and RG-LRU mixers,
+local attention's ring buffer, the encoder-decoder and patch frontends and
+the MTP head wait for ROADMAP A12; a config that needs them raises
+``NotImplementedError``. ``loss`` and its chunked cross-entropy wait for
+A13.
 
 Modes, as in the reference:
   train    full sequence, no cache (``last_logits``, ``embed_pool``)
@@ -22,8 +26,10 @@ unroll: the decode path is the reference's unrolled, in-place one
 reference's stacked ``layer`` axis unstacked, as ``bridge.load_model``
 writes them); the KV cache stays stacked per segment, ``(L, B, S, KH*hd)``
 in the cache dtype, and each step writes the new token's K/V in place at
-``cur_len``. ``cache["len"]`` is a 0-d int32 tensor on the device, so a
-decode step never syncs with the host.
+``cur_len``. A segment of one unit keeps its layer axis too, ``(1, B, S,
+KH*hd)``, where the reference's has none (``(B, S, KH*hd)``): the two
+caches compare only through the outputs. ``cache["len"]`` is a 0-d int32
+tensor on the device, so a decode step never syncs with the host.
 
 Attention follows ``cfg.attention_impl``. ``"pallas"``, the configs' name
 for the kernel path, sends prefill to the flash-attention kernel and each
@@ -45,6 +51,7 @@ import torch
 from repro_torch.common.param import ParamDecl, init_params, with_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers.mlp import mlp_apply, mlp_decls
 from repro_torch.models.layers.norms import apply_norm, norm_decls
 from repro_torch.models.layers.rope import apply_rope
@@ -55,7 +62,7 @@ PARAM_DTYPE = torch.bfloat16        # the reference's ParamDecl default
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str          # attn (the only mixer ported)
-    mlp: str            # dense (the only MLP ported)
+    mlp: str            # dense | moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,42 +71,56 @@ class Segment:
     unit: Tuple[LayerSpec, ...]
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family (MoE, MLA, RWKV, "
-            f"RG-LRU, enc-dec or patch frontends, MTP) waits for ROADMAP "
-            f"A12; the port has the dense decode stack only")
+def require_ported(cfg: ArchConfig) -> None:
+    """Admit the dense and MoE stacks; refuse every other family."""
+    if cfg.family == "dense" or (cfg.family == "moe" and cfg.moe is not None):
+        return
+    raise NotImplementedError(
+        f"{cfg.name}: the {cfg.family!r} family (MLA, RWKV, RG-LRU, enc-dec "
+        f"or patch frontends, MTP) waits for ROADMAP A12; the port has the "
+        f"dense and MoE decode stacks only")
 
 
 def build_segments(cfg: ArchConfig) -> List[Segment]:
-    require_dense(cfg)
+    require_ported(cfg)
+    if cfg.moe is not None:
+        fd = cfg.moe.first_dense
+        segs = [Segment(fd, (LayerSpec("attn", "dense"),))] if fd else []
+        return segs + [Segment(cfg.n_layers - fd,
+                               (LayerSpec("attn", "moe"),))]
     return [Segment(cfg.n_layers, (LayerSpec("attn", "dense"),))]
 
 
 # ---------------------------------------------------------------- decls ----
 
-def layer_decls(cfg: ArchConfig):
-    """The dense ``(attn, dense)`` layer of ``_layer_decls``."""
+def layer_decls(cfg: ArchConfig, spec: LayerSpec = LayerSpec("attn",
+                                                              "dense")):
+    """The ``(attn, dense)`` or ``(attn, moe)`` layer of ``_layer_decls``."""
+    if spec.mlp == "moe":
+        mlp = moe_lib.moe_decls(cfg.d_model, cfg.moe)
+    else:
+        mlp = mlp_decls(cfg.d_model, cfg.d_ff, cfg.mlp,
+                        bias=(cfg.norm == "ln"))
     return {
         "norm1": norm_decls(cfg.norm, cfg.d_model),
         "norm2": norm_decls(cfg.norm, cfg.d_model),
         "mixer": attn_lib.attn_decls(cfg.d_model, cfg.n_heads,
                                      cfg.n_kv_heads, cfg.hd, cfg.qkv_bias,
                                      cfg.qk_norm, out_bias=(cfg.norm == "ln")),
-        "mlp": mlp_decls(cfg.d_model, cfg.d_ff, cfg.mlp,
-                         bias=(cfg.norm == "ln")),
+        "mlp": mlp,
     }
 
 
 def model_decls(cfg: ArchConfig):
     """Embedding, segments (a list of ``count`` units each, a unit being
-    ``{"0": layer}``), final norm and the untied LM head; bf16."""
+    ``{"0": layer}``), final norm and the untied LM head; bf16 but for
+    the declarations that name their dtype (the MoE router: fp32)."""
     V, d = cfg.padded_vocab, cfg.d_model
     decls: Dict[str, Any] = {
         "embed": ParamDecl((V, d), init="embed"),
         "final_norm": norm_decls(cfg.norm, d),
-        "segments": [[{str(i): layer_decls(cfg) for i in range(len(s.unit))}
+        "segments": [[{str(i): layer_decls(cfg, spec)
+                       for i, spec in enumerate(s.unit)}
                       for _ in range(s.count)]
                      for s in build_segments(cfg)],
         "lm_head": ParamDecl((d, V)),
@@ -165,20 +186,25 @@ def _apply_attn(cfg: ArchConfig, params, x, positions, mode, lc=None,
 
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
-                 mode, lc=None, li: int = 0, cur_len=None, valid=None):
-    if (spec.mixer, spec.mlp) != ("attn", "dense"):
+                 mode, lc=None, li: int = 0, cur_len=None, valid=None,
+                 routes=None):
+    if spec.mixer != "attn" or spec.mlp not in ("dense", "moe"):
         raise NotImplementedError(f"layer {spec} waits for ROADMAP A12")
     h = apply_norm(cfg.norm, params["norm1"], x, cfg.norm_eps)
     x = x + _apply_attn(cfg, params["mixer"], h, positions, mode, lc, li,
                         cur_len, valid)
     h2 = apply_norm(cfg.norm, params["norm2"], x, cfg.norm_eps)
+    if spec.mlp == "moe":      # serving drops the aux loss, as the reference
+        return x + moe_lib.moe_apply(params["mlp"], h2, cfg.moe,
+                                     cfg.norm_eps, routes=routes)[0]
     return x + mlp_apply(params["mlp"], h2, cfg.mlp)
 
 
 def apply_backbone(cfg: ArchConfig, params, x, positions, mode, cache=None,
-                   cur_len=None):
+                   cur_len=None, routes=None):
     """x: (B,S,d) embedded inputs -> (B,S,d) final-norm hidden states.
-    In prefill and decode, ``cache`` is written in place."""
+    In prefill and decode, ``cache`` is written in place. ``routes``: a
+    ``moe.RouteTape`` every MoE layer records into or is forced from."""
     valid = cur_len + 1 if mode == "decode" else None
     for si, seg in enumerate(build_segments(cfg)):
         seg_cache = None if cache is None else cache["segments"][si]
@@ -186,7 +212,7 @@ def apply_backbone(cfg: ArchConfig, params, x, positions, mode, cache=None,
             for i, spec in enumerate(seg.unit):
                 lc = None if seg_cache is None else seg_cache[str(i)]
                 x = _apply_layer(cfg, spec, unit[str(i)], x, positions, mode,
-                                 lc, li, cur_len, valid)
+                                 lc, li, cur_len, valid, routes)
     return apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
 
 
@@ -196,19 +222,22 @@ class Model:
     """Functional model facade over a parameter tree (nested dicts and
     lists of tensors). Every method runs under ``torch.inference_mode()``;
     ``prefill`` and ``decode_step`` update the cache in place and return
-    it."""
+    it. ``routes``: a ``moe.RouteTape`` that every MoE layer of every
+    call records its routes into, or is forced from (tests and the
+    card's agreement check only)."""
 
-    def __init__(self, cfg: ArchConfig):
-        require_dense(cfg)
+    def __init__(self, cfg: ArchConfig, *, routes=None):
+        require_ported(cfg)
         self.cfg = cfg
+        self.routes = routes
 
     # -- declarations --------------------------------------------------
     def param_decls(self):
         return model_decls(self.cfg)
 
     def init(self, seed: int = 0, device="cuda"):
-        """Random bf16 weights from a generator on ``device`` seeded
-        ``seed``."""
+        """Random weights from a generator on ``device`` seeded ``seed``,
+        each in its declared dtype (bf16, the router fp32)."""
         device = torch.device(device)
         g = torch.Generator(device=device).manual_seed(seed)
         return init_params(self.param_decls(), g, device)
@@ -237,7 +266,8 @@ class Model:
         x = self._embed(params, tokens)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        return apply_backbone(self.cfg, params, x, positions, mode)
+        return apply_backbone(self.cfg, params, x, positions, mode,
+                              routes=self.routes)
 
     # -- serving ----------------------------------------------------------
     @torch.inference_mode()
@@ -248,7 +278,7 @@ class Model:
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         h = apply_backbone(self.cfg, params, x, positions, "prefill",
-                           cache=cache)
+                           cache=cache, routes=self.routes)
         cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
         return cache, self._logits(params, h[:, -1])
 
@@ -261,7 +291,7 @@ class Model:
         B = x.shape[0]
         positions = cur_len.reshape(1, 1).expand(B, 1)
         h = apply_backbone(self.cfg, params, x, positions, "decode",
-                           cache=cache, cur_len=cur_len)
+                           cache=cache, cur_len=cur_len, routes=self.routes)
         cache["len"] = cur_len + 1
         return self._logits(params, h[:, 0]), cache
 

@@ -156,19 +156,25 @@ def _card(seed, c, dtype, dev):
         (c["B"], c["S"], c["KH"], c["D"]))]
 
 
-QWEN3 = [dict(B=16, H=32, KH=8, D=128, S=1024, cur=577, win=w)
-         for w in (None, 128)]
+# the serve decode shapes (B 16, cache 1,024, cur_len 577, D 128): qwen3-8b
+# (H 32, KH 8) without and with a window, then the other ported archs'
+# (H, KH): internlm2-20b (G 6), phi3-medium-14b (KH 10), qwen1.5-4b and
+# deepseek-moe-16b (G 1)
+SERVE_LAYOUTS = [(32, 8, None), (32, 8, 128), (48, 8, None), (40, 10, None),
+                 (20, 20, None), (16, 16, None)]
+SERVED = [dict(B=16, H=h, KH=kh, D=128, S=1024, cur=577, win=w)
+          for h, kh, w in SERVE_LAYOUTS]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("ci", range(len(CASES) + len(QWEN3)))
+@pytest.mark.parametrize("ci", range(len(CASES) + len(SERVED)))
 def test_kernel_matches_plain(gpu, ci, dtype):
-    c = (CASES + QWEN3)[ci]
+    c = (CASES + SERVED)[ci]
     q, k, v = _card(ci, c, dtype, gpu)
     cur = torch.tensor(c["cur"], dtype=torch.int32, device=gpu)
     # the reference's cases at its test's kv_block, 32 (several KV blocks,
-    # and with a window, skipped leading ones); the qwen3 shape at 256
+    # and with a window, skipped leading ones); the serve shapes at 256
     kb = 32 if ci < len(CASES) else ops.KV_BLOCK
     before = ops.LAUNCHES["decode_attention"]
     got = ops.decode_attention_auto(q, k, v, cur, window=c["win"],
@@ -209,12 +215,12 @@ def test_kernel_split_grid_matches_plain(gpu, scenario, G, D, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("window", [None, 128])
-def test_kernel_bits_ignore_capacity_and_repeat(gpu, dtype, window):
+@pytest.mark.parametrize("H,KH,window", SERVE_LAYOUTS)
+def test_kernel_bits_ignore_capacity_and_repeat(gpu, dtype, H, KH, window):
     """A row's bytes depend on the live prefix only: the same first 640
     cache entries in caches of capacity 640 and 1,024 give the same
-    bytes, and so does a second run."""
-    c = dict(B=4, H=32, KH=8, D=128, S=1024, cur=577, win=window)
+    bytes, and so does a second run (at each serve head layout)."""
+    c = dict(B=4, H=H, KH=KH, D=128, S=1024, cur=577, win=window)
     q, k, v = _card(9, c, dtype, gpu)
     cur = torch.tensor(c["cur"], dtype=torch.int32, device=gpu)
     big = ops.decode_attention_auto(q, k, v, cur, window=window)

@@ -1,6 +1,10 @@
-"""Port parity: repro_torch's dense LM (``models/transformer.py``) and its
-serving entry point (``launch/serve.py``) against repro's, on the qwen3
-smoke config (2 layers, d_model 64, vocab 256), with the reference's
+"""Port parity: repro_torch's LM (``models/transformer.py``) and its
+serving entry point (``launch/serve.py``) against repro's, on the smoke
+configs of the five ported archs (2 layers, d_model 64, vocab 256 each):
+qwen3-8b (GQA 4/2, qk_norm), internlm2-20b and phi3-medium-14b (GQA 4/2),
+qwen1.5-4b (MHA 4/4 with qkv bias: the port's test of ``qkv_bias``) and
+deepseek-moe-16b (one dense layer, then one token-choice MoE layer: 8
+experts top-2, a shared expert, groups of 64), with the reference's
 weights carried over by ``bridge.load_model``.
 
 (a) fp32: the reference's params and cache cast to fp32 (every reference
@@ -10,13 +14,31 @@ weights carried over by ``bridge.load_model``.
     seen is 2.4e-6, at logits up to 4.3), and greedy tokens are equal.
 (b) bf16, as the reference serves: the reference's own decode-vs-forward
     bar (tests/test_models.py): argmax agreement >= 0.99, rtol = atol =
-    0.08 (the largest logit difference seen is 0.043). Also the port's
-    prefill + decode_step against its own last_logits over S+1 tokens.
+    0.08 (the largest logit difference seen is 0.043). Three rows, listed
+    in ``NEAR_TIES`` with their gaps, count as agreeing if the port picks
+    either of the reference's top two: the reference's top two logits
+    there lie within one bf16 step of each other, and the port picks the
+    runner-up. Every other row of every arch counts as the reference's
+    bar counts it. Also, for the dense archs, the port's prefill +
+    decode_step against its own last_logits over S+1 tokens. Not for the
+    MoE: a decode step routes B tokens as one group of capacity
+    max(..., top_k), the full forward B*(S+1) tokens in other groups, so
+    drops differ (the reference leaves deepseek-moe out of its own
+    decode-vs-forward test); its prefill + decode is held against the
+    reference's prefill + decode instead, by (a) and (b). In bf16 one
+    prefill route (token 4, second choice) differs from the reference's,
+    so that case forces the reference's routes, read from its
+    ``_dispatch_combine`` by a callback, through the port's ``routes=``
+    seam; so does (c)'s per-step replay (one prefill route differs
+    there too).
+    qwen1.5's q, k and v biases are drawn from N(0, 0.5) in both trees
+    (the reference declares them zero), so (a) and (b) test ``qkv_bias``.
 (c) End to end: the port's ``run_serving(smoke=True, device="cpu")``
     against the reference's at the same seed, batch, lengths and weights,
     with the reference's fed tokens replayed so that a near-tie cannot
     fork the runs: the same ``final_len``, means within 1e-2, and every
-    step's scores within SCORE_TOL. In bf16 the logits differ by a few
+    step's scores (a replay of the steps, the MoE's on the reference's
+    routes) within SCORE_TOL. In bf16 the logits differ by a few
     1e-2, and rc, a ratio of two probabilities, moves most (2.7e-2 seen).
 
 The ``cuda`` tests need no JAX and skip where there is no GPU.
@@ -34,6 +56,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.uncertainty import ops as unc_ops
 from repro_torch.launch import serve
 from repro_torch.models import transformer
+from repro_torch.models.layers.moe import RouteTape
 from repro_torch.models.transformer import Model
 
 B, S, T, MAX_LEN = 2, 12, 8, 24
@@ -41,20 +64,36 @@ KINDS = ("lc", "mc", "rc", "es")
 SCORE_TOL = {"lc": 1e-2, "mc": 1e-2, "rc": 6e-2, "es": 1e-2}
 
 
-def _port_cfg(impl="pallas"):
-    return dataclasses.replace(configs.get_smoke_config("qwen3-8b"),
+ARCHS = ["qwen3-8b", "internlm2-20b", "phi3-medium-14b", "qwen1.5-4b",
+         "deepseek-moe-16b"]
+DENSE = [a for a in ARCHS if a != "deepseek-moe-16b"]
+
+
+def _port_cfg(arch="qwen3-8b", impl="pallas"):
+    return dataclasses.replace(configs.get_smoke_config(arch),
                                attention_impl=impl)
 
 
-@pytest.fixture(scope="module")
-def ref():
+@pytest.fixture(scope="module", params=ARCHS)
+def ref(request):
     jax = pytest.importorskip("jax")
     from repro.configs import get_smoke_config
     from repro.models.transformer import Model as RefModel
-    cfg = get_smoke_config("qwen3-8b")
+    cfg = get_smoke_config(request.param)
     model = RefModel(cfg)
-    return {"jax": jax, "cfg": cfg, "model": model,
-            "params": model.init(jax.random.PRNGKey(0)),
+    params = model.init(jax.random.PRNGKey(0))
+    if cfg.qkv_bias:
+        # the reference declares the biases zero: draw them, so that a port
+        # that drops or misplaces one fails
+        rng = np.random.default_rng(2)
+
+        def draw(path, a):
+            if path[-1].key not in ("b_q", "b_k", "b_v"):
+                return a
+            return jax.numpy.asarray(rng.normal(0.0, 0.5, a.shape), a.dtype)
+        params = jax.tree_util.tree_map_with_path(draw, params)
+    return {"jax": jax, "arch": request.param, "cfg": cfg, "model": model,
+            "params": params,
             "prefill": jax.jit(model.prefill),
             "decode": jax.jit(model.decode_step)}
 
@@ -63,6 +102,36 @@ def ref():
 def toks():
     return np.random.default_rng(1).integers(0, 256, (B, S + T)).astype(
         np.int32)
+
+
+# (arch, index in _ref_run's logits or "last_logits", row): the
+# reference's top-2 gap. Each gap is at most one bf16 step at these
+# logits (2**-6 in [2, 4); the eager last_logits are bf16 values, so its
+# smallest gap is that step), so the rounding of either model decides the
+# argmax: the port picks the reference's runner-up in each row.
+NEAR_TIES = {("internlm2-20b", 1, 1): 0.0100,
+             ("deepseek-moe-16b", 2, 1): 0.0011,
+             ("qwen1.5-4b", "last_logits", 1): 0.0156}
+TIE_GAP = 2.0 ** -6
+
+
+def _argmax_bar(want, got, ties=()):
+    """The reference's bar: argmax agreement >= 0.99. ``ties`` are (row,
+    gap) of listed near-tie rows: the gap is checked, and the row counts
+    as agreeing if the port picks either of the reference's top two."""
+    want, got = np.asarray(want), np.asarray(got)
+    agree = np.argmax(want, -1) == np.argmax(got, -1)
+    for row, gap in ties:
+        top2 = np.argsort(want[row], kind="stable")[-2:]
+        seen = want[row, top2[1]] - want[row, top2[0]]
+        assert seen <= TIE_GAP and abs(seen - gap) < 1e-3, (row, seen)
+        agree[row] = np.argmax(got[row]) in top2
+    assert np.mean(agree) >= 0.99
+
+
+def _ties(arch, step):
+    return [(row, gap) for (a, i, row), gap in NEAR_TIES.items()
+            if (a, i) == (arch, step)]
 
 
 def _np_tree(jax, tree):
@@ -91,8 +160,42 @@ def _ref_run(ref, params, toks, cache_dtype=None, greedy=False):
     return out, np.stack(fed)
 
 
-def _port_run(cfg, params, toks, dtype, greedy=False):
-    model = Model(cfg)
+def _record_routes(ref, monkeypatch):
+    """A copy of ``ref`` on fresh jits whose every ``_dispatch_combine``
+    call hands its top-k indices and dispatch to an ordered callback.
+    Returns (the copy, a function that gives the calls' routes so far, in
+    call order, as the port's ``Routes``: each choice's slot, C where
+    dropped)."""
+    from repro.models.layers import moe as rmoe
+    from repro_torch.models.layers.moe import Routes
+    jax, model, seen = ref["jax"], ref["model"], []
+    inner = rmoe._dispatch_combine
+
+    def recording(probs, mo, C):
+        dispatch, combine, topi, topv = inner(probs, mo, C)
+        jax.debug.callback(lambda t, d: seen.append((np.asarray(t),
+                                                     np.asarray(d))),
+                           topi, dispatch, ordered=True)
+        return dispatch, combine, topi, topv
+    monkeypatch.setattr(rmoe, "_dispatch_combine", recording)
+    fresh = dict(ref, prefill=jax.jit(lambda p, b, c: model.prefill(p, b, c)),
+                 decode=jax.jit(lambda p, c, t: model.decode_step(p, c, t)))
+
+    def routes():
+        jax.effects_barrier()
+        out = []
+        for topi, dispatch in seen:
+            chosen = np.take_along_axis(dispatch, topi[..., None], 2)
+            slot = np.where(chosen.any(-1), chosen.argmax(-1),
+                            chosen.shape[-1])
+            out.append(Routes(torch.from_numpy(topi.astype(np.int64)),
+                              torch.from_numpy(slot.astype(np.int64))))
+        return out
+    return fresh, routes
+
+
+def _port_run(cfg, params, toks, dtype, greedy=False, routes=None):
+    model = Model(cfg, routes=routes)
     cache = model.init_cache(B, MAX_LEN, "cpu", dtype)
     cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
         toks[:, :S])}, cache)
@@ -109,27 +212,28 @@ def _port_run(cfg, params, toks, dtype, greedy=False):
 
 def test_fp32_model_parity(ref, toks):
     import jax.numpy as jnp
-    jax = ref["jax"]
+    jax, arch = ref["jax"], ref["arch"]
     rp = jax.tree.map(lambda a: a.astype(jnp.float32), ref["params"])
     pp = bridge.load_model(_np_tree(jax, rp))
     assert pp["embed"].dtype == torch.float32
     want, _ = _ref_run(ref, rp, jnp.asarray(toks), cache_dtype=jnp.float32)
-    got, _ = _port_run(_port_cfg(), pp, toks, torch.float32)
+    got, _ = _port_run(_port_cfg(arch), pp, toks, torch.float32)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
     # on a CPU tensor the kernel path ("pallas") is the chunked path, bit
     # for bit
-    plain, _ = _port_run(_port_cfg("chunked"), pp, toks, torch.float32)
+    plain, _ = _port_run(_port_cfg(arch, "chunked"), pp, toks, torch.float32)
     for a, b in zip(got, plain):
         np.testing.assert_array_equal(a, b)
     want, want_fed = _ref_run(ref, rp, jnp.asarray(toks),
                               cache_dtype=jnp.float32, greedy=True)
-    got, got_fed = _port_run(_port_cfg(), pp, toks, torch.float32,
+    got, got_fed = _port_run(_port_cfg(arch), pp, toks, torch.float32,
                              greedy=True)
     np.testing.assert_array_equal(got_fed, want_fed)
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
-    model, batch = Model(_port_cfg()), {"tokens": torch.from_numpy(toks)}
+    model = Model(_port_cfg(arch))
+    batch = {"tokens": torch.from_numpy(toks)}
     rbatch = {"tokens": jnp.asarray(toks)}
     np.testing.assert_allclose(
         model.last_logits(pp, batch).numpy(),
@@ -139,28 +243,47 @@ def test_fp32_model_parity(ref, toks):
         np.asarray(ref["model"].embed_pool(rp, rbatch)), rtol=0, atol=1e-4)
 
 
-def test_bf16_model_parity(ref, toks):
+def test_bf16_model_parity(ref, toks, monkeypatch):
     import jax.numpy as jnp
+    arch = ref["arch"]
     pp = bridge.load_model(_np_tree(ref["jax"], ref["params"]))
     assert pp["embed"].dtype == torch.bfloat16
-    assert pp["segments"][0][1]["0"]["mixer"]["w_q"].dtype == torch.bfloat16
-    want, _ = _ref_run(ref, ref["params"], jnp.asarray(toks))
-    got, _ = _port_run(_port_cfg(), pp, toks, torch.bfloat16)
-    for w, g in zip(want, got):
-        assert np.mean(np.argmax(w, -1) == np.argmax(g, -1)) >= 0.99
+    assert pp["segments"][-1][-1]["0"]["mixer"]["w_q"].dtype == \
+        torch.bfloat16
+    if arch == "deepseek-moe-16b":
+        assert [len(s) for s in pp["segments"]] == [1, 1]
+        mlp = pp["segments"][1][0]["0"]["mlp"]
+        assert mlp["router"].dtype == torch.float32
+        assert mlp["w_in"].dtype == torch.bfloat16
+        assert tuple(mlp["w_in"].shape) == (8, 64, 32)
+    tape = None
+    if arch == "deepseek-moe-16b":
+        recorded, routes = _record_routes(ref, monkeypatch)
+        want, _ = _ref_run(recorded, ref["params"], jnp.asarray(toks))
+        assert len(routes()) == T + 1     # one MoE layer: prefill + T steps
+        tape = RouteTape(force=routes())
+    else:
+        want, _ = _ref_run(ref, ref["params"], jnp.asarray(toks))
+    got, _ = _port_run(_port_cfg(arch), pp, toks, torch.bfloat16,
+                       routes=tape)
+    for i, (w, g) in enumerate(zip(want, got)):
+        _argmax_bar(w, g, _ties(arch, i))
         np.testing.assert_allclose(g, w, rtol=0.08, atol=0.08)
-    got = Model(_port_cfg()).last_logits(pp, {"tokens": torch.from_numpy(
-        toks)}).numpy()
+    if tape is not None:
+        assert len(tape.recorded) == T + 1
+    got = Model(_port_cfg(arch)).last_logits(pp, {
+        "tokens": torch.from_numpy(toks)}).numpy()
     want = np.asarray(ref["model"].last_logits(ref["params"], {
         "tokens": jnp.asarray(toks)}))
-    assert np.mean(np.argmax(want, -1) == np.argmax(got, -1)) >= 0.99
+    _argmax_bar(want, got, _ties(arch, "last_logits"))
     np.testing.assert_allclose(got, want, rtol=0.08, atol=0.08)
 
 
-def test_decode_matches_full_forward(toks):
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_full_forward(toks, arch):
     """Port twin of the reference's test_decode_matches_full_forward:
     prefill(S) + decode(token S) equals last_logits over S+1 tokens."""
-    model = Model(_port_cfg())
+    model = Model(_port_cfg(arch))
     params = model.init(0, "cpu")
     full = model.last_logits(params, {"tokens": torch.from_numpy(
         toks[:, :S + 1])}).numpy()
@@ -200,31 +323,38 @@ def _ref_serving_replica(ref, seed, batch, prompt_len, steps, max_len):
     return params, np.stack(fed), np.stack(scores, 1), int(cache["len"])
 
 
-def test_run_serving_matches_reference(ref):
+def test_run_serving_matches_reference(ref, monkeypatch):
     from repro.launch.serve import run_serving as ref_run_serving
+    arch = ref["arch"]
     kw = dict(batch=2, prompt_len=8, decode_steps=4, max_len=16, seed=0)
-    want = ref_run_serving("qwen3-8b", smoke=True, log=False, **kw)
+    want = ref_run_serving(arch, smoke=True, log=False, **kw)
+    replica, routes = ref, None
+    if arch == "deepseek-moe-16b":
+        replica, routes = _record_routes(ref, monkeypatch)
     rparams, fed, rscores, rlen = _ref_serving_replica(
-        ref, kw["seed"], kw["batch"], kw["prompt_len"], kw["decode_steps"],
-        kw["max_len"])
+        replica, kw["seed"], kw["batch"], kw["prompt_len"],
+        kw["decode_steps"], kw["max_len"])
     assert rlen == want["final_len"]
     np.testing.assert_allclose(rscores[0].mean(), want["mean_lc"], rtol=1e-6)
     np.testing.assert_allclose(rscores[3].mean(), want["mean_es"], rtol=1e-6)
 
     params = bridge.load_model(_np_tree(ref["jax"], rparams))
-    got = serve.run_serving("qwen3-8b", smoke=True, log=False, device="cpu",
+    got = serve.run_serving(arch, smoke=True, log=False, device="cpu",
                             params=params, tokens=torch.from_numpy(fed), **kw)
-    assert got["arch"] == want["arch"] == "qwen3-smoke"
+    assert got["arch"] == want["arch"] == ref["cfg"].name
     assert got["final_len"] == want["final_len"] == 12
     for key in ("mean_lc", "mean_es"):
         assert abs(got[key] - want[key]) <= 1e-2, key
     for key in ("prefill_s", "decode_s_per_step", "tokens_per_s"):
         assert got[key] > 0
 
-    # every step's scores, through the same replay
+    # every step's scores, through the same replay (and the MoE on the
+    # reference's routes)
     from repro_torch.data.synthetic import lm_pool
-    model = Model(_port_cfg())
-    prompt, _ = lm_pool(kw["batch"], kw["prompt_len"], 256, seed=kw["seed"])
+    model = Model(_port_cfg(arch), routes=None if routes is None else
+                  RouteTape(force=routes()))
+    prompt, _ = lm_pool(kw["batch"], kw["prompt_len"], ref["cfg"].vocab,
+                        seed=kw["seed"])
     cache = model.init_cache(kw["batch"], kw["max_len"], "cpu")
     cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
         prompt)}, cache)
@@ -257,8 +387,14 @@ def test_run_serving_defaults_to_cuda():
         serve.run_serving(log=False)
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid", "ssm", "audio", "vlm"])
+@pytest.mark.parametrize("family", ["mla", "hybrid", "ssm", "audio", "vlm"])
 def test_non_dense_configs_raise(family):
+    if family == "mla":
+        # deepseek-v3's MLA (a "moe" family config): the registry refuses
+        # it, and a moe-family config without its MoE sub-config too
+        with pytest.raises(KeyError, match="A12"):
+            configs.get_config("deepseek-v3-671b")
+        family = "moe"
     cfg = dataclasses.replace(qwen3_8b.smoke_config(), family=family)
     with pytest.raises(NotImplementedError, match="A12"):
         Model(cfg)
@@ -272,6 +408,10 @@ def test_registry_and_declarations():
     assert configs.get_config("qwen3-8b") is qwen3_8b.CONFIG
     with pytest.raises(KeyError, match="A12"):
         configs.get_config("deepseek-v3-671b")
+    for name, mod in configs.ALIASES.items():
+        assert configs.get_config(name) is configs.get_config(mod)
+        assert mod in configs.ARCH_IDS
+    assert set(configs.ALIASES) == set(ARCHS)
     cfg = qwen3_8b.smoke_config()
     assert (cfg.q_chunk, cfg.kv_chunk) == (16, 16)
     model = Model(cfg)
@@ -291,14 +431,91 @@ def test_registry_and_declarations():
     assert enc["embed"].dtype == torch.float32
 
 
-def test_reference_registry_fields():
+@pytest.mark.parametrize("arch", ARCHS)
+def test_reference_registry_fields(arch):
+    """Every field of the port's config (full size and smoke) equals the
+    reference's, the MoE sub-config field by field."""
     pytest.importorskip("jax")
-    from repro.configs import get_smoke_config
-    ours = configs.get_smoke_config("qwen3_8b")
-    theirs = get_smoke_config("qwen3-8b")
-    for field in dataclasses.fields(ours):
-        assert getattr(ours, field.name) == getattr(theirs, field.name), \
-            field.name
+    from repro.configs import get_config, get_smoke_config
+    for ours, theirs in ((configs.get_config(arch), get_config(arch)),
+                         (configs.get_smoke_config(arch),
+                          get_smoke_config(arch))):
+        for field in dataclasses.fields(ours):
+            mine, ref = getattr(ours, field.name), getattr(theirs, field.name)
+            if field.name == "moe" and mine is not None:
+                assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+            else:
+                assert mine == ref, field.name
+        assert (ours.moe is None) == (theirs.moe is None)
+
+
+@pytest.mark.parametrize("name", ["deepseek_v3_671b", "rwkv6-3b",
+                                  "recurrentgemma_2b", "whisper-medium",
+                                  "llava_next_34b"])
+def test_unported_archs_raise(name):
+    with pytest.raises(KeyError, match="ROADMAP A12"):
+        configs.get_config(name)
+    with pytest.raises(KeyError, match="ROADMAP A12"):
+        configs.get_smoke_config(name)
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _ref_decl_leaves(cfg):
+    """(path in the port's layout, shape, dtype name) of every leaf of the
+    reference's ``model_decls``, its stacked layer axes unstacked."""
+    from repro.common.param import ParamDecl as RefDecl
+    from repro.models.transformer import build_segments, model_decls
+    decls = model_decls(cfg)
+    out = {}
+
+    def walk(node, path, stacked):
+        if isinstance(node, RefDecl):
+            shape = node.shape[1:] if stacked else node.shape
+            for u in range(stacked or 1):
+                at = path.replace("[u]", f"[{u}]")
+                out[at] = (tuple(shape), np.dtype(node.dtype).name)
+            return
+        for k, v in node.items():
+            walk(v, f"{path}/{k}", stacked)
+    for k, v in decls.items():
+        if k != "segments":
+            walk(v, f"/{k}", 0)
+    for si, (seg, sd) in enumerate(zip(build_segments(cfg),
+                                       decls["segments"])):
+        walk(sd, f"/segments[{si}][u]", seg.count if seg.count > 1 else 0)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_dtypes_match_reference(arch):
+    """``Model.init`` gives every leaf the shape and dtype of the
+    reference's ``model_decls`` leaf at the same path (bf16, the MoE
+    router fp32), at the smoke size; at full size the port's declarations
+    do (nothing materialised)."""
+    pytest.importorskip("jax")
+    from repro.configs import get_config, get_smoke_config
+    want = _ref_decl_leaves(get_smoke_config(arch))
+    got = {p: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+           for p, t in _leaves(Model(configs.get_smoke_config(arch)).init(
+               0, "cpu"))}
+    assert got == want
+    want = _ref_decl_leaves(get_config(arch))
+    got = {p: (d.shape, str(d.dtype).replace("torch.", ""))
+           for p, d in _leaves(Model(configs.get_config(arch)).param_decls())}
+    assert got == want
+    routers = [p for p in got if p.endswith("/router")]
+    assert all(got[p][1] == "float32" for p in routers)
+    assert len(routers) == (0 if arch != "deepseek-moe-16b" else 27)
 
 
 # ------------------------------------------------------------- on the card --
@@ -325,16 +542,17 @@ def test_flash_kernel_keeps_bf16(gpu):
 
 
 @pytest.mark.cuda
-def test_serving_on_the_card_runs_every_kernel(gpu):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_on_the_card_runs_every_kernel(gpu, arch):
     """The smoke config served on the card: every kernel of the path
     launches as often as the path says, and the means stay within 1e-2 of
     the CPU run on the same weights and fed tokens."""
-    model = Model(_port_cfg())
+    model = Model(_port_cfg(arch))
     params = model.init(0, "cpu")
     kw = dict(batch=3, prompt_len=8, decode_steps=5, max_len=16, log=False)
-    cpu = serve.run_serving(device="cpu", params=params, **kw)
+    cpu = serve.run_serving(arch, device="cpu", params=params, **kw)
     from repro_torch.data.synthetic import lm_pool
-    prompt, _ = lm_pool(3, 8, 256, seed=0)
+    prompt, _ = lm_pool(3, 8, model.cfg.vocab, seed=0)
     cache = model.init_cache(3, 16, "cpu")
     cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
         prompt)}, cache)
@@ -342,7 +560,8 @@ def test_serving_on_the_card_runs_every_kernel(gpu):
     on_card = _to(params, gpu)
     for ops in (fa_ops, da_ops, unc_ops):
         ops.reset_launches()
-    out = serve.run_serving(device="cuda", params=on_card, tokens=fed, **kw)
+    out = serve.run_serving(arch, device="cuda", params=on_card, tokens=fed,
+                            **kw)
     torch.cuda.synchronize()
     layers = model.cfg.n_layers
     assert fa_ops.LAUNCHES["flash_attention"] == layers

@@ -147,6 +147,30 @@ def test_split_ref_matches_reference(ref, shape, dtype, split):
                                    rtol=tol, atol=tol, err_msg=k)
 
 
+# the padded vocabularies of the served archs other than qwen3-8b's and
+# qwen1.5-4b's 152,064: internlm2-20b, phi3-medium-14b and
+# deepseek-moe-16b (the last fp32 split is ragged: 2,560, 2,048 and 4,096
+# of 8,192 logits)
+SERVE_VOCABS = [92_672, 100_352, 102_400]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("v", SERVE_VOCABS)
+def test_split_ref_at_serve_vocabs(ref, v, dtype):
+    """The kernel's split plan and arithmetic at each served width
+    against the reference's plain version."""
+    rref, _ = ref
+    xj, xt = _logits(v, (2, v), dtype)
+    plan = ops.split_plan(2, v, xt.dtype)
+    assert plan.splits == -(-v // ops.SPLIT_ELEMS[xt.dtype])
+    got = ops.ref.uncertainty_stats_split_ref(xt, plan.split_elems)
+    want = rref.uncertainty_stats_ref(xj)
+    tol = 3e-5 if dtype == "fp32" else 2e-2
+    for k in KINDS:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=tol, atol=tol, err_msg=k)
+
+
 def test_split_ref_extreme_logits(ref):
     rref, _ = ref
     xj, xt = _logits(7, (8, 512), "fp32", scale=80.0)
@@ -238,7 +262,8 @@ def test_kernel_extreme_ties_and_rows(gpu):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 152_064), (7, 300), (3, 8_193)])
+@pytest.mark.parametrize("shape", [(16, 152_064), (7, 300), (3, 8_193)] +
+                         [(16, v) for v in SERVE_VOCABS])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_cuda_kernel_matches_split_ref(gpu, shape, dtype):
