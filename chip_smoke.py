@@ -18,13 +18,22 @@ Phases, one line each (any failure raises and exits non-zero):
             d = 4,096 (qwen3-8b-wide text features), the argmin at both
             widths under the tile plan it picks; flash attention (fp32
             kernel) over 32 masks/shapes and timed at the text path's
-            shape; the bf16 tensor-core kernel over 96 masks/shapes (D 16,
-            64, 96 padded, 128; causal or not; row bytes independent of
-            the rows launched) and at the serve path's prefill shape
-            (bf16 out), timed there; B3 (bf16), B6 and B4 also held and
-            timed at the other served archs' shapes (``at_serve_shapes``:
-            prefill H/KH 48/8, 40/10, 20/20, 16/16; their decode steps;
-            scores at 16 x 92,672, 100,352, 152,064 and 102,400);
+            shape; the bf16 tensor-core kernel over 108 masks/shapes (D 16,
+            64, 96 padded, 128 at G 1 and 4; D 256 at G 10; causal or
+            not; row bytes independent of the rows launched) and at the
+            serve path's prefill shape (bf16 out), timed there; B3
+            (bf16), B6 and B4 also held and timed at the other served
+            archs' shapes where their paths run them
+            (``at_serve_shapes``: prefill H/KH 48/8, 40/10, 20/20, 16/16
+            and recurrentgemma-2b's 10/1 at D 256, window 2,048; the
+            global-attention archs' decode steps; scores at 16 x 92,672,
+            100,352, 152,064, 102,400, 65,536 and 256,000); the
+            recurrent arithmetic's card oracles in fp32, TF32 off
+            (``recurrent_oracles``: rwkv6-3b's chunked WKV against the
+            sequential recurrence at B 16, S 512, H 40, D 64, chunk 64,
+            within WKV_TOL; recurrentgemma-2b's RG-LRU log-depth scan
+            against a stepwise float64 loop at B 16, S 512, W 2,560,
+            within SCAN_TOL; each timed);
             gated_greedy_round at 50,000 x 512, n_block 256 (ragged last
             block): live share all / ~10 % / none, pending zeros and
             seeded, R 1 and 8, weights or not, planted ties across two
@@ -152,15 +161,17 @@ Phases, one line each (any failure raises and exits non-zero):
             call (64 pool batches and the eval set's one call).
 9. serve    LLM serving with per-step uncertainty scores, one path per
             served arch (qwen3-8b, internlm2-20b, phi3-medium-14b,
-            qwen1.5-4b, deepseek-moe-16b):
+            qwen1.5-4b, deepseek-moe-16b, rwkv6-3b, recurrentgemma-2b):
             ``run_serving(arch, smoke=False)`` at full width and all
             layers in bf16 (random weights from seed 0), batch 16,
             512-token prompts, 64 greedy decode steps, cache 1,024. Launch
             counts are zeroed just before and read just after: flash
-            attention once per layer (prefill), decode attention once per
-            layer per step, uncertainty_stats once per step, the selection
-            kernels never. Then prefill + 8 teacher-forced steps through
-            the kernel path and through the plain path
+            attention once per attention layer, global or local (prefill;
+            none at rwkv6-3b, 8 at recurrentgemma-2b), decode attention
+            once per global attention layer per step (none at either
+            recurrent arch), uncertainty_stats once per step, the
+            selection kernels never. Then prefill + 8 teacher-forced
+            steps through the kernel path and through the plain path
             (``attention_impl="chunked"``, plain scores), same weights and
             tokens, held within AGREE_TOL (the MoE's plain path first
             with its own routes, the route-flip shares printed, then with
@@ -200,6 +211,7 @@ FP32_FLOPS_S = 67e12                     # H100 SXM fp32, outside tensor cores
 ATOL = 1e-5                              # fp32 values, at O(1) sq-distances
 REPS, INNER = 15, 10                     # timing samples, calls per sample
 PROFILED_CALLS = 30                      # calls under torch.profiler
+PROFILE_ATTEMPTS = 3                     # profiler sessions before events
 FOLD_ROWS = 256            # the prefilter's largest fold slice (unclumped)
 L2_BYTES = 50e6                          # H100 SXM L2
 WIDE = 4_096                             # qwen3-8b d_model: text features
@@ -224,8 +236,18 @@ DECODE_BF16_TOL = 1e-2
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 16, 512, 64, 1_024
 # the served configs, each at full width and depth in bf16; qwen3-8b first
 SERVE_ARCHS = ("qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",
-               "deepseek_moe_16b")
+               "deepseek_moe_16b", "rwkv6_3b", "recurrentgemma_2b")
 SERVE_CUR = 577                          # a decode step's cur_len, timed
+# card oracles of the recurrent arithmetic in fp32, TF32 off. The chunked
+# WKV against the sequential recurrence: max |d| <= WKV_TOL * max |out|.
+# The reference holds 2e-4 absolute at D 8, where outputs reach ~20
+# (tests/test_models.py); at rwkv6-3b's D 64 they reach ~90 and the
+# reference's own chunked path is 3.3e-4 from a float64 recurrence on the
+# CPU (3.7e-6 of the largest output), so the bound scales with the
+# outputs, with a 5x margin. The RG-LRU scan against a stepwise float64
+# loop: the reference's 1e-4 (rtol = atol), its outputs being O(1).
+WKV_TOL = 2e-5
+SCAN_TOL = 1e-4
 AGREE_STEPS = 8
 KINDS = ("lc", "mc", "rc", "es")
 
@@ -263,25 +285,35 @@ def median_ms(fn, reps=REPS, inner=INNER) -> float:
     return float(np.median(times))
 
 
-def profiled_ms(fn, key, calls=PROFILED_CALLS) -> float:
+def profiled_ms(fn, key, calls=PROFILED_CALLS,
+                attempts=PROFILE_ATTEMPTS) -> float:
     """Device time per call of the kernels whose names hold ``key``, from
     torch.profiler over ``calls`` calls of ``fn`` (after a warm-up): the
-    kernels' own durations, with no host time and no gaps."""
+    kernels' own durations, with no host time and no gaps. The profiler's
+    CUPTI trace now and then comes back without the device's kernels; such
+    a session is taken again, up to ``attempts`` in all, and if none saw
+    the kernels the time is that of CUDA events around the calls
+    (``median_ms``), logged as a ``profiler_miss``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and key in ev.key:
-            t = getattr(ev, "self_device_time_total", None)
-            us += ev.self_cuda_time_total if t is None else t
-    assert us > 0.0, f"the profiler saw no {key} kernel"
-    return us / 1e3 / calls
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and key in ev.key):
+                t = getattr(ev, "self_device_time_total", None)
+                us += ev.self_cuda_time_total if t is None else t
+        if us > 0.0:
+            return us / 1e3 / calls
+    ms = median_ms(fn)
+    log("profiler_miss", key=key, attempts=attempts, event_ms=ms)
+    return ms
 
 
 def host_us(fn, calls=PROFILED_CALLS) -> float:
@@ -326,6 +358,13 @@ def ptxas_report(logs):
 def bound(nbytes: float, flops: float, flops_s: float = FP32_FLOPS_S):
     t_b, t_f = nbytes / HBM_BYTES_S, flops / flops_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def within_scale(got, want, tol) -> float:
+    """max |got - want|, asserting it is <= tol * max |want|."""
+    d = float((got.float() - want.float()).abs().max())
+    assert d <= tol * float(want.float().abs().max()), d
+    return d
 
 
 def within(got, want, tol) -> float:
@@ -1043,14 +1082,18 @@ def time_flash(fa, dev):
 BF16_FLASH_CASES = [(hd, g, s, w, c) for hd in (16, 64, 96, 128)
                     for g in (1, 4) for s in (96, 500, 512)
                     for w in (None, 128) for c in (True, False)]
+# recurrentgemma-2b's head layout: D 256, G 10
+BF16_FLASH_CASES += [(256, 10, s, w, c) for s in (96, 500, 512)
+                     for w in (None, 128) for c in (True, False)]
 
 
 def check_flash_bf16(fa, dev):
     """The bf16 tensor-core kernel against its plain version (naive
     attention) over D in {16, 64, 96 (zero-padded to 128), 128}, G in
-    {1, 4}, S in {96, 500, 512}, window in {None, 128}, causal or not, at
-    B 2 and KH 2: out bf16 and within ATT_TOL, and each row bit-identical
-    when fewer query rows are launched. Then the qwen3-8b serve prefill
+    {1, 4}, and D 256 at G 10 (recurrentgemma-2b's layout), S in {96,
+    500, 512}, window in {None, 128}, causal or not, at B 2 and KH 2: out
+    bf16 and within ATT_TOL, and each row bit-identical when fewer query
+    rows are launched. Then the qwen3-8b serve prefill
     (``time_flash_bf16``)."""
     tol = ATT_TOL[torch.bfloat16]
     worst, cases = 0.0, 0
@@ -1077,11 +1120,13 @@ def check_flash_bf16(fa, dev):
             **time_flash_bf16(fa, dev, 32, 8, 128)}
 
 
-def time_flash_bf16(fa, dev, h, kh, hd):
+def time_flash_bf16(fa, dev, h, kh, hd, window=None):
     """The bf16 kernel at a serve prefill (B 16, S 512, the arch's H, KH
-    and D, causal): out bf16 and within ATT_TOL of the plain version, and
-    timed. Bound: the two products at the bf16 peak against q, k, v, out
-    in bf16."""
+    and D, causal, and the arch's window for local attention): out bf16
+    and within ATT_TOL of the plain version, and timed. Bound: the two
+    products at the bf16 peak against q, k, v, out in bf16, over the keys
+    the masks allow. Library: scaled_dot_product_attention, causal (with a
+    band mask where the window is shorter than the prompt)."""
     import torch.nn.functional as F
     tol = ATT_TOL[torch.bfloat16]
     b, s = SERVE_BATCH, SERVE_PROMPT
@@ -1089,22 +1134,32 @@ def time_flash_bf16(fa, dev, h, kh, hd):
     q = torch.randn((b, s, h, hd), generator=g, device=dev).bfloat16()
     k = torch.randn((b, s, kh, hd), generator=g, device=dev).bfloat16()
     v = torch.randn((b, s, kh, hd), generator=g, device=dev).bfloat16()
-    got = fa.flash_attention_auto(q, k, v, kv_chunk=s)
-    want = fa.flash_attention_auto(q, k, v, impl="ref")
+    got = fa.flash_attention_auto(q, k, v, kv_chunk=s, window=window)
+    want = fa.flash_attention_auto(q, k, v, window=window, impl="ref")
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 == want.dtype, got.dtype
     err = within(got, want, tol)
-    ms = median_ms(lambda: fa.flash_attention_auto(q, k, v, kv_chunk=s))
-    plain = median_ms(lambda: fa.flash_attention_auto(q, k, v, impl="ref"))
+    ms = median_ms(lambda: fa.flash_attention_auto(q, k, v, kv_chunk=s,
+                                                   window=window))
+    plain = median_ms(lambda: fa.flash_attention_auto(q, k, v, window=window,
+                                                      impl="ref"))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    if window is None or window >= s:     # the window allows every key
+        mask, causal, keys = None, True, s * (s + 1) / 2
+    else:
+        band = (pos[None, :] <= pos[:, None]) & \
+            (pos[None, :] > pos[:, None] - window)
+        mask, causal, keys = band, False, float(band.sum())
     library = median_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
-    flops = 4.0 * b * h * hd * s * (s + 1) / 2
+        qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True))
+    flops = 4.0 * b * h * hd * keys
     nbytes = 2.0 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
     bnd, by = bound(nbytes, flops, BF16_FLOPS_S)
     return {"max_abs_err": err,
             "out_dtype": str(got.dtype), "tolerance": tol,
-            "timed_shape": [b, s, h, kh, hd], "kv_block": "fixed 64 keys",
+            "timed_shape": [b, s, h, kh, hd], "window": window,
+            "kv_block": "fixed 64 keys",
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": library, "ms_over_library": ms / library}
 
@@ -1244,17 +1299,34 @@ def serve_layout(arch):
     return cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.padded_vocab
 
 
+def serve_attention(arch):
+    """(attention layers, global attention layers) of a served arch's full
+    config: its serve path launches flash attention once per attention
+    layer (global or local) in prefill, and decode attention once per
+    global attention layer a step (local decode is plain torch, as the
+    reference's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_segments
+    specs = [spec for seg in build_segments(get_config(arch))
+             for _ in range(seg.count) for spec in seg.unit]
+    return (sum(sp.mixer in ("attn", "attn_local") for sp in specs),
+            sum(sp.mixer == "attn" for sp in specs))
+
+
 def serve_vocabs():
     """The other served archs' padded vocabularies, qwen3-8b's left out."""
     return sorted({serve_layout(a)[3] for a in SERVE_ARCHS[1:]} - {VOCAB})
 
 
 def layout_decode():
-    """The other served archs' decode shapes (B 16, cache 1,024, cur_len
-    577, window none): G 6 (internlm2), KH 10 (phi3), G 1 (qwen1.5,
-    deepseek-moe)."""
+    """The decode shapes (B 16, cache 1,024, cur_len 577, window none) of
+    the other served archs with global attention: G 6 (internlm2), KH 10
+    (phi3), G 1 (qwen1.5, deepseek-moe). rwkv6-3b has no attention and
+    recurrentgemma-2b only local attention, so neither runs B6."""
     out = []
     for arch in SERVE_ARCHS[1:]:
+        if not serve_attention(arch)[1]:
+            continue
         h, kh, hd, _ = serve_layout(arch)
         out.append(dict(B=SERVE_BATCH, H=h, KH=kh, D=hd, S=SERVE_MAX,
                         cur=SERVE_CUR, win=None, arch=arch))
@@ -1361,18 +1433,101 @@ def time_decode(da, dev, c=QWEN3_DECODE[0]):
 
 
 def time_serve_shapes(fa, da, unc, dev):
-    """B3 (bf16), B6 and B4 timed at each other served arch's shapes (B3
-    also held there; B6's and B4's checks at these shapes are
-    ``check_decode``'s and ``check_uncertainty``'s)."""
+    """B3 (bf16), B6 and B4 timed at each other served arch's shapes,
+    each where the arch's serve path runs it: B3 at an arch with
+    attention (recurrentgemma-2b's local layers at their window, 2,048),
+    B6 at one with global attention, B4 at every arch (B3 also held
+    there; B6's and B4's checks at these shapes are ``check_decode``'s
+    and ``check_uncertainty``'s)."""
+    from repro_torch.configs import get_config
+    decode = {c["arch"]: c for c in layout_decode()}
     out = {}
-    for c in layout_decode():
-        h, kh, hd, vocab = serve_layout(c["arch"])
-        out[c["arch"]] = {
-            "flash_attention_bf16": time_flash_bf16(fa, dev, h, kh, hd),
-            "decode_attention": time_decode(da, dev, c),
-            "uncertainty_stats": time_uncertainty(
-                unc, dev, vocab, (SERVE_BATCH,))[SERVE_BATCH]}
+    for arch in SERVE_ARCHS[1:]:
+        h, kh, hd, vocab = serve_layout(arch)
+        cfg, row = get_config(arch), {}
+        if serve_attention(arch)[0]:
+            window = None if cfg.griffin is None else cfg.griffin.window
+            row["flash_attention_bf16"] = time_flash_bf16(fa, dev, h, kh, hd,
+                                                          window)
+        if arch in decode:
+            row["decode_attention"] = time_decode(da, dev, decode[arch])
+        row["uncertainty_stats"] = time_uncertainty(
+            unc, dev, vocab, (SERVE_BATCH,))[SERVE_BATCH]
+        out[arch] = row
     return out
+
+
+def check_recurrent(dev):
+    """Card oracles of the recurrent arithmetic at the full widths, fp32
+    with TF32 off (the WKV and the gates are fp32 matmuls): the chunked
+    WKV against the sequential recurrence for one rwkv6-3b layer at its
+    prefill (B 16, S 512, H 40, D 64, chunk 64; the reference's test's
+    inputs: N(0, 1) r, k, v, log w = -exp(N(0, 0.5)), bonus N(0, 0.2), a
+    carried state N(0, 0.3)), outputs and final state within WKV_TOL of
+    their largest magnitude; and
+    the RG-LRU log-depth scan against a stepwise float64 loop at
+    recurrentgemma-2b's prefill (B 16, S 512, W 2,560, a carried h0), at
+    every position within SCAN_TOL. Each path timed (CUDA events), the
+    scan also against a stepwise fp32 loop (the alternative to the
+    log-depth scan)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import rglru, rwkv
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    g = torch.Generator(device=dev).manual_seed(12)
+    rc = get_config("rwkv6_3b")
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    H, D = rc.d_model // rc.rwkv.head_dim, rc.rwkv.head_dim
+
+    def randn(shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    r, k, v = (randn((B, S, H, D)) for _ in range(3))
+    log_w = -torch.exp(randn((B, S, H, D), 0.5))
+    bonus, s0 = randn((H, D), 0.2), randn((B, H, D, D), 0.3)
+    args = (r, k, v, log_w, bonus, s0)
+    o1, st1 = rwkv.wkv_sequential(*args)
+    o2, st2 = rwkv.wkv_chunked(*args, rc.rwkv.chunk)
+    torch.cuda.synchronize()
+    wkv = {"shape": [B, S, H, D], "chunk": rc.rwkv.chunk,
+           "tolerance_of_max": WKV_TOL,
+           "max_abs_err": within_scale(o2, o1, WKV_TOL),
+           "state_max_abs_err": within_scale(st2, st1, WKV_TOL),
+           "out_abs_max": float(o1.abs().max()),
+           "state_abs_max": float(st1.abs().max()),
+           "chunked_ms": median_ms(lambda: rwkv.wkv_chunked(
+               *args, rc.rwkv.chunk), reps=5, inner=2),
+           "sequential_ms": median_ms(lambda: rwkv.wkv_sequential(*args),
+                                      reps=3, inner=1)}
+    del r, k, v, log_w, args, o1, o2
+    W = get_config("recurrentgemma_2b").griffin.lru_width
+    log_a = -torch.exp(randn((B, S, W), 0.5))
+    gated, h0 = randn((B, S, W)), randn((B, W))
+    got = rglru.rglru_scan(log_a, gated, h0)
+    a = torch.exp(log_a.double())
+    b = torch.sqrt(torch.clamp_min(1 - a * a, 0)) * gated.double()
+    h, want = h0.double(), []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        want.append(h)
+    want = torch.stack(want, 1)
+    torch.cuda.synchronize()
+
+    def stepwise32():
+        a32 = torch.exp(log_a)
+        b32 = torch.sqrt(torch.clamp_min(1 - a32 * a32, 0)) * gated
+        hh, hs = h0, []
+        for t in range(S):
+            hh = a32[:, t] * hh + b32[:, t]
+            hs.append(hh)
+        return torch.stack(hs, 1)
+    scan = {"shape": [B, S, W], "tolerance": SCAN_TOL,
+            "max_abs_err": within(got, want, SCAN_TOL),
+            "out_abs_max": float(want.abs().max()),
+            "log_depth_ms": median_ms(lambda: rglru.rglru_scan(
+                log_a, gated, h0), reps=5, inner=4),
+            "stepwise_fp32_ms": median_ms(stepwise32, reps=3, inner=1)}
+    return {"wkv_chunked_vs_sequential": wkv,
+            "rglru_scan_vs_stepwise": scan}
 
 
 # ---------------------------------------------------------------- server --
@@ -2231,8 +2386,9 @@ def run_serve(counters, arch):
         launches.update(counts)
     peak = torch.cuda.max_memory_allocated()
     n_layers = cfg.n_layers
-    assert launches["flash_attention"] == n_layers, launches
-    assert launches["decode_attention"] == n_layers * SERVE_STEPS, launches
+    attn, glob = serve_attention(arch)
+    assert launches["flash_attention"] == attn, launches
+    assert launches["decode_attention"] == glob * SERVE_STEPS, launches
     assert launches["uncertainty_stats"] == SERVE_STEPS, launches
     assert launches["greedy_round"] == launches["pairwise_min_argmin"] == 0
     assert out["final_len"] == SERVE_PROMPT + SERVE_STEPS, out
@@ -2243,9 +2399,11 @@ def run_serve(counters, arch):
         peak_allocated_gb=peak / 1e9, launches=launches,
         shape={"batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
                "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX,
-               "layers": n_layers, "heads": [cfg.n_heads, cfg.n_kv_heads],
+               "layers": n_layers, "attention_layers": attn,
+               "global_attention_layers": glob, "family": cfg.family,
+               "heads": [cfg.n_heads, cfg.n_kv_heads],
                "padded_vocab": cfg.padded_vocab, "moe": cfg.moe is not None,
-               "dtype": "bfloat16"})
+               "soft_cap": cfg.logits_soft_cap, "dtype": "bfloat16"})
     return launches
 
 
@@ -2484,6 +2642,7 @@ def run(tune_dir, kernels_only=False) -> int:
     d_err, d_cases = check_decode(da, dev)
     d_time = time_decode(da, dev)
     at_serve = time_serve_shapes(fa, da, unc, dev)
+    recurrent = check_recurrent(dev)
     gt_err, gt_cases = check_gated(ops, dev, rng)
     gt_forms = check_gated_forms(ops, dev, rng)
     gt_time = time_gated(ops, dev, rng)
@@ -2532,7 +2691,7 @@ def run(tune_dir, kernels_only=False) -> int:
                             "live_10": gt_time[0.1],
                             "engine_wave": {"live_100": gt_wave[1.0],
                                             "live_10": gt_wave[0.1]}},
-        at_serve_shapes=at_serve)
+        at_serve_shapes=at_serve, recurrent_oracles=recurrent)
     if kernels_only:
         return 0
 
@@ -2619,17 +2778,19 @@ def run(tune_dir, kernels_only=False) -> int:
     flash.update({"bf16_" + k: f_bf16[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")})
-    # B3 (bf16), B6 and B4 at the other served archs' shapes
+    # B3 (bf16), B6 and B4 at the other served archs' shapes, where their
+    # serve paths run them
     for row in kernels:
         key = ("flash_attention_bf16" if row["name"] == "flash_attention"
                else row["name"])
-        if key in at_serve[SERVE_ARCHS[1]]:
+        archs = [a for a in SERVE_ARCHS[1:] if key in at_serve[a]]
+        if archs:
             row["at_serve_shapes"] = {
                 arch: {k: v for k, v in at_serve[arch][key].items()
-                       if k in ("timed_shape", "max_abs_err", "ms",
+                       if k in ("timed_shape", "window", "max_abs_err", "ms",
                                 "device_ms", "plain_ms", "bound_ms",
                                 "library_ms")}
-                for arch in SERVE_ARCHS[1:]}
+                for arch in archs}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,9 @@ numpy arrays only, so it needs nothing of the reference package:
 * ``load_mlp``: an MLP backend's ``w1``/``w2``.
 * ``load_encoder``: an ``init_encoder`` tree into a TransformerBackend,
   its stacked layer axis unstacked.
-* ``load_model``: a ``Model.init`` tree of the dense or MoE LM into the
-  port's ``models.transformer`` tree, every dtype kept (bf16 stays bf16,
-  the MoE router fp32).
+* ``load_model``: a ``Model.init`` tree of the dense, MoE, RWKV or
+  Griffin LM into the port's ``models.transformer`` tree, every dtype kept
+  (bf16 stays bf16, the MoE router fp32).
 * ``head_state`` / ``set_initial_head``: a softmax head (trained, or the
   reference's ``init_head()`` that every fit starts from).
 """
@@ -124,12 +124,14 @@ def _tensor(a, device) -> torch.Tensor:
 
 def load_model(params: Mapping[str, Any], device="cpu"):
     """The port's parameter tree for a reference ``Model.init`` tree of
-    the dense or MoE LM, given as numpy arrays. A segment of ``count > 1``
-    units carries a leading ``layer`` axis on every leaf, unstacked here
-    into a list of ``count`` units (an expert weight ``(L, E, d, F)``
-    becomes ``(E, d, F)`` a unit); a segment of one unit has none (a MoE
-    config's ``first_dense`` segment, or any segment of a two-layer smoke
-    config). Every leaf keeps its dtype."""
+    the dense, MoE, RWKV or Griffin LM, given as numpy arrays. A segment of
+    ``count > 1`` units carries a leading ``layer`` axis on every leaf,
+    unstacked here into a list of ``count`` units (an expert weight ``(L,
+    E, d, F)`` becomes ``(E, d, F)`` a unit, an RWKV ``mu`` ``(L, 5, d)``
+    becomes ``(5, d)``); a segment of one unit has none (a MoE config's
+    ``first_dense`` segment, Griffin's remainder segment ``(rec, rec)``,
+    or any segment of a smoke config with one unit). Every leaf keeps its
+    dtype."""
     def tree(node, pick):
         if isinstance(node, Mapping):
             return {k: tree(v, pick) for k, v in node.items()}

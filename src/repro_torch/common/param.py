@@ -5,8 +5,10 @@ Only the recipe carries over: ``torch.Generator`` cannot reproduce
 ``jax.random``, so equal weights come only through ``repro_torch.bridge``.
 A normal draw has std 1/sqrt(fan_in), fan-in being every axis but the last
 (the port keeps no stacked ``layer`` axis in its weights, which the
-reference leaves out of fan-in anyway); the embedding has std 0.02; norm
-scales are ones and biases zeros. Draws are rounded to bf16, the
+reference leaves out of fan-in anyway), or ``scale`` where the declaration
+names one; the embedding has std 0.02 (or ``scale``); a ``"uniform"`` draw
+is U(-lim, lim) with lim = ``scale``, else sqrt(1/fan_in); norm scales are
+ones and biases zeros. Draws are rounded to bf16, the
 reference's parameter dtype, and then held in ``dtype``: fp32 for the
 blockwise encoder (which computes in fp32), bf16 for the LM and its KV
 cache, as the reference holds them. A declaration that names no dtype
@@ -25,8 +27,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
-    init: str = "normal"          # normal | zeros | ones | embed
+    init: str = "normal"          # normal | zeros | ones | embed | uniform
     dtype: Optional[torch.dtype] = None     # None: the tree's, else fp32
+    scale: Optional[float] = None  # std (or uniform limit) override
 
     @property
     def held(self) -> torch.dtype:
@@ -42,8 +45,17 @@ def init_one(decl: ParamDecl, g: torch.Generator, device) -> torch.Tensor:
         return torch.zeros(decl.shape, dtype=decl.held, device=device)
     if decl.init == "ones":
         return torch.ones(decl.shape, dtype=decl.held, device=device)
-    std = 0.02 if decl.init == "embed" else 1.0 / math.sqrt(fan_in(decl.shape))
-    x = torch.randn(decl.shape, generator=g, device=device) * std
+    scale = decl.scale
+    if decl.init == "uniform":
+        lim = scale if scale is not None else math.sqrt(
+            1.0 / fan_in(decl.shape))
+        x = (torch.rand(decl.shape, generator=g, device=device) * 2.0
+             - 1.0) * lim
+    else:
+        if scale is None:
+            scale = (0.02 if decl.init == "embed"
+                     else 1.0 / math.sqrt(fan_in(decl.shape)))
+        x = torch.randn(decl.shape, generator=g, device=device) * scale
     return x.to(torch.bfloat16).to(decl.held)
 
 

@@ -3,22 +3,29 @@
 """Arch config registry: ``get_config(name)`` / ``get_smoke_config(name)``.
 
 A name is the module's (``"qwen3_8b"``) or the reference's canonical id
-(``"qwen3-8b"``). The ported archs are the dense ones and deepseek-moe;
-the others (MLA, RWKV, RG-LRU, the enc-dec and patch frontends) raise
-``KeyError``."""
+(``"qwen3-8b"``). The ported archs are the dense ones, deepseek-moe,
+rwkv6-3b and recurrentgemma-2b; the others (MLA, the enc-dec and patch
+frontends) raise ``KeyError``."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, MoEConfig, pad_to  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig,
+    GriffinConfig,
+    MoEConfig,
+    RWKVConfig,
+    pad_to,
+)
 
 ARCH_IDS = ["qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",
-            "deepseek_moe_16b"]
+            "deepseek_moe_16b", "rwkv6_3b", "recurrentgemma_2b"]
 
 # canonical ids -> module names
 ALIASES = {"qwen3-8b": "qwen3_8b", "internlm2-20b": "internlm2_20b",
            "phi3-medium-14b": "phi3_medium_14b", "qwen1.5-4b": "qwen15_4b",
-           "deepseek-moe-16b": "deepseek_moe_16b"}
+           "deepseek-moe-16b": "deepseek_moe_16b", "rwkv6-3b": "rwkv6_3b",
+           "recurrentgemma-2b": "recurrentgemma_2b"}
 
 
 def _module(name: str):

@@ -1,13 +1,13 @@
-# Copied from repro/configs/base.py: MoEConfig, ArchConfig, pad_to and the
-# two properties the encoder and the decode stack use (hd, padded_vocab),
-# with the fields the dense and MoE stacks read: q_chunk and kv_chunk
-# (prefill attention) and moe. The LM head is always untied and uncapped:
-# tie_embeddings and logits_soft_cap come back with the first config that
-# sets them (ROADMAP A12). Dropped: the MLA, RWKV and Griffin sub-configs,
-# the enc-dec, patch and MTP fields, n_params, tp_friendly, active_params
-# and the dry-run shapes, which only the TPU dry run and the rest of the
-# LLM stack use (ROADMAP A12); and the remat knob, which inference has no
-# use for.
+# Copied from repro/configs/base.py: MoEConfig, RWKVConfig, GriffinConfig,
+# ArchConfig, pad_to and the two properties the encoder and the decode
+# stack use (hd, padded_vocab), with the fields the ported stacks read:
+# q_chunk and kv_chunk (prefill attention), moe, rwkv, griffin and
+# logits_soft_cap. The LM head is always untied: tie_embeddings comes back
+# with the first config that sets it (ROADMAP A12). Dropped: the MLA
+# sub-config, the enc-dec, patch and MTP fields, n_params, tp_friendly,
+# active_params, subquadratic and the dry-run shapes, which only the TPU
+# dry run and the rest of the LLM stack use (ROADMAP A12); and the remat
+# knob, which inference has no use for.
 """Architecture configuration.
 
 One ``ArchConfig`` describes a backbone; each arch file under
@@ -17,7 +17,7 @@ One ``ArchConfig`` describes a backbone; each arch file under
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def pad_to(x: int, m: int) -> int:
@@ -38,9 +38,27 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_dim: int = 64
+    decay_lora: int = 64
+    mix_lora: int = 32
+    chunk: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class GriffinConfig:
+    """RecurrentGemma block pattern: (rec, rec, attn) repeating."""
+    lru_width: int = 2560
+    conv_width: int = 4
+    pattern: Tuple[str, ...] = ("rec", "rec", "attn")
+    window: int = 2048            # local attention window
+    c_const: float = 8.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense | moe (the families ported)
+    family: str                   # dense | moe | ssm | hybrid (ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,6 +73,9 @@ class ArchConfig:
     mlp: str = "swiglu"           # swiglu | gelu
     norm_eps: float = 1e-6
     moe: Optional[MoEConfig] = None
+    rwkv: Optional[RWKVConfig] = None
+    griffin: Optional[GriffinConfig] = None
+    logits_soft_cap: Optional[float] = None
     # runtime knobs
     q_chunk: int = 512
     kv_chunk: int = 1024

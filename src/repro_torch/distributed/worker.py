@@ -144,7 +144,7 @@ def _process_main(conn):
         name, payload = msg
         try:
             conn.send(("ok", _JOBS[name](payload, cache)))
-        except Exception as e:  # ship the failure, keep serving
+        except BaseException as e:  # ship the failure, keep serving
             conn.send(("err", f"{type(e).__name__}: {e}"))
 
 

@@ -7,14 +7,19 @@ uncertainty scoring, in the serving path itself), so an AL sweep over a
 pool is just "serve the pool, keep the scores".
 
 ``--arch`` names a ported config by module name or canonical id:
-``qwen3_8b``, ``internlm2_20b``, ``phi3_medium_14b``, ``qwen15_4b`` (the
-dense stack) or ``deepseek_moe_16b`` (token-choice MoE); ``--full`` serves
-its full-size config, else its smoke config.
+``rwkv6_3b`` (RWKV6, the default, as the reference's), ``qwen3_8b``,
+``internlm2_20b``, ``phi3_medium_14b``, ``qwen15_4b`` (the dense stack),
+``deepseek_moe_16b`` (token-choice MoE) or ``recurrentgemma_2b`` (RG-LRU
+with local attention and the logit soft cap); ``--full`` serves its
+full-size config, else its smoke config.
 
-On the card every kernel of the path runs: flash attention in prefill,
-decode attention in every layer of every step, and the uncertainty-stats
-pass over every step's logits. Scores and tokens stay on the device until
-the loop ends; the only host syncs are the timers'.
+On the card every kernel of the path runs: flash attention in the
+prefill of every attention layer (global or local), decode attention in
+every global attention layer of every step, and the uncertainty-stats
+pass over every step's logits (rwkv6-3b has no attention, so it runs the
+last alone; recurrentgemma-2b's local decode is plain torch, as the
+reference's). Scores and tokens stay on the device until the loop ends;
+the only host syncs are the timers'.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen15_4b \\
       --batch 4 --prompt-len 32 --decode-steps 16 [--device cpu] [--full]
@@ -59,7 +64,7 @@ def serve_steps(model: Model, params, cache, logits, steps: int, feed=None):
     return scores, torch.stack(fed)
 
 
-def run_serving(arch: str = "qwen3_8b", *, smoke: bool = True,
+def run_serving(arch: str = "rwkv6-3b", *, smoke: bool = True,
                 batch: int = 4, prompt_len: int = 32, decode_steps: int = 16,
                 max_len: int = 128, seed: int = 0, log: bool = True,
                 device="cuda", params=None, tokens=None) -> dict:
@@ -118,7 +123,7 @@ def run_serving(arch: str = "qwen3_8b", *, smoke: bool = True,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3_8b")
+    ap.add_argument("--arch", default="rwkv6-3b")
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

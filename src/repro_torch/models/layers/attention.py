@@ -1,7 +1,7 @@
 """GQA attention: naive, chunked (online softmax in plain PyTorch), the
-dispatcher, and single-token decode over a KV cache (port of
-repro/models/layers/attention.py; ``decode_attention_pos``, the ring
-buffer of local attention, waits for ROADMAP A12).
+dispatcher, single-token decode over a KV cache, and single-token decode
+over local attention's ring buffer (``decode_attention_pos``) (port of
+repro/models/layers/attention.py).
 
 Layouts are the reference's: q (B, Sq, H, D), k and v (B, Skv, KH, D);
 query head h reads KV head h // G, G = H / KH. Weights stay 2-D
@@ -166,6 +166,33 @@ def decode_attention(q, k_cache, v_cache, cur_len, *,
     ok = k_pos < cur_len
     if window is not None:
         ok &= k_pos > cur_len - 1 - window
+    s = torch.where(ok[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention_pos(q, k_cache, v_cache, k_pos, cur_pos,
+                         window: Optional[int] = None,
+                         scale: Optional[float] = None):
+    """Decode over a ring buffer with explicit key positions.
+
+    q: (B,1,H,D); caches: (B,W,KH,D); k_pos: (W,) int32, -1 = empty slot;
+    cur_pos: 0-d int tensor (the current token's position, on the caches'
+    device: no host sync). Plain torch, as the reference computes it (its
+    local decode is jnp, not a kernel): q rounded to the cache dtype and the
+    probabilities to the V dtype before their products.
+    """
+    B, _, H, D = q.shape
+    KH = k_cache.shape[2]
+    G = H // KH
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.reshape(B, KH, G, D).to(k_cache.dtype)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
+    ok = (k_pos >= 0) & (k_pos <= cur_pos)
+    if window is not None:
+        ok &= k_pos > cur_pos - window
     s = torch.where(ok[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),

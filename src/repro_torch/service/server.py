@@ -1020,7 +1020,7 @@ class ALSession:
             try:
                 self._standing_emit_locked(sq)
                 sq.error = None
-            except Exception as e:
+            except BaseException as e:
                 sq.error = e
 
     def _standing_emit_locked(self, sq: StandingQuery) -> None:

@@ -1,11 +1,19 @@
 """Port parity: repro_torch's LM (``models/transformer.py``) and its
 serving entry point (``launch/serve.py``) against repro's, on the smoke
-configs of the five ported archs (2 layers, d_model 64, vocab 256 each):
+configs of the seven ported archs (d_model 64, vocab 256 each):
 qwen3-8b (GQA 4/2, qk_norm), internlm2-20b and phi3-medium-14b (GQA 4/2),
-qwen1.5-4b (MHA 4/4 with qkv bias: the port's test of ``qkv_bias``) and
+qwen1.5-4b (MHA 4/4 with qkv bias: the port's test of ``qkv_bias``),
 deepseek-moe-16b (one dense layer, then one token-choice MoE layer: 8
-experts top-2, a shared expert, groups of 64), with the reference's
-weights carried over by ``bridge.load_model``.
+experts top-2, a shared expert, groups of 64), rwkv6-3b (2 RWKV6 layers,
+4 heads of 16, chunk 16, LayerNorm) and recurrentgemma-2b (6 layers, two
+units of (rec, rec, attn_local): RG-LRU width 64, local GQA 4/1 over a
+16-slot ring, which the 20 positions of these tests wrap, and the logit
+soft cap 30: the port's test of ``logits_soft_cap``), with the
+reference's weights carried over by ``bridge.load_model``. The terms the
+reference initialises to zero (qwen1.5's qkv biases, RWKV's token-shift
+mixes ``mu_x``/``mu``/``mu_k``/``mu_r`` and ``gn_bias``, RG-LRU's
+``conv_b`` and gate biases) are drawn from N(0, 0.5) in both trees, so
+that a port that drops or misplaces one fails.
 
 (a) fp32: the reference's params and cache cast to fp32 (every reference
     cast follows its input dtype, so it then computes in fp32). prefill,
@@ -19,7 +27,10 @@ weights carried over by ``bridge.load_model``.
     either of the reference's top two: the reference's top two logits
     there lie within one bf16 step of each other, and the port picks the
     runner-up. Every other row of every arch counts as the reference's
-    bar counts it. Also, for the dense archs, the port's prefill +
+    bar counts it. rwkv6-3b and recurrentgemma-2b are held to the
+    reference's fp32 run instead, with its own bf16 run as the yardstick
+    (``_bf16_noise_bar``: their bf16 noise exceeds the 0.08 bar between
+    any two roundings). Also, for every arch but the MoE, the port's prefill +
     decode_step against its own last_logits over S+1 tokens. Not for the
     MoE: a decode step routes B tokens as one group of capacity
     max(..., top_k), the full forward B*(S+1) tokens in other groups, so
@@ -31,8 +42,6 @@ weights carried over by ``bridge.load_model``.
     ``_dispatch_combine`` by a callback, through the port's ``routes=``
     seam; so does (c)'s per-step replay (one prefill route differs
     there too).
-    qwen1.5's q, k and v biases are drawn from N(0, 0.5) in both trees
-    (the reference declares them zero), so (a) and (b) test ``qkv_bias``.
 (c) End to end: the port's ``run_serving(smoke=True, device="cpu")``
     against the reference's at the same seed, batch, lengths and weights,
     with the reference's fed tokens replayed so that a near-tie cannot
@@ -65,8 +74,11 @@ SCORE_TOL = {"lc": 1e-2, "mc": 1e-2, "rc": 6e-2, "es": 1e-2}
 
 
 ARCHS = ["qwen3-8b", "internlm2-20b", "phi3-medium-14b", "qwen1.5-4b",
-         "deepseek-moe-16b"]
-DENSE = [a for a in ARCHS if a != "deepseek-moe-16b"]
+         "deepseek-moe-16b", "rwkv6-3b", "recurrentgemma-2b"]
+NOT_MOE = [a for a in ARCHS if a != "deepseek-moe-16b"]
+# leaves the reference initialises to zero, drawn non-zero in both trees
+DRAWN = ("b_q", "b_k", "b_v", "mu_x", "mu", "mu_k", "mu_r", "gn_bias",
+         "conv_b", "gate_a_b", "gate_x_b")
 
 
 def _port_cfg(arch="qwen3-8b", impl="pallas"):
@@ -82,16 +94,15 @@ def ref(request):
     cfg = get_smoke_config(request.param)
     model = RefModel(cfg)
     params = model.init(jax.random.PRNGKey(0))
-    if cfg.qkv_bias:
-        # the reference declares the biases zero: draw them, so that a port
-        # that drops or misplaces one fails
-        rng = np.random.default_rng(2)
+    # the reference declares these zero: draw them, so that a port that
+    # drops or misplaces one fails
+    rng = np.random.default_rng(2)
 
-        def draw(path, a):
-            if path[-1].key not in ("b_q", "b_k", "b_v"):
-                return a
-            return jax.numpy.asarray(rng.normal(0.0, 0.5, a.shape), a.dtype)
-        params = jax.tree_util.tree_map_with_path(draw, params)
+    def draw(path, a):
+        if getattr(path[-1], "key", None) not in DRAWN:
+            return a
+        return jax.numpy.asarray(rng.normal(0.0, 0.5, a.shape), a.dtype)
+    params = jax.tree_util.tree_map_with_path(draw, params)
     return {"jax": jax, "arch": request.param, "cfg": cfg, "model": model,
             "params": params,
             "prefill": jax.jit(model.prefill),
@@ -248,8 +259,8 @@ def test_bf16_model_parity(ref, toks, monkeypatch):
     arch = ref["arch"]
     pp = bridge.load_model(_np_tree(ref["jax"], ref["params"]))
     assert pp["embed"].dtype == torch.bfloat16
-    assert pp["segments"][-1][-1]["0"]["mixer"]["w_q"].dtype == \
-        torch.bfloat16
+    assert {t.dtype for _, t in _leaves(
+        pp["segments"][-1][-1]["0"]["mixer"])} == {torch.bfloat16}
     if arch == "deepseek-moe-16b":
         assert [len(s) for s in pp["segments"]] == [1, 1]
         mlp = pp["segments"][1][0]["0"]["mlp"]
@@ -266,20 +277,62 @@ def test_bf16_model_parity(ref, toks, monkeypatch):
         want, _ = _ref_run(ref, ref["params"], jnp.asarray(toks))
     got, _ = _port_run(_port_cfg(arch), pp, toks, torch.bfloat16,
                        routes=tape)
+    if tape is not None:
+        assert len(tape.recorded) == T + 1
+    last = Model(_port_cfg(arch)).last_logits(pp, {
+        "tokens": torch.from_numpy(toks)}).numpy()
+    want_last = np.asarray(ref["model"].last_logits(ref["params"], {
+        "tokens": jnp.asarray(toks)}))
+    if arch in RECURRENT:
+        rp = ref["jax"].tree.map(lambda a: a.astype(jnp.float32),
+                                 ref["params"])
+        exact, _ = _ref_run(ref, rp, jnp.asarray(toks),
+                            cache_dtype=jnp.float32)
+        exact.append(np.asarray(ref["model"].last_logits(rp, {
+            "tokens": jnp.asarray(toks)})))
+        _bf16_noise_bar(np.stack(want + [want_last]),
+                        np.stack(got + [last]), np.stack(exact))
+        return
     for i, (w, g) in enumerate(zip(want, got)):
         _argmax_bar(w, g, _ties(arch, i))
         np.testing.assert_allclose(g, w, rtol=0.08, atol=0.08)
-    if tape is not None:
-        assert len(tape.recorded) == T + 1
-    got = Model(_port_cfg(arch)).last_logits(pp, {
-        "tokens": torch.from_numpy(toks)}).numpy()
-    want = np.asarray(ref["model"].last_logits(ref["params"], {
-        "tokens": jnp.asarray(toks)}))
-    _argmax_bar(want, got, _ties(arch, "last_logits"))
-    np.testing.assert_allclose(got, want, rtol=0.08, atol=0.08)
+    _argmax_bar(want_last, last, _ties(arch, "last_logits"))
+    np.testing.assert_allclose(last, want_last, rtol=0.08, atol=0.08)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+# The recurrent archs' bf16 logits carry more rounding noise than the
+# others' at the smoke size: the reference's own bf16 run differs from its
+# fp32 run by up to 0.25 (rwkv6-3b: every cast is the reference's, and the
+# WKV's fp32 inputs are bf16 products), where the dense archs stay within
+# 0.06. Two implementations that round in different places (XLA fuses the
+# bf16 elementwise chains and keeps their excess precision on the CPU; the
+# port rounds each op) then differ by more than the 0.08 bar, though each
+# is as close to the exact model as the other. So these archs' bf16 runs
+# are held to the exact model, the reference's fp32 run, with the
+# reference's own bf16 run as the yardstick.
+RECURRENT = ("rwkv6-3b", "recurrentgemma-2b")
+
+
+def _bf16_noise_bar(want, got, exact):
+    """(steps, B, V) logits of the reference in bf16, the port in bf16 and
+    the reference in fp32. The port's mean |error| against fp32 is within
+    1.1x the reference's and its largest within 1.25x the reference's
+    largest; every row whose fp32 top-2 gap exceeds twice the reference's
+    largest bf16 error (no rounding at this noise can flip it) has the
+    reference's argmax, and the rows agree at >= 0.9 overall."""
+    ref_err, port_err = np.abs(want - exact), np.abs(got - exact)
+    assert port_err.mean() <= 1.1 * ref_err.mean(), (port_err.mean(),
+                                                     ref_err.mean())
+    assert port_err.max() <= 1.25 * ref_err.max(), (port_err.max(),
+                                                   ref_err.max())
+    top2 = np.sort(exact, -1)[..., -2:]
+    sure = top2[..., 1] - top2[..., 0] > 2.0 * ref_err.max()
+    agree = np.argmax(want, -1) == np.argmax(got, -1)
+    assert sure.any() and agree[sure].all()
+    assert agree.mean() >= 0.9
+
+
+@pytest.mark.parametrize("arch", NOT_MOE)
 def test_decode_matches_full_forward(toks, arch):
     """Port twin of the reference's test_decode_matches_full_forward:
     prefill(S) + decode(token S) equals last_logits over S+1 tokens."""
@@ -371,7 +424,8 @@ def test_run_serving_matches_reference(ref, monkeypatch):
 def test_run_serving_greedy_on_cpu():
     out = serve.run_serving(batch=3, prompt_len=5, decode_steps=4,
                             max_len=9, device="cpu", log=False)
-    assert out["arch"] == "qwen3-smoke" and out["final_len"] == 9
+    # the default arch is the reference's, rwkv6-3b
+    assert out["arch"] == "rwkv6-smoke" and out["final_len"] == 9
     assert 0.0 <= out["mean_lc"] <= 1.0 and np.isfinite(out["mean_es"])
     with pytest.raises(ValueError, match="max_len"):
         serve.run_serving(prompt_len=5, decode_steps=5, max_len=9,
@@ -434,7 +488,7 @@ def test_registry_and_declarations():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reference_registry_fields(arch):
     """Every field of the port's config (full size and smoke) equals the
-    reference's, the MoE sub-config field by field."""
+    reference's, the MoE, RWKV and Griffin sub-configs field by field."""
     pytest.importorskip("jax")
     from repro.configs import get_config, get_smoke_config
     for ours, theirs in ((configs.get_config(arch), get_config(arch)),
@@ -442,15 +496,17 @@ def test_reference_registry_fields(arch):
                           get_smoke_config(arch))):
         for field in dataclasses.fields(ours):
             mine, ref = getattr(ours, field.name), getattr(theirs, field.name)
-            if field.name == "moe" and mine is not None:
+            if field.name in ("moe", "rwkv", "griffin") and \
+                    mine is not None:
                 assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
             else:
                 assert mine == ref, field.name
-        assert (ours.moe is None) == (theirs.moe is None)
+        for sub in ("moe", "rwkv", "griffin"):
+            assert (getattr(ours, sub) is None) == \
+                (getattr(theirs, sub) is None), sub
 
 
-@pytest.mark.parametrize("name", ["deepseek_v3_671b", "rwkv6-3b",
-                                  "recurrentgemma_2b", "whisper-medium",
+@pytest.mark.parametrize("name", ["deepseek_v3_671b", "whisper-medium",
                                   "llava_next_34b"])
 def test_unported_archs_raise(name):
     with pytest.raises(KeyError, match="ROADMAP A12"):
@@ -545,8 +601,10 @@ def test_flash_kernel_keeps_bf16(gpu):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serving_on_the_card_runs_every_kernel(gpu, arch):
     """The smoke config served on the card: every kernel of the path
-    launches as often as the path says, and the means stay within 1e-2 of
-    the CPU run on the same weights and fed tokens."""
+    launches as often as the path says (flash once per attention layer,
+    global or local; decode attention once per global attention layer a
+    step; the scores once a step), and the means stay within 1e-2 of the
+    CPU run on the same weights and fed tokens."""
     model = Model(_port_cfg(arch))
     params = model.init(0, "cpu")
     kw = dict(batch=3, prompt_len=8, decode_steps=5, max_len=16, log=False)
@@ -563,9 +621,12 @@ def test_serving_on_the_card_runs_every_kernel(gpu, arch):
     out = serve.run_serving(arch, device="cuda", params=on_card, tokens=fed,
                             **kw)
     torch.cuda.synchronize()
-    layers = model.cfg.n_layers
-    assert fa_ops.LAUNCHES["flash_attention"] == layers
-    assert da_ops.LAUNCHES["decode_attention"] == layers * 5
+    specs = [spec for seg in transformer.build_segments(model.cfg)
+             for _ in range(seg.count) for spec in seg.unit]
+    attn = sum(spec.mixer in ("attn", "attn_local") for spec in specs)
+    glob = sum(spec.mixer == "attn" for spec in specs)
+    assert fa_ops.LAUNCHES["flash_attention"] == attn
+    assert da_ops.LAUNCHES["decode_attention"] == glob * 5
     assert unc_ops.LAUNCHES["uncertainty_stats"] == 5
     assert out["final_len"] == cpu["final_len"] == 13
     for key in ("mean_lc", "mean_es"):

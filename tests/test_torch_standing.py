@@ -281,6 +281,47 @@ def test_failed_emit_parks_on_query_not_worker(monkeypatch):
     srv.close()
 
 
+class _Interrupt(BaseException):
+    """A BaseException that is not an Exception (as KeyboardInterrupt)."""
+
+
+def test_emit_raising_base_exception_parks_on_query(monkeypatch):
+    """A standing emit whose strategy raises a BaseException that is not an
+    Exception parks on the query, as the reference's ``except
+    BaseException`` does: the ingest worker lives on, ``flush(timeout=)``
+    returns, the poll surfaces the error, and a later push drains."""
+    from repro_torch.service import server as server_mod
+    X, Y = image_pool(32, seed=21)
+    srv = _mlp_server()
+    sess = srv.session()
+    keys = srv.push_data(list(X[:16]))
+    srv.label(keys[:4], Y[:4])
+    srv.train_and_eval()
+    reg = srv.standing_register(budget=3, strategy="lc")
+    real = server_mod.get_strategy
+
+    class Exploding:
+        needs = ("probs",)
+
+        def select(self, *a, **kw):
+            raise _Interrupt("strategy interrupted")
+    monkeypatch.setattr(server_mod, "get_strategy",
+                        lambda name: Exploding())
+    sess.push_data(list(X[16:24]), asynchronous=True)
+    srv.flush(timeout=10.0)                          # the drain ended
+    assert sess._ingest_thread.is_alive() and not sess._ingest_busy
+    with pytest.raises(RuntimeError, match="emit failed") as info:
+        srv.standing_poll(reg["query_id"])
+    assert isinstance(info.value.__cause__, _Interrupt)
+    monkeypatch.setattr(server_mod, "get_strategy", real)
+    sess.push_data(list(X[24:]), asynchronous=True).result(timeout=10.0)
+    srv.flush(timeout=10.0)                          # a later push drains
+    r = srv.standing_poll(reg["query_id"])           # error cleared
+    assert r["keys"] == srv.query(budget=3, strategy="lc")["keys"]
+    assert srv.stats()["pool"] == 32
+    srv.close()
+
+
 def test_standing_ops_over_tcp():
     """register / poll / cancel through ALClient over the TCP transport:
     the emits equal one-shot queries, and a cancelled query's poll

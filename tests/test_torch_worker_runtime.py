@@ -7,6 +7,7 @@ The process tests spawn real children (about 2 s each here, importing
 torch); every pool they build is shut down, which stops its children.
 """
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -261,6 +262,41 @@ def test_process_lane_kill_probe_restart_roundtrip():
             pool.run_job(1, "no_such_job", None)
         assert pool.stats()["restarts"] == st["restarts"]
         assert pool.run_job(1, "echo", "alive") == "alive"
+    finally:
+        pool.shutdown()
+
+
+class _Interrupt(BaseException):
+    """A BaseException that is not an Exception (as KeyboardInterrupt)."""
+
+
+class _RaisesInChild:
+    """Pickles in the process that made it; pickling it anywhere else (the
+    child sending an ``echo`` job's result back) raises ``_Interrupt``."""
+
+    def __init__(self, pid):
+        self.pid = pid
+
+    def __reduce__(self):
+        if os.getpid() != self.pid:
+            raise _Interrupt("interrupted in the child")
+        return (_RaisesInChild, (self.pid,))
+
+
+def test_job_raising_base_exception_is_a_job_error_not_a_death():
+    """A job that raises a BaseException that is not an Exception comes
+    back as a job error and the child keeps serving, as the reference's
+    ``except BaseException`` ships it: no restart, the same generation."""
+    pool = ShardWorkerPool(1, kind="process", timeout_s=60.0, backoff_s=0.0)
+    try:
+        assert pool.run_job(0, "echo", 1) == 1
+        with pytest.raises(RuntimeError, match="_Interrupt: interrupted"):
+            pool.run_job(0, "echo", _RaisesInChild(os.getpid()))
+        st = pool.stats()
+        assert st["restarts"] == 0 and st["generations"] == [0]
+        assert pool.probe() == [True]
+        assert pool.run_job(0, "echo", "alive") == "alive"
+        assert pool.stats()["restarts"] == 0
     finally:
         pool.shutdown()
 
