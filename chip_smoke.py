@@ -20,14 +20,21 @@ Phases, one line each (any failure raises and exits non-zero):
             kernel) over 32 masks/shapes and timed at the text path's
             shape; the bf16 tensor-core kernel over 108 masks/shapes (D 16,
             64, 96 padded, 128 at G 1 and 4; D 256 at G 10; causal or
-            not; row bytes independent of the rows launched) and at the
-            serve path's prefill shape (bf16 out), timed there; B3
-            (bf16), B6 and B4 also held and timed at the other served
-            archs' shapes where their paths run them
-            (``at_serve_shapes``: prefill H/KH 48/8, 40/10, 20/20, 16/16
-            and recurrentgemma-2b's 10/1 at D 256, window 2,048; the
-            global-attention archs' decode steps; scores at 16 x 92,672,
-            100,352, 152,064, 102,400, 65,536 and 256,000); the
+            not; row bytes independent of the rows launched), over the
+            enc-dec and patch-prefix layouts (non-causal 512 x 1,500 and
+            1,500 x 1,500 at D 64, G 1; G 7 at D 128, causal and
+            512 x 1,500) and at the serve path's prefill shape (bf16
+            out), timed there; B3 (bf16), B6 and B4 also held and timed
+            at the other served archs' shapes where their paths run them
+            (``at_serve_shapes``: prefill H/KH 48/8, 40/10, 20/20, 16/16,
+            recurrentgemma-2b's 10/1 at D 256, window 2,048, whisper-
+            medium's encoder (1,500 x 1,500), cross-attention (512 x
+            1,500, both non-causal) and decoder (16/16 at D 64), and
+            llava-next-34b's 56/8; the global-attention archs' decode
+            steps, whisper's cross-attention step over all 1,500 frames
+            (cur_len = cache = 1,500) among them; scores at 16 x 92,672,
+            100,352, 152,064, 102,400, 65,536, 256,000, 51,968 and
+            64,000); the
             recurrent arithmetic's card oracles in fp32, TF32 off
             (``recurrent_oracles``: rwkv6-3b's chunked WKV against the
             sequential recurrence at B 16, S 512, H 40, D 64, chunk 64,
@@ -161,24 +168,33 @@ Phases, one line each (any failure raises and exits non-zero):
             call (64 pool batches and the eval set's one call).
 9. serve    LLM serving with per-step uncertainty scores, one path per
             served arch (qwen3-8b, internlm2-20b, phi3-medium-14b,
-            qwen1.5-4b, deepseek-moe-16b, rwkv6-3b, recurrentgemma-2b):
-            ``run_serving(arch, smoke=False)`` at full width and all
-            layers in bf16 (random weights from seed 0), batch 16,
-            512-token prompts, 64 greedy decode steps, cache 1,024. Launch
-            counts are zeroed just before and read just after: flash
-            attention once per attention layer, global or local (prefill;
-            none at rwkv6-3b, 8 at recurrentgemma-2b), decode attention
-            once per global attention layer per step (none at either
-            recurrent arch), uncertainty_stats once per step, the
+            qwen1.5-4b, deepseek-moe-16b, rwkv6-3b, recurrentgemma-2b,
+            whisper-medium, llava-next-34b): ``run_serving(arch,
+            smoke=False)`` at full width and all layers in bf16 (random
+            weights from seed 0), batch 16, 512-token prompts, 64 greedy
+            decode steps, cache 1,024 (whisper's frontend 1,500 zero
+            frames, llava's 512 zero patch embeddings, as the
+            reference's). Launch counts are zeroed just before and read
+            just after: flash attention once per attention layer, global
+            or local, encoder layer and cross-attention layer (prefill;
+            none at rwkv6-3b, 8 at recurrentgemma-2b, 72 at whisper),
+            decode attention once per global attention layer and
+            cross-attention layer per step (none at either recurrent
+            arch, 48 at whisper), uncertainty_stats once per step, the
             selection kernels never. Then prefill + 8 teacher-forced
             steps through the kernel path and through the plain path
-            (``attention_impl="chunked"``, plain scores), same weights and
-            tokens, held within AGREE_TOL (the MoE's plain path first
-            with its own routes, the route-flip shares printed, then with
-            the kernel path's routes forced, held); and a torch.profiler
-            window over a prefill and 4 decode steps (device time by
-            kernel class: the device's busy share). Each model is freed
-            before the next; peak device memory is printed per arch.
+            (``attention_impl="chunked"``, plain scores), same weights,
+            tokens and seeded N(0, 1) frames or patch embeddings, held
+            within AGREE_TOL (the MoE's plain path first with its own
+            routes, the route-flip shares printed, then with the kernel
+            path's routes forced, held); whisper's and llava's kernel path
+            also runs on zero frames or patches, and the logits' largest
+            difference from the seeded run must exceed AGREE_TOL's (the
+            frontend reaches the logits); and a torch.profiler window over
+            a prefill and 4 decode steps (device time by kernel class:
+            the device's busy share). Each model is freed before the next
+            (llava-next-34b last: 68.8 GB of weights); peak device memory
+            is printed per arch.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -234,9 +250,11 @@ UNC_TOL = {"fp32": 3e-5, "scale80": 1e-4}
 ATT_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 DECODE_BF16_TOL = 1e-2
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 16, 512, 64, 1_024
-# the served configs, each at full width and depth in bf16; qwen3-8b first
+# the served configs, each at full width and depth in bf16; qwen3-8b first,
+# llava-next-34b (68.8 GB of weights) last
 SERVE_ARCHS = ("qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",
-               "deepseek_moe_16b", "rwkv6_3b", "recurrentgemma_2b")
+               "deepseek_moe_16b", "rwkv6_3b", "recurrentgemma_2b",
+               "whisper_medium", "llava_next_34b")
 SERVE_CUR = 577                          # a decode step's cur_len, timed
 # card oracles of the recurrent arithmetic in fp32, TF32 off. The chunked
 # WKV against the sequential recurrence: max |d| <= WKV_TOL * max |out|.
@@ -1085,6 +1103,14 @@ BF16_FLASH_CASES = [(hd, g, s, w, c) for hd in (16, 64, 96, 128)
 # recurrentgemma-2b's head layout: D 256, G 10
 BF16_FLASH_CASES += [(256, 10, s, w, c) for s in (96, 500, 512)
                      for w in (None, 128) for c in (True, False)]
+# the enc-dec and patch-prefix layouts at B 2, (Sq, Skv, H, KH, D, causal):
+# whisper-medium's cross-attention (512 queries over 1,500 frames) and
+# encoder (1,500 x 1,500), non-causal, neither a multiple of the 64-key
+# tiles; llava-next-34b's G 7 at D 128, causal and over 1,500 keys
+ENCDEC_FLASH_CASES = [(512, 1_500, 16, 16, 64, False),
+                      (1_500, 1_500, 16, 16, 64, False),
+                      (512, 512, 56, 8, 128, True),
+                      (512, 1_500, 56, 8, 128, False)]
 
 
 def check_flash_bf16(fa, dev):
@@ -1093,25 +1119,28 @@ def check_flash_bf16(fa, dev):
     {1, 4}, and D 256 at G 10 (recurrentgemma-2b's layout), S in {96,
     500, 512}, window in {None, 128}, causal or not, at B 2 and KH 2: out
     bf16 and within ATT_TOL, and each row bit-identical when fewer query
-    rows are launched. Then the qwen3-8b serve prefill
-    (``time_flash_bf16``)."""
+    rows are launched; the same over ENCDEC_FLASH_CASES (Sq != Skv,
+    G 7). Then the qwen3-8b serve prefill (``time_flash_bf16``)."""
     tol = ATT_TOL[torch.bfloat16]
     worst, cases = 0.0, 0
     g = torch.Generator(device=dev).manual_seed(3)
-    for hd, grp, s, window, causal in BF16_FLASH_CASES:
-        q = torch.randn((2, s, 2 * grp, hd), generator=g,
-                        device=dev).bfloat16()
-        k, v = (torch.randn((2, s, 2, hd), generator=g,
+    shapes = [(s, s, 2 * grp, 2, hd, causal, window)
+              for hd, grp, s, window, causal in BF16_FLASH_CASES]
+    shapes += [(sq, skv, h, kh, hd, causal, None)
+               for sq, skv, h, kh, hd, causal in ENCDEC_FLASH_CASES]
+    for sq, skv, h, kh, hd, causal, window in shapes:
+        q = torch.randn((2, sq, h, hd), generator=g, device=dev).bfloat16()
+        k, v = (torch.randn((2, skv, kh, hd), generator=g,
                             device=dev).bfloat16() for _ in range(2))
         got = fa.flash_attention_auto(q, k, v, causal=causal, window=window)
         want = fa.flash_attention_auto(q, k, v, causal=causal,
                                        window=window, impl="ref")
-        rows = 300 if s > 300 else 50
+        rows = 300 if sq > 300 else 50
         part = fa.flash_attention_auto(q[:, :rows], k, v, causal=causal,
                                        window=window)
         torch.cuda.synchronize()
         assert got.dtype == torch.bfloat16, got.dtype
-        case = (hd, grp, s, window, causal)
+        case = (sq, skv, h, kh, hd, window, causal)
         worst = max(worst, within(got, want, tol))
         assert torch.equal(part, got[:, :rows]), ("query rows changed a row",
                                                   case)
@@ -1120,46 +1149,56 @@ def check_flash_bf16(fa, dev):
             **time_flash_bf16(fa, dev, 32, 8, 128)}
 
 
-def time_flash_bf16(fa, dev, h, kh, hd, window=None):
-    """The bf16 kernel at a serve prefill (B 16, S 512, the arch's H, KH
-    and D, causal, and the arch's window for local attention): out bf16
-    and within ATT_TOL of the plain version, and timed. Bound: the two
-    products at the bf16 peak against q, k, v, out in bf16, over the keys
-    the masks allow. Library: scaled_dot_product_attention, causal (with a
-    band mask where the window is shorter than the prompt)."""
+def time_flash_bf16(fa, dev, h, kh, hd, window=None, sq=SERVE_PROMPT,
+                    skv=SERVE_PROMPT, causal=True):
+    """The bf16 kernel at a serve prefill (B 16, the arch's H, KH and D;
+    Sq = Skv = 512, causal, and the arch's window for local attention; or
+    whisper's non-causal Sq x Skv, its encoder's 1,500 x 1,500 and its
+    cross-attention's 512 x 1,500): out bf16 and within ATT_TOL of the
+    plain version, and timed. Bound: the two products at the bf16 peak
+    against q, k, v, out in bf16, over the keys the masks allow. Library:
+    scaled_dot_product_attention, causal where the kernel is (with a band
+    mask where the window is shorter than the prompt)."""
     import torch.nn.functional as F
     tol = ATT_TOL[torch.bfloat16]
-    b, s = SERVE_BATCH, SERVE_PROMPT
+    b = SERVE_BATCH
     g = torch.Generator(device=dev).manual_seed(2)
-    q = torch.randn((b, s, h, hd), generator=g, device=dev).bfloat16()
-    k = torch.randn((b, s, kh, hd), generator=g, device=dev).bfloat16()
-    v = torch.randn((b, s, kh, hd), generator=g, device=dev).bfloat16()
-    got = fa.flash_attention_auto(q, k, v, kv_chunk=s, window=window)
-    want = fa.flash_attention_auto(q, k, v, window=window, impl="ref")
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, skv, kh, hd), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, skv, kh, hd), generator=g, device=dev).bfloat16()
+
+    def kernel():
+        return fa.flash_attention_auto(q, k, v, causal=causal,
+                                       kv_chunk=skv, window=window)
+    got = kernel()
+    want = fa.flash_attention_auto(q, k, v, causal=causal, window=window,
+                                   impl="ref")
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 == want.dtype, got.dtype
     err = within(got, want, tol)
-    ms = median_ms(lambda: fa.flash_attention_auto(q, k, v, kv_chunk=s,
-                                                   window=window))
-    plain = median_ms(lambda: fa.flash_attention_auto(q, k, v, window=window,
-                                                      impl="ref"))
+    del want
+    ms = median_ms(kernel)
+    plain = median_ms(lambda: fa.flash_attention_auto(
+        q, k, v, causal=causal, window=window, impl="ref"))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    pos = torch.arange(s, device=dev)
-    if window is None or window >= s:     # the window allows every key
-        mask, causal, keys = None, True, s * (s + 1) / 2
+    pos = torch.arange(sq, device=dev)
+    if not causal:                        # every key of every row
+        mask, lib_causal, keys = None, False, float(sq * skv)
+    elif window is None or window >= sq:  # the window allows every key
+        mask, lib_causal, keys = None, True, sq * (sq + 1) / 2
     else:
         band = (pos[None, :] <= pos[:, None]) & \
             (pos[None, :] > pos[:, None] - window)
-        mask, causal, keys = band, False, float(band.sum())
+        mask, lib_causal, keys = band, False, float(band.sum())
     library = median_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=True))
+        qt, kt, vt, attn_mask=mask, is_causal=lib_causal, enable_gqa=True))
     flops = 4.0 * b * h * hd * keys
-    nbytes = 2.0 * (2 * b * s * h * hd + 2 * b * s * kh * hd)
+    nbytes = 2.0 * (2 * b * sq * h * hd + 2 * b * skv * kh * hd)
     bnd, by = bound(nbytes, flops, BF16_FLOPS_S)
     return {"max_abs_err": err,
             "out_dtype": str(got.dtype), "tolerance": tol,
-            "timed_shape": [b, s, h, kh, hd], "window": window,
-            "kv_block": "fixed 64 keys",
+            "timed_shape": [b, sq, skv, h, kh, hd], "window": window,
+            "causal": causal, "kv_block": "fixed 64 keys",
             "ms": ms, "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": library, "ms_over_library": ms / library}
 
@@ -1300,17 +1339,21 @@ def serve_layout(arch):
 
 
 def serve_attention(arch):
-    """(attention layers, global attention layers) of a served arch's full
-    config: its serve path launches flash attention once per attention
-    layer (global or local) in prefill, and decode attention once per
-    global attention layer a step (local decode is plain torch, as the
-    reference's)."""
+    """(flash attention launches in prefill, decode attention launches a
+    step) of a served arch's full config: its serve path launches flash
+    attention once per attention layer (global or local), encoder layer
+    and cross-attention layer in prefill, and decode attention once per
+    global attention layer and cross-attention layer a step (local decode
+    is plain torch, as the reference's)."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import build_segments
-    specs = [spec for seg in build_segments(get_config(arch))
+    cfg = get_config(arch)
+    specs = [spec for seg in build_segments(cfg)
              for _ in range(seg.count) for spec in seg.unit]
-    return (sum(sp.mixer in ("attn", "attn_local") for sp in specs),
-            sum(sp.mixer == "attn" for sp in specs))
+    cross = sum(sp.cross_attn for sp in specs)
+    enc = cfg.n_enc_layers if cfg.enc_dec else 0
+    return (sum(sp.mixer in ("attn", "attn_local") for sp in specs) + enc
+            + cross, sum(sp.mixer == "attn" for sp in specs) + cross)
 
 
 def serve_vocabs():
@@ -1321,8 +1364,12 @@ def serve_vocabs():
 def layout_decode():
     """The decode shapes (B 16, cache 1,024, cur_len 577, window none) of
     the other served archs with global attention: G 6 (internlm2), KH 10
-    (phi3), G 1 (qwen1.5, deepseek-moe). rwkv6-3b has no attention and
-    recurrentgemma-2b only local attention, so neither runs B6."""
+    (phi3), G 1 (qwen1.5, deepseek-moe, whisper at D 64), G 7 (llava);
+    and whisper's cross-attention step over its 1,500 cached frames
+    (cache = cur_len = n_enc_frames; labelled ``whisper_medium:cross``).
+    rwkv6-3b has no attention and recurrentgemma-2b only local attention,
+    so neither runs B6."""
+    from repro_torch.configs import get_config
     out = []
     for arch in SERVE_ARCHS[1:]:
         if not serve_attention(arch)[1]:
@@ -1330,6 +1377,10 @@ def layout_decode():
         h, kh, hd, _ = serve_layout(arch)
         out.append(dict(B=SERVE_BATCH, H=h, KH=kh, D=hd, S=SERVE_MAX,
                         cur=SERVE_CUR, win=None, arch=arch))
+        cfg = get_config(arch)
+        if cfg.enc_dec:
+            out.append(dict(out[-1], S=cfg.n_enc_frames,
+                            cur=cfg.n_enc_frames, arch=arch + ":cross"))
     return out
 
 
@@ -1346,11 +1397,12 @@ def _decode_inputs(g, c, dtype, dev):
 def check_decode(da, dev):
     """decode_attention against its plain version on the reference's four
     cases, the qwen3-8b decode shape (window none and 128) and the other
-    served archs' decode shapes, each at fp32 (ATT_TOL) and bf16
-    (DECODE_BF16_TOL); cur_len read from the device. At every served
-    shape a row's bytes must not depend on the cache's capacity (the same
-    live prefix in caches of 640 and 1,024 entries) and must repeat from
-    run to run."""
+    served archs' decode shapes (whisper's cross-attention at cur_len =
+    cache = 1,500, llava's G 7 among them), each at fp32 (ATT_TOL) and
+    bf16 (DECODE_BF16_TOL); cur_len read from the device. At every served
+    shape a row's bytes must repeat from run to run and, where the live
+    prefix fits 640 entries, must not depend on the cache's capacity (the
+    same live prefix in caches of 640 and 1,024 entries)."""
     g = torch.Generator(device=dev).manual_seed(5)
     tol = {torch.float32: ATT_TOL[torch.float32],
            torch.bfloat16: DECODE_BF16_TOL}
@@ -1369,10 +1421,11 @@ def check_decode(da, dev):
             if c in served:
                 again = da.decode_attention_auto(q, k, v, cur,
                                                  window=c["win"])
+                assert torch.equal(got, again), ("repeat", c, dtype)
+            if c in served and c["cur"] <= 640:  # a live prefix to cut to
                 small = da.decode_attention_auto(
                     q, k[:, :640].contiguous(), v[:, :640].contiguous(), cur,
                     window=c["win"])
-                assert torch.equal(got, again), ("repeat", c, dtype)
                 assert torch.equal(got, small), ("capacity", c, dtype)
             del q, k, v
     return worst, 2 * len(DECODE_CASES + served)
@@ -1432,28 +1485,49 @@ def time_decode(da, dev, c=QWEN3_DECODE[0]):
             "library_ms": library}
 
 
+def flash_layouts(arch):
+    """(label, ``time_flash_bf16`` keywords) of each B3 layout a served
+    arch's prefill runs: its decoder's (causal, 512 x 512, the window for
+    local attention) under the arch's name and, for an enc-dec config,
+    the encoder's (n_enc_frames x n_enc_frames) and the cross-attention's
+    (512 x n_enc_frames), both non-causal, under ``arch:encoder`` and
+    ``arch:cross``."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    out = [(arch, dict(window=None if cfg.griffin is None
+                       else cfg.griffin.window))]
+    if cfg.enc_dec:
+        n = cfg.n_enc_frames
+        out += [(arch + ":encoder", dict(sq=n, skv=n, causal=False)),
+                (arch + ":cross", dict(skv=n, causal=False))]
+    return out
+
+
 def time_serve_shapes(fa, da, unc, dev):
     """B3 (bf16), B6 and B4 timed at each other served arch's shapes,
-    each where the arch's serve path runs it: B3 at an arch with
-    attention (recurrentgemma-2b's local layers at their window, 2,048),
-    B6 at one with global attention, B4 at every arch (B3 also held
-    there; B6's and B4's checks at these shapes are ``check_decode``'s
-    and ``check_uncertainty``'s)."""
-    from repro_torch.configs import get_config
-    decode = {c["arch"]: c for c in layout_decode()}
+    each where the arch's serve path runs it: B3 at each of an arch's
+    attention layouts (``flash_layouts``: recurrentgemma-2b's local
+    layers at their window, 2,048; whisper-medium's encoder and
+    cross-attention), B6 at each global or cross-attention decode layout
+    (``layout_decode``), B4 at every arch (B3 also held there; B6's and
+    B4's checks at these shapes are ``check_decode``'s and
+    ``check_uncertainty``'s). Keyed by label: the arch, or
+    ``arch:encoder`` / ``arch:cross``."""
+    decode = layout_decode()
     out = {}
     for arch in SERVE_ARCHS[1:]:
         h, kh, hd, vocab = serve_layout(arch)
-        cfg, row = get_config(arch), {}
+        out[arch] = {}
         if serve_attention(arch)[0]:
-            window = None if cfg.griffin is None else cfg.griffin.window
-            row["flash_attention_bf16"] = time_flash_bf16(fa, dev, h, kh, hd,
-                                                          window)
-        if arch in decode:
-            row["decode_attention"] = time_decode(da, dev, decode[arch])
-        row["uncertainty_stats"] = time_uncertainty(
+            for label, kw in flash_layouts(arch):
+                out.setdefault(label, {})["flash_attention_bf16"] = \
+                    time_flash_bf16(fa, dev, h, kh, hd, **kw)
+        for c in decode:
+            if c["arch"].split(":")[0] == arch:
+                out.setdefault(c["arch"], {})["decode_attention"] = \
+                    time_decode(da, dev, c)
+        out[arch]["uncertainty_stats"] = time_uncertainty(
             unc, dev, vocab, (SERVE_BATCH,))[SERVE_BATCH]
-        out[arch] = row
     return out
 
 
@@ -2386,11 +2460,12 @@ def run_serve(counters, arch):
         launches.update(counts)
     peak = torch.cuda.max_memory_allocated()
     n_layers = cfg.n_layers
-    attn, glob = serve_attention(arch)
-    assert launches["flash_attention"] == attn, launches
-    assert launches["decode_attention"] == glob * SERVE_STEPS, launches
+    flash, decode = serve_attention(arch)
+    assert launches["flash_attention"] == flash, launches
+    assert launches["decode_attention"] == decode * SERVE_STEPS, launches
     assert launches["uncertainty_stats"] == SERVE_STEPS, launches
-    assert launches["greedy_round"] == launches["pairwise_min_argmin"] == 0
+    assert launches["greedy_round"] == launches["pairwise_min_argmin"] == \
+        launches["gated_greedy_round"] == 0
     assert out["final_len"] == SERVE_PROMPT + SERVE_STEPS, out
     assert 0.0 <= out["mean_lc"] <= 1.0, out
     assert 0.0 <= out["mean_es"] <= float(np.log(cfg.padded_vocab)) + 1e-3, \
@@ -2399,8 +2474,10 @@ def run_serve(counters, arch):
         peak_allocated_gb=peak / 1e9, launches=launches,
         shape={"batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
                "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX,
-               "layers": n_layers, "attention_layers": attn,
-               "global_attention_layers": glob, "family": cfg.family,
+               "layers": n_layers, "flash_launches_prefill": flash,
+               "decode_launches_step": decode,
+               "encoder_layers": cfg.n_enc_layers if cfg.enc_dec else 0,
+               "n_patches": cfg.n_patches, "family": cfg.family,
                "heads": [cfg.n_heads, cfg.n_kv_heads],
                "padded_vocab": cfg.padded_vocab, "moe": cfg.moe is not None,
                "soft_cap": cfg.logits_soft_cap, "dtype": "bfloat16"})
@@ -2464,12 +2541,37 @@ def route_flips(kernel, plain, mo):
     return out
 
 
+def frontend(cfg, dev, zeros=False):
+    """A served arch's frontend inputs, bf16: frames (SERVE_BATCH,
+    n_enc_frames, d) for an enc-dec config, min(n_patches, SERVE_PROMPT)
+    patch embeddings for a patch-prefix one; N(0, 1) from a numpy seed,
+    or zeros (what ``run_serving`` feeds, as the reference's). Empty for
+    the other archs."""
+    rng = np.random.default_rng(12)
+    out = {}
+    for key, n, on in (("frames", cfg.n_enc_frames, cfg.enc_dec),
+                       ("patch_embeds", min(cfg.n_patches, SERVE_PROMPT),
+                        cfg.n_patches > 0)):
+        if on:
+            shape = (SERVE_BATCH, n, cfg.d_model)
+            a = (np.zeros(shape, np.float32) if zeros
+                 else rng.standard_normal(shape, dtype=np.float32))
+            out[key] = torch.from_numpy(a).to(dev, torch.bfloat16)
+    return out
+
+
 def serve_checks(dev, arch):
     """On the same weights (seed 0): (1) prefill + AGREE_STEPS
     teacher-forced decode steps through the kernel path and the plain
     path (``attention_impl="chunked"``, plain scores), max |d| of the
     logits and of the four scores, on the scales of AGREE_TOL, against
-    it. For a MoE config the plain path first routes by its own router
+    it; an enc-dec or patch-prefix arch feeds both paths seeded N(0, 1)
+    frames or patch embeddings (``frontend``: zeros would leave whisper's
+    encoder output at zero and every llava prompt position a zero patch),
+    and its kernel path runs once more on zeros: the logits' largest
+    difference between the two runs must exceed AGREE_TOL's, so that
+    the frontend is seen to reach the logits. For a MoE config the plain
+    path first routes by its own router
     (the share of routes that differ from the kernel path's is printed,
     not held: routing is discontinuous and the paths differ by bf16
     rounding), then again with the kernel path's routes forced
@@ -2487,14 +2589,16 @@ def serve_checks(dev, arch):
     feed = torch.from_numpy(lm_pool(SERVE_BATCH, AGREE_STEPS, cfg.vocab,
                                     seed=1)[0].T.copy()).to(dev)
     params = Model(cfg).init(0, dev)
+    front = frontend(cfg, dev)
 
-    def agree_run(impl, score_impl, routes=None):
+    def agree_run(impl, score_impl, routes=None, inputs=front):
         model = Model(dataclasses.replace(cfg, attention_impl=impl),
                       routes=routes)
         cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + AGREE_STEPS,
                                  dev)
         t = time.perf_counter()
-        cache, logits = model.prefill(params, {"tokens": prompt}, cache)
+        cache, logits = model.prefill(params, {"tokens": prompt, **inputs},
+                                      cache)
         outs, scores = [logits], []
         for step in range(AGREE_STEPS):
             logits, cache = model.decode_step(params, cache,
@@ -2537,6 +2641,13 @@ def serve_checks(dev, arch):
         lp, sp, tp = agree_run("chunked", "ref",
                                moe.RouteTape(force=taken.recorded))
         del taken
+    if front:                  # the frontend reaches the logits
+        lz, _, _ = agree_run("pallas", "auto",
+                             inputs=frontend(cfg, dev, zeros=True))
+        extra["frontend_logits_max_abs_diff"] = float((lk - lz).abs().max())
+        extra["frontend_inputs"] = {k: list(v.shape)
+                                    for k, v in front.items()}
+        del lz
     same = lk.argmax(-1) == lp.argmax(-1)
     res, ck, cp = diffs(lk, sk, lp, sp)
     spread = {k: [float(cp[k].min()), float(cp[k].max())] for k in cp}
@@ -2551,6 +2662,9 @@ def serve_checks(dev, arch):
     assert finite, res
     for key in AGREE_TOL:
         assert res[key] <= AGREE_TOL[key], (arch, key, res)
+    if front:
+        seen = extra["frontend_logits_max_abs_diff"]
+        assert seen > AGREE_TOL["logits"], (arch, seen)
     del lk, lp, sk, sp, ck, cp
 
     model = Model(dataclasses.replace(cfg, attention_impl="pallas"))
@@ -2560,7 +2674,7 @@ def serve_checks(dev, arch):
 
     def prefill():
         state["cache"], state["logits"] = model.prefill(
-            params, {"tokens": prompt}, cache)
+            params, {"tokens": prompt, **front}, cache)
 
     def steps(n):
         for _ in range(n):
@@ -2580,19 +2694,25 @@ def serve_checks(dev, arch):
         decode_device_busy_ms_per_step=sum(per_step.values()),
         decode_kernels_per_step=dec_kernels / PROFILE_STEPS,
         decode_profiled_wall_ms_per_step=dec_wall / PROFILE_STEPS * 1e3)
-    del params, cache, state
+    del params, cache, state, front
+
+
+def free_device():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def run_serve_archs(counters, dev):
     """Each served arch in turn (launch counts zeroed just before its
     ``run_serving``, read just after), its agreement and profile checks,
-    and its weights freed before the next. Returns launches by arch."""
+    and its weights freed before the checks draw theirs and before the
+    next arch. Returns launches by arch."""
     out = {}
     for arch in SERVE_ARCHS:
         out[arch] = run_serve(counters, arch)
+        free_device()
         serve_checks(dev, arch)
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_device()
     return out
 
 
@@ -2779,18 +2899,19 @@ def run(tune_dir, kernels_only=False) -> int:
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")})
     # B3 (bf16), B6 and B4 at the other served archs' shapes, where their
-    # serve paths run them
+    # serve paths run them (by label: the arch, or arch:encoder/:cross)
     for row in kernels:
         key = ("flash_attention_bf16" if row["name"] == "flash_attention"
                else row["name"])
-        archs = [a for a in SERVE_ARCHS[1:] if key in at_serve[a]]
-        if archs:
+        labels = [a for a in at_serve if key in at_serve[a]]
+        if labels:
             row["at_serve_shapes"] = {
-                arch: {k: v for k, v in at_serve[arch][key].items()
-                       if k in ("timed_shape", "window", "max_abs_err", "ms",
-                                "device_ms", "plain_ms", "bound_ms",
-                                "library_ms")}
-                for arch in archs}
+                label: {k: v for k, v in at_serve[label][key].items()
+                        if k in ("timed_shape", "window", "causal",
+                                 "max_abs_err", "ms", "device_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}
+                for label in labels}
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ numpy arrays only, so it needs nothing of the reference package:
 * ``load_mlp``: an MLP backend's ``w1``/``w2``.
 * ``load_encoder``: an ``init_encoder`` tree into a TransformerBackend,
   its stacked layer axis unstacked.
-* ``load_model``: a ``Model.init`` tree of the dense, MoE, RWKV or
-  Griffin LM into the port's ``models.transformer`` tree, every dtype kept
-  (bf16 stays bf16, the MoE router fp32).
+* ``load_model``: a ``Model.init`` tree of the dense, MoE, RWKV,
+  Griffin, enc-dec or patch-prefix LM into the port's
+  ``models.transformer`` tree, every dtype kept (bf16 stays bf16, the MoE
+  router fp32), the encoder's stacked layers unstacked too.
 * ``head_state`` / ``set_initial_head``: a softmax head (trained, or the
   reference's ``init_head()`` that every fit starts from).
 """
@@ -26,6 +27,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import model_decls
 from repro_torch.service.backends import FeatureBackend, HeadState
 
 
@@ -122,29 +124,66 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def load_model(params: Mapping[str, Any], device="cpu"):
+def _unstack(seg, tree):
+    """A reference segment (``{"0": layer, ...}``; every leaf stacked on
+    a leading layer axis where the segment repeats its unit more than
+    once) as the port's list of units."""
+    scale = np.asarray(seg["0"]["norm1"]["scale"])
+    if scale.ndim == 1:
+        return [tree(seg, lambda a: a)]
+    return [tree(seg, lambda a, i=i: a[i]) for i in range(scale.shape[0])]
+
+
+def load_model(params: Mapping[str, Any], cfg, device="cpu"):
     """The port's parameter tree for a reference ``Model.init`` tree of
-    the dense, MoE, RWKV or Griffin LM, given as numpy arrays. A segment of
-    ``count > 1`` units carries a leading ``layer`` axis on every leaf,
-    unstacked here into a list of ``count`` units (an expert weight ``(L,
-    E, d, F)`` becomes ``(E, d, F)`` a unit, an RWKV ``mu`` ``(L, 5, d)``
-    becomes ``(5, d)``); a segment of one unit has none (a MoE config's
-    ``first_dense`` segment, Griffin's remainder segment ``(rec, rec)``,
-    or any segment of a smoke config with one unit). Every leaf keeps its
-    dtype."""
+    the dense, MoE, RWKV, Griffin, enc-dec or patch-prefix LM, given as
+    numpy arrays. A segment of ``count > 1`` units carries a leading
+    ``layer`` axis on every leaf, unstacked here into a list of ``count``
+    units (an expert weight ``(L, E, d, F)`` becomes ``(E, d, F)`` a unit,
+    an RWKV ``mu`` ``(L, 5, d)`` becomes ``(5, d)``); a segment of one
+    unit has none (a MoE config's ``first_dense`` segment, Griffin's
+    remainder segment ``(rec, rec)``, or any segment of a smoke config
+    with one unit). An enc-dec tree's ``encoder`` (``segment``, stacked
+    the same way, and ``final_norm``) becomes ``{"segment": [unit, ...],
+    "final_norm": ...}``; a cross layer's ``norm_x`` and ``cross`` carry
+    over with the rest. Every leaf keeps its dtype. Every leaf's path and
+    shape must equal the port's declarations for ``cfg``
+    (``transformer.model_decls``), else ValueError naming the paths that
+    either side lacks."""
     def tree(node, pick):
         if isinstance(node, Mapping):
             return {k: tree(v, pick) for k, v in node.items()}
         return _tensor(pick(np.asarray(node)), device)
 
     out = {k: tree(v, lambda a: a) for k, v in params.items()
-           if k != "segments"}
-    out["segments"] = []
-    for seg in params["segments"]:
-        stacked = np.asarray(seg["0"]["norm1"]["scale"]).ndim == 2
-        count = np.asarray(seg["0"]["norm1"]["scale"]).shape[0] \
-            if stacked else 1
-        out["segments"].append([
-            tree(seg, (lambda a, i=i: a[i]) if stacked else (lambda a: a))
-            for i in range(count)])
+           if k not in ("segments", "encoder")}
+    out["segments"] = [_unstack(seg, tree) for seg in params["segments"]]
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {k: tree(v, lambda a: a) for k, v in enc.items()
+                          if k != "segment"}
+        out["encoder"]["segment"] = _unstack(enc["segment"], tree)
+    _check_against(out, model_decls(cfg))
     return out
+
+
+def _leaf_shapes(node, path=""):
+    if isinstance(node, Mapping):
+        for k, v in node.items():
+            yield from _leaf_shapes(v, f"{path}/{k}")
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _leaf_shapes(v, f"{path}[{i}]")
+    else:
+        yield path, tuple(node.shape)
+
+
+def _check_against(tree, decls) -> None:
+    got, want = dict(_leaf_shapes(tree)), dict(_leaf_shapes(decls))
+    if set(got) != set(want):
+        raise ValueError(
+            f"the reference tree lacks {sorted(set(want) - set(got))}; "
+            f"the port does not declare {sorted(set(got) - set(want))}")
+    bad = {p: (got[p], want[p]) for p in got if got[p] != want[p]}
+    if bad:
+        raise ValueError(f"shapes (reference, port) differ: {bad}")

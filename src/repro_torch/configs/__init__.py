@@ -4,8 +4,8 @@
 
 A name is the module's (``"qwen3_8b"``) or the reference's canonical id
 (``"qwen3-8b"``). The ported archs are the dense ones, deepseek-moe,
-rwkv6-3b and recurrentgemma-2b; the others (MLA, the enc-dec and patch
-frontends) raise ``KeyError``."""
+rwkv6-3b, recurrentgemma-2b, whisper-medium (enc-dec) and llava-next-34b
+(patch prefix); the other (deepseek-v3's MLA) raises ``KeyError``."""
 from __future__ import annotations
 
 import importlib
@@ -19,13 +19,16 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 ARCH_IDS = ["qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",
-            "deepseek_moe_16b", "rwkv6_3b", "recurrentgemma_2b"]
+            "deepseek_moe_16b", "rwkv6_3b", "recurrentgemma_2b",
+            "whisper_medium", "llava_next_34b"]
 
 # canonical ids -> module names
 ALIASES = {"qwen3-8b": "qwen3_8b", "internlm2-20b": "internlm2_20b",
            "phi3-medium-14b": "phi3_medium_14b", "qwen1.5-4b": "qwen15_4b",
            "deepseek-moe-16b": "deepseek_moe_16b", "rwkv6-3b": "rwkv6_3b",
-           "recurrentgemma-2b": "recurrentgemma_2b"}
+           "recurrentgemma-2b": "recurrentgemma_2b",
+           "whisper-medium": "whisper_medium",
+           "llava-next-34b": "llava_next_34b"}
 
 
 def _module(name: str):

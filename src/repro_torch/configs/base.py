@@ -1,13 +1,14 @@
 # Copied from repro/configs/base.py: MoEConfig, RWKVConfig, GriffinConfig,
 # ArchConfig, pad_to and the two properties the encoder and the decode
 # stack use (hd, padded_vocab), with the fields the ported stacks read:
-# q_chunk and kv_chunk (prefill attention), moe, rwkv, griffin and
-# logits_soft_cap. The LM head is always untied: tie_embeddings comes back
-# with the first config that sets it (ROADMAP A12). Dropped: the MLA
-# sub-config, the enc-dec, patch and MTP fields, n_params, tp_friendly,
-# active_params, subquadratic and the dry-run shapes, which only the TPU
-# dry run and the rest of the LLM stack use (ROADMAP A12); and the remat
-# knob, which inference has no use for.
+# q_chunk and kv_chunk (prefill attention), moe, rwkv, griffin,
+# logits_soft_cap, the enc-dec fields (enc_dec, n_enc_layers,
+# n_enc_frames) and n_patches. The LM head is always untied:
+# tie_embeddings comes back with the first config that sets it (ROADMAP
+# A12). Dropped: the MLA sub-config, the MTP field, n_params,
+# tp_friendly, active_params, subquadratic and the dry-run shapes, which
+# only the TPU dry run and the rest of the LLM stack use (ROADMAP A12);
+# and the remat knob, which inference has no use for.
 """Architecture configuration.
 
 One ``ArchConfig`` describes a backbone; each arch file under
@@ -58,7 +59,7 @@ class GriffinConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # dense | moe | ssm | hybrid (ported)
+    family: str                   # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -75,6 +76,12 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     rwkv: Optional[RWKVConfig] = None
     griffin: Optional[GriffinConfig] = None
+    # enc-dec (whisper): n_layers == decoder layers
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    n_enc_frames: int = 1500      # stub audio frontend sequence length
+    # vlm stub frontend
+    n_patches: int = 0            # patch embeddings spliced into prefix
     logits_soft_cap: Optional[float] = None
     # runtime knobs
     q_chunk: int = 512

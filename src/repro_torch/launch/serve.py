@@ -9,17 +9,22 @@ pool is just "serve the pool, keep the scores".
 ``--arch`` names a ported config by module name or canonical id:
 ``rwkv6_3b`` (RWKV6, the default, as the reference's), ``qwen3_8b``,
 ``internlm2_20b``, ``phi3_medium_14b``, ``qwen15_4b`` (the dense stack),
-``deepseek_moe_16b`` (token-choice MoE) or ``recurrentgemma_2b`` (RG-LRU
-with local attention and the logit soft cap); ``--full`` serves its
-full-size config, else its smoke config.
+``deepseek_moe_16b`` (token-choice MoE), ``recurrentgemma_2b`` (RG-LRU
+with local attention and the logit soft cap), ``whisper_medium``
+(encoder-decoder over stub frame embeddings) or ``llava_next_34b`` (stub
+patch embeddings spliced over the prompt's prefix); ``--full`` serves its
+full-size config, else its smoke config. As the reference's, the
+frontends are fed zeros: ``n_enc_frames`` zero frames, and
+min(n_patches, prompt_len) zero patch embeddings, in bf16.
 
 On the card every kernel of the path runs: flash attention in the
-prefill of every attention layer (global or local), decode attention in
-every global attention layer of every step, and the uncertainty-stats
-pass over every step's logits (rwkv6-3b has no attention, so it runs the
-last alone; recurrentgemma-2b's local decode is plain torch, as the
-reference's). Scores and tokens stay on the device until the loop ends;
-the only host syncs are the timers'.
+prefill of every attention layer (global or local), of every encoder
+layer and of every cross-attention layer, decode attention in every
+global attention layer and every cross-attention layer of every step, and
+the uncertainty-stats pass over every step's logits (rwkv6-3b has no
+attention, so it runs the last alone; recurrentgemma-2b's local decode is
+plain torch, as the reference's). Scores and tokens stay on the device
+until the loop ends; the only host syncs are the timers'.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen15_4b \\
       --batch 4 --prompt-len 32 --decode-steps 16 [--device cpu] [--full]
@@ -91,12 +96,20 @@ def run_serving(arch: str = "rwkv6-3b", *, smoke: bool = True,
     if params is None:
         params = model.init(seed, device)
     toks, _ = lm_pool(batch, prompt_len, cfg.vocab, seed=seed)
-    prompt = torch.from_numpy(toks).to(device)
+    batch_in = {"tokens": torch.from_numpy(toks).to(device)}
+    if cfg.enc_dec:
+        batch_in["frames"] = torch.zeros(
+            (batch, cfg.n_enc_frames, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    if cfg.n_patches:
+        batch_in["patch_embeds"] = torch.zeros(
+            (batch, min(cfg.n_patches, prompt_len), cfg.d_model),
+            dtype=torch.bfloat16, device=device)
     cache = model.init_cache(batch, max_len, device)
 
     _sync(device)
     t0 = time.perf_counter()
-    cache, logits = model.prefill(params, {"tokens": prompt}, cache)
+    cache, logits = model.prefill(params, batch_in, cache)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 

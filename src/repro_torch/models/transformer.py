@@ -1,6 +1,6 @@
 """Causal LM: prefill, single-token decode over a cache, and the
 stateless forward (port of repro/models/transformer.py, its dense, MoE,
-RWKV and Griffin stacks).
+RWKV, Griffin, encoder-decoder and patch-prefix stacks).
 
 A model is a list of *segments*; each segment is ``count`` repetitions of a
 *unit* (a short list of LayerSpecs). A dense config is one segment of
@@ -15,10 +15,18 @@ repeats its pattern, ``(rec, rec, attn_local)`` for recurrentgemma, and
 ends in a one-unit segment of the remainder (``(rec, rec)`` at 26
 layers): the RG-LRU block (``layers/rglru.py``) and local attention over
 a ring buffer of ``min(window, max_len)`` slots. ``cfg.logits_soft_cap``
-caps the fp32 logits as ``tanh(x / cap) * cap``. The MLA mixer, the
-encoder-decoder and patch frontends and the MTP head wait for ROADMAP
-A12; a config that needs them raises ``NotImplementedError``. ``loss``
-and its chunked cross-entropy wait for A13.
+caps the fp32 logits as ``tanh(x / cap) * cap``. An enc-dec config
+(``cfg.enc_dec``, whisper) adds an encoder of ``n_enc_layers`` ``(attn,
+dense)`` layers over frame embeddings ``batch["frames"]`` (B, T, d), T
+at most ``n_enc_frames``: rope over frame positions, non-causal
+attention, a final norm (``apply_encoder``); each decoder layer adds
+cross-attention (``norm_x``, ``cross``: no rope, all T frames) after its
+self-attention, whose K/V the prefill writes into the cache's ``xk`` and
+``xv`` once. A patch-prefix config (``cfg.n_patches``, llava) splices
+``batch["patch_embeds"][:, :P]`` over the first P = min(n_patches, S)
+token embeddings. The MLA mixer and the MTP head wait for ROADMAP A12; a
+config that needs them raises ``NotImplementedError``. ``loss`` and its
+chunked cross-entropy wait for A13.
 
 Modes, as in the reference:
   train    full sequence, no cache (``last_logits``, ``embed_pool``)
@@ -36,25 +44,31 @@ in place: the new token's K/V at ``cur_len`` (``(L, B, S, KH*hd)``), the
 ring's slot ``cur_len % W`` and its position (``pos`` holds position + 1,
 0 for an empty slot), the recurrent states. A segment of one unit keeps
 its layer axis too, ``(1, ...)``, where the reference's has none: the two
-caches compare only through the outputs. K/V, the ring and the conv state
-are in the cache dtype; the RWKV state (``x_prev``, ``S``) and the RG-LRU
-``h`` are fp32 whatever the cache dtype, ``pos`` int32, as the reference
-declares them. ``cache["len"]`` is a 0-d int32 tensor on the device, and
-the slot and position writes are device ops (``index_copy_``), so a
-decode step never syncs with the host.
+caches compare only through the outputs. K/V, the cross K/V, the ring and
+the conv state are in the cache dtype; the RWKV state (``x_prev``, ``S``)
+and the RG-LRU ``h`` are fp32 whatever the cache dtype, ``pos`` int32, as
+the reference declares them. ``cache["len"]`` is a 0-d int32 tensor on the
+device, and so is an enc-dec cache's ``enc_len`` (the T frames the
+prefill wrote, the cross-attention's valid entries), and the slot and
+position writes are device ops (``index_copy_``), so a decode step never
+syncs with the host.
 
 Attention follows ``cfg.attention_impl``. ``"pallas"``, the configs' name
-for the kernel path, sends prefill (global, or local with the window) to
-the flash-attention kernel and each global decode step to the
-decode-attention kernel on a CUDA tensor (``kernels/decode_attention``:
-the only caller of that kernel); on a CPU tensor both take their plain
-versions, the chunked path (``q_chunk``, ``kv_chunk``) and the plain
-``decode_attention``, bit for bit the reference's ``"chunked"``
-arithmetic. Any other value sends decode to the plain
-``decode_attention``, as the reference's decode layer does on every
-backend. The local decode over the ring is plain torch
-(``decode_attention_pos``) on every device, as the reference's is jnp.
-The RWKV and RG-LRU layers have no kernel in the reference and none here.
+for the kernel path, sends prefill (global, or local with the window),
+the encoder's attention and the cross-attention's prefill (both
+non-causal) to the flash-attention kernel, and each global decode step
+and each cross-attention decode step to the decode-attention kernel on a
+CUDA tensor (``kernels/decode_attention``: the only caller of that
+kernel); on a CPU tensor both take their plain versions, the chunked
+path (``q_chunk``, ``kv_chunk``) and the plain ``decode_attention``, bit
+for bit the reference's ``"chunked"`` arithmetic. Any other value sends
+decode to the plain ``decode_attention``, as the reference's decode layer
+does on every backend, and the encoder and cross-attention prefill to the
+chunked path, which the reference names for them whatever the config
+says (``"oracle"`` mode: naive attention there too). The local
+decode over the ring is plain torch (``decode_attention_pos``) on every
+device, as the reference's is jnp. The RWKV and RG-LRU layers have no
+kernel in the reference and none here.
 """
 from __future__ import annotations
 
@@ -80,6 +94,7 @@ PARAM_DTYPE = torch.bfloat16        # the reference's ParamDecl default
 class LayerSpec:
     mixer: str          # attn | attn_local | rec | rwkv_att
     mlp: str            # dense | moe | rwkv_ffn
+    cross_attn: bool = False   # whisper decoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,17 +104,22 @@ class Segment:
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Admit the dense and MoE stacks, RWKV (``ssm`` with ``cfg.rwkv``) and
-    Griffin (``hybrid`` with ``cfg.griffin``); refuse every other family."""
+    """Admit the dense and MoE stacks, RWKV (``ssm`` with ``cfg.rwkv``),
+    Griffin (``hybrid`` with ``cfg.griffin``), the encoder-decoder
+    (``audio`` with ``cfg.enc_dec``) and the patch prefix (``vlm`` with
+    ``cfg.n_patches``); refuse every other family."""
     if (cfg.family == "dense"
             or (cfg.family == "moe" and cfg.moe is not None)
             or (cfg.family == "ssm" and cfg.rwkv is not None)
-            or (cfg.family == "hybrid" and cfg.griffin is not None)):
+            or (cfg.family == "hybrid" and cfg.griffin is not None)
+            or (cfg.family == "audio" and cfg.enc_dec)
+            or (cfg.family == "vlm" and cfg.n_patches > 0)):
         return
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family (MLA, enc-dec or patch "
-        f"frontends, MTP, or a family without its sub-config) waits for "
-        f"ROADMAP A12; the port has the dense, MoE, RWKV and Griffin stacks")
+        f"{cfg.name}: the {cfg.family!r} family (MLA, MTP, or a family "
+        f"without its sub-config or frontend) waits for ROADMAP A12; the "
+        f"port has the dense, MoE, RWKV, Griffin, enc-dec and patch-prefix "
+        f"stacks")
 
 
 def build_segments(cfg: ArchConfig) -> List[Segment]:
@@ -120,7 +140,8 @@ def build_segments(cfg: ArchConfig) -> List[Segment]:
         segs = [Segment(fd, (LayerSpec("attn", "dense"),))] if fd else []
         return segs + [Segment(cfg.n_layers - fd,
                                (LayerSpec("attn", "moe"),))]
-    return [Segment(cfg.n_layers, (LayerSpec("attn", "dense"),))]
+    return [Segment(cfg.n_layers, (LayerSpec("attn", "dense",
+                                             cross_attn=cfg.enc_dec),))]
 
 
 # ---------------------------------------------------------------- decls ----
@@ -150,19 +171,28 @@ def _mlp_decls(cfg: ArchConfig, spec: LayerSpec):
 
 def layer_decls(cfg: ArchConfig, spec: LayerSpec = LayerSpec("attn",
                                                               "dense")):
-    """One layer of ``_layer_decls``: two norms, the mixer, the MLP."""
-    return {
+    """One layer of ``_layer_decls``: two norms, the mixer, the MLP, and
+    for a cross layer ``norm_x`` and the cross-attention ``cross``."""
+    d = {
         "norm1": norm_decls(cfg.norm, cfg.d_model),
         "norm2": norm_decls(cfg.norm, cfg.d_model),
         "mixer": _mixer_decls(cfg, spec),
         "mlp": _mlp_decls(cfg, spec),
     }
+    if spec.cross_attn:
+        d["norm_x"] = norm_decls(cfg.norm, cfg.d_model)
+        d["cross"] = attn_lib.attn_decls(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            out_bias=(cfg.norm == "ln"))
+    return d
 
 
 def model_decls(cfg: ArchConfig):
     """Embedding, segments (a list of ``count`` units each, a unit being
-    ``{"0": layer, ...}``), final norm and the untied LM head; bf16 but for
-    the declarations that name their dtype (the MoE router: fp32)."""
+    ``{"0": layer, ...}``), final norm and the untied LM head, and for an
+    enc-dec config the ``encoder`` (``segment``: ``n_enc_layers`` units of
+    one ``(attn, dense)`` layer, and its ``final_norm``); bf16 but for the
+    declarations that name their dtype (the MoE router: fp32)."""
     V, d = cfg.padded_vocab, cfg.d_model
     decls: Dict[str, Any] = {
         "embed": ParamDecl((V, d), init="embed"),
@@ -173,6 +203,11 @@ def model_decls(cfg: ArchConfig):
                      for s in build_segments(cfg)],
         "lm_head": ParamDecl((d, V)),
     }
+    if cfg.enc_dec:
+        decls["encoder"] = {
+            "segment": [{"0": layer_decls(cfg)}
+                        for _ in range(cfg.n_enc_layers)],
+            "final_norm": norm_decls(cfg.norm, d)}
     return with_dtype(decls, PARAM_DTYPE)
 
 
@@ -180,8 +215,13 @@ def _layer_cache_decls(cfg: ArchConfig, spec: LayerSpec, count: int, B: int,
                        S: int, dtype: torch.dtype):
     F = cfg.n_kv_heads * cfg.hd
     if spec.mixer == "attn":
-        return {"k": ParamDecl((count, B, S, F), "zeros", dtype),
-                "v": ParamDecl((count, B, S, F), "zeros", dtype)}
+        c = {"k": ParamDecl((count, B, S, F), "zeros", dtype),
+             "v": ParamDecl((count, B, S, F), "zeros", dtype)}
+        if spec.cross_attn:
+            Se = cfg.n_enc_frames
+            c["xk"] = ParamDecl((count, B, Se, F), "zeros", dtype)
+            c["xv"] = ParamDecl((count, B, Se, F), "zeros", dtype)
+        return c
     if spec.mixer == "attn_local":
         W = min(cfg.griffin.window, S)
         return {"k": ParamDecl((count, B, W, F), "zeros", dtype),
@@ -198,15 +238,20 @@ def cache_decls(cfg: ArchConfig, B: int, S: int,
                 dtype: torch.dtype = PARAM_DTYPE):
     """``len`` (an int32 scalar) and, per segment and unit position, the
     layer's cache with a leading ``count`` axis: K and V ``(count, B, S,
-    KH*hd)`` for global attention, the ring for local attention, the
-    recurrent state for RG-LRU and RWKV. ``dtype`` is the cache dtype;
-    the declarations that name theirs (the fp32 states, int32 ``pos``)
-    keep it."""
-    return {"len": ParamDecl((), init="zeros", dtype=torch.int32),
-            "segments": [{str(i): _layer_cache_decls(cfg, spec, s.count, B,
-                                                     S, dtype)
-                          for i, spec in enumerate(s.unit)}
-                         for s in build_segments(cfg)]}
+    KH*hd)`` for global attention (and a cross layer's ``xk``, ``xv``
+    ``(count, B, n_enc_frames, KH*hd)``), the ring for local attention,
+    the recurrent state for RG-LRU and RWKV; an enc-dec cache also holds
+    ``enc_len`` (an int32 scalar: the frames the prefill wrote).
+    ``dtype`` is the cache dtype; the declarations that name theirs (the
+    fp32 states, int32 ``pos``) keep it."""
+    decls = {"len": ParamDecl((), init="zeros", dtype=torch.int32),
+             "segments": [{str(i): _layer_cache_decls(cfg, spec, s.count,
+                                                      B, S, dtype)
+                           for i, spec in enumerate(s.unit)}
+                          for s in build_segments(cfg)]}
+    if cfg.enc_dec:
+        decls["enc_len"] = ParamDecl((), init="zeros", dtype=torch.int32)
+    return decls
 
 
 # --------------------------------------------------------------- layers ----
@@ -264,13 +309,66 @@ def _apply_attn(cfg: ArchConfig, params, x, positions, mode, lc=None,
                 lc["v"][li].copy_(vr)
                 lc["pos"][li].copy_(ringpos)
             else:
-                for buf, t in ((lc["k"][li], kf), (lc["v"][li], vf)):
-                    buf[:, :S] = t
-                    buf[:, S:].zero_()
+                _fill_prefix(lc["k"][li], kf)
+                _fill_prefix(lc["v"][li], vf)
+    return _out_proj(params, o)
+
+
+def _fill_prefix(buf, t):
+    """Write (B, n, F) ``t`` over the first n entries of the (B, S, F)
+    cache slice ``buf`` in place and zero the rest."""
+    n = t.shape[1]
+    buf[:, :n] = t
+    buf[:, n:].zero_()
+
+
+def _out_proj(params, o):
+    """(B, S, H, D) attention output -> (B, S, d): ``w_o`` and, where
+    declared, ``b_o``."""
+    B, S = o.shape[:2]
     out = o.reshape(B, S, -1) @ params["w_o"]
     if "b_o" in params:
         out = out + params["b_o"]
     return out
+
+
+def _bidir_attend(cfg: ArchConfig, q, k, v, mode):
+    """Non-causal attention over every key: the encoder's, and the
+    cross-attention's in prefill and train. The reference names the
+    chunked path for both whatever ``cfg.attention_impl`` says; the kernel
+    path (``"pallas"``) takes the flash kernel on a CUDA tensor and that
+    same chunked path on a CPU tensor; ``"oracle"`` mode takes naive
+    attention."""
+    impl = ("naive" if mode == "oracle"
+            else "pallas" if cfg.attention_impl == "pallas" else "chunked")
+    return attn_lib.attention(q, k, v, impl=impl, causal=False,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+
+
+def _apply_cross_attn(cfg: ArchConfig, params, x, mode, lc=None,
+                      li: int = 0, enc_out=None, enc_len=None):
+    """Whisper's decoder cross-attention: no rope, every frame allowed.
+    In prefill and train K and V come from the encoder output ``enc_out``
+    (B, T, d), and prefill writes them over layer ``li``'s ``xk``/``xv``
+    slice in place; in decode the query attends over the ``enc_len``
+    (a 0-d int32 tensor on the device) frames cached there."""
+    B, S, _ = x.shape
+    KH, hd = cfg.n_kv_heads, cfg.hd
+    q = (x @ params["w_q"]).reshape(B, S, cfg.n_heads, hd)
+    if mode == "decode":
+        xk, xv = lc["xk"][li], lc["xv"][li]            # (B, Se, KH*hd)
+        Se = xk.shape[1]
+        o = _decode_attend(cfg, q, xk.view(B, Se, KH, hd),
+                           xv.view(B, Se, KH, hd), enc_len)
+    else:
+        T = enc_out.shape[1]
+        k = (enc_out @ params["w_k"]).reshape(B, T, KH, hd)
+        v = (enc_out @ params["w_v"]).reshape(B, T, KH, hd)
+        o = _bidir_attend(cfg, q, k, v, mode)
+        if mode == "prefill":
+            _fill_prefix(lc["xk"][li], k.reshape(B, T, KH * hd))
+            _fill_prefix(lc["xv"][li], v.reshape(B, T, KH * hd))
+    return _out_proj(params, o)
 
 
 def _ring_from_seq(kf, vf, W: int):
@@ -305,7 +403,7 @@ def _stateful(apply, x, mode, lc, li: int):
 
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
                  mode, lc=None, li: int = 0, cur_len=None, valid=None,
-                 routes=None):
+                 routes=None, enc_out=None, enc_len=None):
     h = apply_norm(cfg.norm, params["norm1"], x, cfg.norm_eps)
     mp = params["mixer"]
     if spec.mixer in ("attn", "attn_local"):
@@ -320,6 +418,10 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
     else:
         raise NotImplementedError(f"layer {spec} waits for ROADMAP A12")
     x = x + mo
+    if spec.cross_attn:
+        hx = apply_norm(cfg.norm, params["norm_x"], x, cfg.norm_eps)
+        x = x + _apply_cross_attn(cfg, params["cross"], hx, mode, lc, li,
+                                  enc_out, enc_len)
     h2 = apply_norm(cfg.norm, params["norm2"], x, cfg.norm_eps)
     if spec.mlp == "moe":      # serving drops the aux loss, as the reference
         return x + moe_lib.moe_apply(params["mlp"], h2, cfg.moe,
@@ -332,19 +434,48 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
 
 
 def apply_backbone(cfg: ArchConfig, params, x, positions, mode, cache=None,
-                   cur_len=None, routes=None):
+                   cur_len=None, routes=None, enc_out=None):
     """x: (B,S,d) embedded inputs -> (B,S,d) final-norm hidden states.
     In prefill and decode, ``cache`` is written in place. ``routes``: a
-    ``moe.RouteTape`` every MoE layer records into or is forced from."""
+    ``moe.RouteTape`` every MoE layer records into or is forced from.
+    ``enc_out``: the encoder's output (B, T, d) that an enc-dec config's
+    cross-attention reads in prefill and train (decode reads the cache)."""
     valid = cur_len + 1 if mode == "decode" else None
+    enc_len = cache.get("enc_len") if mode == "decode" else None
     for si, seg in enumerate(build_segments(cfg)):
         seg_cache = None if cache is None else cache["segments"][si]
         for li, unit in enumerate(params["segments"][si]):
             for i, spec in enumerate(seg.unit):
                 lc = None if seg_cache is None else seg_cache[str(i)]
                 x = _apply_layer(cfg, spec, unit[str(i)], x, positions, mode,
-                                 lc, li, cur_len, valid, routes)
+                                 lc, li, cur_len, valid, routes, enc_out,
+                                 enc_len)
     return apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+
+
+def apply_encoder(cfg: ArchConfig, params, frames, mode="train"):
+    """Whisper's encoder over stub frame embeddings (B, T, d) -> (B, T, d):
+    per layer norm1, attention (rope over frame positions, non-causal,
+    ``_bidir_attend``), ``w_o`` and ``b_o``, norm2 and the MLP, each
+    added to the residual; then the encoder's final norm. The frames are
+    cast to the weights' dtype (the reference promotes bf16 frames to
+    fp32 weights inside its first products instead)."""
+    enc = params["encoder"]
+    x = frames.to(enc["final_norm"]["scale"].dtype)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    for unit in enc["segment"]:
+        lp = unit["0"]
+        h = apply_norm(cfg.norm, lp["norm1"], x, cfg.norm_eps)
+        q, k, v = attn_lib.project_qkv(lp["mixer"], h, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.hd, cfg.qk_norm,
+                                       cfg.norm_eps)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        x = x + _out_proj(lp["mixer"], _bidir_attend(cfg, q, k, v, mode))
+        h2 = apply_norm(cfg.norm, lp["norm2"], x, cfg.norm_eps)
+        x = x + mlp_apply(lp["mlp"], h2, cfg.mlp)
+    return apply_norm(cfg.norm, enc["final_norm"], x, cfg.norm_eps)
 
 
 def _soft_cap(x, cap: Optional[float]):
@@ -390,10 +521,28 @@ class Model:
         return init_params(self.cache_decls(batch, max_len, dtype), None,
                            torch.device(device))
 
-    # -- embedding / head -----------------------------------------------
+    # -- embedding / frontends / head -------------------------------------
     @staticmethod
     def _embed(params, tokens):
         return params["embed"][tokens.long()]
+
+    def _embed_inputs(self, params, batch):
+        """Token embeddings (B,S,d); a patch-prefix config splices
+        ``batch["patch_embeds"][:, :P]`` (cast to the embeddings' dtype)
+        over the first P = min(n_patches, S) positions when the batch
+        has them."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.n_patches and "patch_embeds" in batch:
+            P = min(self.cfg.n_patches, x.shape[1])
+            x[:, :P] = batch["patch_embeds"][:, :P].to(x.dtype)
+        return x
+
+    def _encode(self, params, batch, mode="train"):
+        """The encoder's output over ``batch["frames"]`` for an enc-dec
+        config, else None."""
+        if not self.cfg.enc_dec:
+            return None
+        return apply_encoder(self.cfg, params, batch["frames"], mode)
 
     def _logits(self, params, h):
         """(B,d) hidden -> (B,V) fp32 logits (the product in the weights'
@@ -402,23 +551,34 @@ class Model:
         return _soft_cap((h @ params["lm_head"]).float(),
                          self.cfg.logits_soft_cap)
 
-    def _forward(self, params, tokens, mode):
-        x = self._embed(params, tokens)
+    def _forward(self, params, batch, mode):
+        x = self._embed_inputs(params, batch)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         return apply_backbone(self.cfg, params, x, positions, mode,
-                              routes=self.routes)
+                              routes=self.routes,
+                              enc_out=self._encode(params, batch, mode))
 
     # -- serving ----------------------------------------------------------
     @torch.inference_mode()
     def prefill(self, params, batch, cache):
-        """Fill the cache from a prompt ``batch["tokens"]`` (B,S); returns
-        (cache, last-position fp32 logits (B,V))."""
-        x = self._embed(params, batch["tokens"])
+        """Fill the cache from a prompt ``batch["tokens"]`` (B,S), with
+        ``batch["frames"]`` (B, T, d), T <= n_enc_frames, for an enc-dec
+        config and optionally ``batch["patch_embeds"]`` for a patch-prefix
+        one; returns (cache, last-position fp32 logits (B,V))."""
+        x = self._embed_inputs(params, batch)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        enc_out = self._encode(params, batch)
+        if enc_out is not None:
+            T = enc_out.shape[1]
+            if T > self.cfg.n_enc_frames:
+                raise ValueError(f"{T} frames exceed the cache's "
+                                 f"n_enc_frames {self.cfg.n_enc_frames}")
+            cache["enc_len"] = torch.full((), T, dtype=torch.int32,
+                                          device=x.device)
         h = apply_backbone(self.cfg, params, x, positions, "prefill",
-                           cache=cache, routes=self.routes)
+                           cache=cache, routes=self.routes, enc_out=enc_out)
         cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
         return cache, self._logits(params, h[:, -1])
 
@@ -439,14 +599,13 @@ class Model:
     @torch.inference_mode()
     def embed_pool(self, params, batch):
         """Mean-pooled final hidden state (B,d) over tokens >= 0."""
-        tokens = batch["tokens"]
-        h = self._forward(params, tokens, "train")
-        mask = (tokens >= 0).to(h.dtype)[..., None]
+        h = self._forward(params, batch, "train")
+        mask = (batch["tokens"] >= 0).to(h.dtype)[..., None]
         return torch.sum(h * mask, dim=1) / torch.clamp_min(
             torch.sum(mask, dim=1), 1)
 
     @torch.inference_mode()
     def last_logits(self, params, batch):
         """Last-position fp32 logits (B,V) of the stateless forward."""
-        h = self._forward(params, batch["tokens"], "train")
+        h = self._forward(params, batch, "train")
         return self._logits(params, h[:, -1])

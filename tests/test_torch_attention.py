@@ -257,3 +257,39 @@ def test_cuda_flash_attention_bf16_matches_plain(cuda, D, G, S, window,
     part = ops.flash_attention_auto(q[:, :rows], k, v, causal=causal,
                                     window=window)
     assert torch.equal(part, got[:, :rows])
+
+
+# the enc-dec and patch-prefix archs' prefill layouts, (Sq, Skv, H, KH, D,
+# causal): whisper-medium's cross-attention (512 decoder queries over
+# 1,500 frames) and encoder (1,500 x 1,500), both non-causal and neither
+# a multiple of the kernel's 64-key tiles; its decoder self-attention;
+# llava-next-34b's G 7 at D 128
+SERVE_BF16_CASES = [(512, 1500, 16, 16, 64, False),
+                    (1500, 1500, 16, 16, 64, False),
+                    (512, 512, 16, 16, 64, True),
+                    (512, 512, 56, 8, 128, True),
+                    (512, 1500, 56, 8, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv,H,KH,D,causal", SERVE_BF16_CASES)
+def test_cuda_flash_attention_bf16_serve_layouts(cuda, Sq, Skv, H, KH, D,
+                                                 causal):
+    """The bf16 kernel at the enc-dec and patch-prefix serve layouts (B 2)
+    against the plain version at ATT_TOL[bf16]; a row's bytes do not
+    depend on how many query rows are launched."""
+    rng = np.random.default_rng(Sq + Skv + H + D)
+    q = torch.from_numpy(rng.standard_normal((2, Sq, H, D)).astype(
+        np.float32)).to(cuda).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((2, Skv, KH, D)).astype(
+        np.float32)).to(cuda).bfloat16() for _ in range(2))
+    ops.reset_launches()
+    got = ops.flash_attention_auto(q, k, v, causal=causal)
+    assert ops.LAUNCHES == {"flash_attention": 1}
+    want = ops.flash_attention_auto(q, k, v, causal=causal, impl="ref")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL)
+    part = ops.flash_attention_auto(q[:, :300], k, v, causal=causal)
+    assert torch.equal(part, got[:, :300])

@@ -164,6 +164,12 @@ SERVE_LAYOUTS = [(32, 8, None), (32, 8, 128), (48, 8, None), (40, 10, None),
                  (20, 20, None), (16, 16, None)]
 SERVED = [dict(B=16, H=h, KH=kh, D=128, S=1024, cur=577, win=w)
           for h, kh, w in SERVE_LAYOUTS]
+# the enc-dec and patch-prefix archs' decode shapes: whisper-medium's
+# self-attention (16/16 at D 64) and cross-attention (every one of the
+# 1,500 cached frames: cur_len = S), llava-next-34b's G 7 (56/8)
+SERVED += [dict(B=16, H=16, KH=16, D=64, S=1024, cur=577, win=None),
+           dict(B=16, H=16, KH=16, D=64, S=1500, cur=1500, win=None),
+           dict(B=16, H=56, KH=8, D=128, S=1024, cur=577, win=None)]
 
 
 @pytest.mark.cuda

@@ -93,7 +93,7 @@ def _layer(seed=7):
         return a
     tree = jax.tree_util.tree_map_with_path(draw, tree)
     layer = jax.tree.map(lambda a: a[0], tree["segments"][0]["0"])
-    port = bridge.load_model(jax.tree.map(np.asarray, tree))
+    port = bridge.load_model(jax.tree.map(np.asarray, tree), cfg)
     return cfg, layer["mixer"], port["segments"][0][0]["0"]["mixer"]
 
 
@@ -193,7 +193,7 @@ def _ref_model(cfg, seed=0):
     params = jax.tree_util.tree_map_with_path(
         draw, model.init(jax.random.PRNGKey(seed)))
     return model, params, bridge.load_model(jax.tree.map(np.asarray,
-                                                         params))
+                                                         params), cfg)
 
 
 def _fp32_runs(cfg, pcfg, B=2, S=20, T=8, max_len=32):

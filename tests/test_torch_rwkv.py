@@ -117,7 +117,7 @@ def _layer_params(seed=7):
         return a
     tree = jax.tree_util.tree_map_with_path(draw, tree)
     layer = jax.tree.map(lambda a: a[0], tree["segments"][0]["0"])
-    port = bridge.load_model(jax.tree.map(np.asarray, tree))
+    port = bridge.load_model(jax.tree.map(np.asarray, tree), cfg)
     return cfg, layer, port["segments"][0][0]["0"]
 
 

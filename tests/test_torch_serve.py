@@ -1,6 +1,6 @@
 """Port parity: repro_torch's LM (``models/transformer.py``) and its
 serving entry point (``launch/serve.py``) against repro's, on the smoke
-configs of the seven ported archs (d_model 64, vocab 256 each):
+configs of the nine ported archs (d_model 64, vocab 256 each):
 qwen3-8b (GQA 4/2, qk_norm), internlm2-20b and phi3-medium-14b (GQA 4/2),
 qwen1.5-4b (MHA 4/4 with qkv bias: the port's test of ``qkv_bias``),
 deepseek-moe-16b (one dense layer, then one token-choice MoE layer: 8
@@ -8,12 +8,20 @@ experts top-2, a shared expert, groups of 64), rwkv6-3b (2 RWKV6 layers,
 4 heads of 16, chunk 16, LayerNorm) and recurrentgemma-2b (6 layers, two
 units of (rec, rec, attn_local): RG-LRU width 64, local GQA 4/1 over a
 16-slot ring, which the 20 positions of these tests wrap, and the logit
-soft cap 30: the port's test of ``logits_soft_cap``), with the
+soft cap 30: the port's test of ``logits_soft_cap``), whisper-medium (2
+encoder layers over 24 frames, 2 decoder layers with cross-attention,
+MHA 4/4, LayerNorm and GELU with every bias) and llava-next-34b (GQA
+4/2, 8 patch embeddings spliced over the prompt's prefix), with the
 reference's weights carried over by ``bridge.load_model``. The terms the
 reference initialises to zero (qwen1.5's qkv biases, RWKV's token-shift
 mixes ``mu_x``/``mu``/``mu_k``/``mu_r`` and ``gn_bias``, RG-LRU's
-``conv_b`` and gate biases) are drawn from N(0, 0.5) in both trees, so
-that a port that drops or misplaces one fails.
+``conv_b`` and gate biases; and for the two frontend archs only, so that
+the other archs' inputs stay as they were, the LayerNorm ``bias`` and
+``b_o``, ``b_in``, ``b_out``) are drawn from N(0, 0.5) in both trees, so
+that a port that drops or misplaces one fails. The frontends are fed
+seeded N(0, 1) frames and patch embeddings (rounded to bf16): zeros would
+leave whisper's encoder output at its final norm's bias and hide a broken
+splice, as the reference's own tests draw them (tests/test_arch_smoke.py).
 
 (a) fp32: the reference's params and cache cast to fp32 (every reference
     cast follows its input dtype, so it then computes in fp32). prefill,
@@ -22,7 +30,7 @@ that a port that drops or misplaces one fails.
     seen is 2.4e-6, at logits up to 4.3), and greedy tokens are equal.
 (b) bf16, as the reference serves: the reference's own decode-vs-forward
     bar (tests/test_models.py): argmax agreement >= 0.99, rtol = atol =
-    0.08 (the largest logit difference seen is 0.043). Three rows, listed
+    0.08 (the largest logit difference seen is 0.043). Four rows, listed
     in ``NEAR_TIES`` with their gaps, count as agreeing if the port picks
     either of the reference's top two: the reference's top two logits
     there lie within one bf16 step of each other, and the port picks the
@@ -31,7 +39,10 @@ that a port that drops or misplaces one fails.
     reference's fp32 run instead, with its own bf16 run as the yardstick
     (``_bf16_noise_bar``: their bf16 noise exceeds the 0.08 bar between
     any two roundings). Also, for every arch but the MoE, the port's prefill +
-    decode_step against its own last_logits over S+1 tokens. Not for the
+    decode_step against its own last_logits over S+1 tokens, on the same
+    bar (one listed row, whisper-medium's row 1, whose full-forward top
+    two round to one bf16 value, counts if the decode step picks either
+    of them). Not for the
     MoE: a decode step routes B tokens as one group of capacity
     max(..., top_k), the full forward B*(S+1) tokens in other groups, so
     drops differ (the reference leaves deepseek-moe out of its own
@@ -45,8 +56,8 @@ that a port that drops or misplaces one fails.
 (c) End to end: the port's ``run_serving(smoke=True, device="cpu")``
     against the reference's at the same seed, batch, lengths and weights,
     with the reference's fed tokens replayed so that a near-tie cannot
-    fork the runs: the same ``final_len``, means within 1e-2, and every
-    step's scores (a replay of the steps, the MoE's on the reference's
+    fork the runs (and its zero frames and patch embeddings): the same
+    ``final_len``, means within 1e-2, and every step's scores (a replay of the steps, the MoE's on the reference's
     routes) within SCORE_TOL. In bf16 the logits differ by a few
     1e-2, and rc, a ratio of two probabilities, moves most (2.7e-2 seen).
 
@@ -74,11 +85,15 @@ SCORE_TOL = {"lc": 1e-2, "mc": 1e-2, "rc": 6e-2, "es": 1e-2}
 
 
 ARCHS = ["qwen3-8b", "internlm2-20b", "phi3-medium-14b", "qwen1.5-4b",
-         "deepseek-moe-16b", "rwkv6-3b", "recurrentgemma-2b"]
+         "deepseek-moe-16b", "rwkv6-3b", "recurrentgemma-2b",
+         "whisper-medium", "llava-next-34b"]
 NOT_MOE = [a for a in ARCHS if a != "deepseek-moe-16b"]
 # leaves the reference initialises to zero, drawn non-zero in both trees
 DRAWN = ("b_q", "b_k", "b_v", "mu_x", "mu", "mu_k", "mu_r", "gn_bias",
          "conv_b", "gate_a_b", "gate_x_b")
+# ... and, for the frontend archs alone, the LayerNorm and linear biases
+FRONTEND = ("whisper-medium", "llava-next-34b")
+DRAWN_FRONTEND = ("bias", "b_o", "b_in", "b_out")
 
 
 def _port_cfg(arch="qwen3-8b", impl="pallas"):
@@ -98,8 +113,10 @@ def ref(request):
     # drops or misplaces one fails
     rng = np.random.default_rng(2)
 
+    drawn = DRAWN + (DRAWN_FRONTEND if request.param in FRONTEND else ())
+
     def draw(path, a):
-        if getattr(path[-1], "key", None) not in DRAWN:
+        if getattr(path[-1], "key", None) not in drawn:
             return a
         return jax.numpy.asarray(rng.normal(0.0, 0.5, a.shape), a.dtype)
     params = jax.tree_util.tree_map_with_path(draw, params)
@@ -115,14 +132,49 @@ def toks():
         np.int32)
 
 
-# (arch, index in _ref_run's logits or "last_logits", row): the
-# reference's top-2 gap. Each gap is at most one bf16 step at these
-# logits (2**-6 in [2, 4); the eager last_logits are bf16 values, so its
-# smallest gap is that step), so the rounding of either model decides the
-# argmax: the port picks the reference's runner-up in each row.
+def _frontend(cfg, batch=B, zeros=False):
+    """The frontend inputs of ``cfg`` as fp32 numpy arrays holding bf16
+    values: frames (batch, n_enc_frames, d) for an enc-dec config, patch
+    embeddings (batch, n_patches, d) for a patch-prefix one; seeded N(0,
+    1), or zeros (what ``run_serving`` feeds)."""
+    rng = np.random.default_rng(7)
+    out = {}
+    for key, n, on in (("frames", cfg.n_enc_frames, cfg.enc_dec),
+                       ("patch_embeds", cfg.n_patches, cfg.n_patches > 0)):
+        if on:
+            a = (np.zeros if zeros else rng.standard_normal)(
+                (batch, n, cfg.d_model)).astype(np.float32)
+            out[key] = torch.from_numpy(a).bfloat16().float().numpy()
+    return out
+
+
+def _ref_batch(tokens, front, dtype):
+    import jax.numpy as jnp
+    out = {"tokens": jnp.asarray(tokens)}
+    out.update({k: jnp.asarray(v, dtype) for k, v in front.items()})
+    return out
+
+
+def _port_batch(tokens, front, dtype):
+    out = {"tokens": torch.from_numpy(np.ascontiguousarray(tokens))}
+    out.update({k: torch.from_numpy(v).to(dtype) for k, v in front.items()})
+    return out
+
+
+# (arch, index in _ref_run's logits, "last_logits" or
+# "decode_vs_forward", row): the reference's top-2 gap (for
+# "decode_vs_forward", the port's own full forward's, which the decode
+# step is held to). Each gap is at most one bf16 step at these logits
+# (2**-6 in [2, 4); the eager last_logits are bf16 values, so its
+# smallest gap is that step, or 0: whisper's full forward rounds its two
+# top logits to one bf16 value, 0.013 apart in fp32), so the rounding of
+# either model decides the argmax: the port picks the runner-up in each
+# row.
 NEAR_TIES = {("internlm2-20b", 1, 1): 0.0100,
              ("deepseek-moe-16b", 2, 1): 0.0011,
-             ("qwen1.5-4b", "last_logits", 1): 0.0156}
+             ("qwen1.5-4b", "last_logits", 1): 0.0156,
+             ("whisper-medium", 7, 0): 0.0073,
+             ("whisper-medium", "decode_vs_forward", 1): 0.0}
 TIE_GAP = 2.0 ** -6
 
 
@@ -151,7 +203,8 @@ def _np_tree(jax, tree):
 
 def _ref_run(ref, params, toks, cache_dtype=None, greedy=False):
     """Reference prefill + T decode steps (teacher-forced on ``toks``, or
-    greedy); returns (list of logits, fed tokens)."""
+    greedy), with ``_frontend``'s inputs in the cache dtype (bf16 unless
+    given); returns (list of logits, fed tokens)."""
     import jax.numpy as jnp
     from repro.common.param import init_params
     jax, model = ref["jax"], ref["model"]
@@ -159,7 +212,9 @@ def _ref_run(ref, params, toks, cache_dtype=None, greedy=False):
     if cache_dtype is not None:
         cache = jax.tree.map(lambda a: a.astype(cache_dtype)
                              if a.dtype == jnp.bfloat16 else a, cache)
-    cache, logits = ref["prefill"](params, {"tokens": toks[:, :S]}, cache)
+    batch = _ref_batch(toks[:, :S], _frontend(ref["cfg"]),
+                       cache_dtype or jnp.bfloat16)
+    cache, logits = ref["prefill"](params, batch, cache)
     out, fed = [np.asarray(logits)], []
     for t in range(T):
         tok = (jnp.argmax(logits, -1)[:, None].astype(jnp.int32) if greedy
@@ -208,8 +263,8 @@ def _record_routes(ref, monkeypatch):
 def _port_run(cfg, params, toks, dtype, greedy=False, routes=None):
     model = Model(cfg, routes=routes)
     cache = model.init_cache(B, MAX_LEN, "cpu", dtype)
-    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
-        toks[:, :S])}, cache)
+    cache, logits = model.prefill(
+        params, _port_batch(toks[:, :S], _frontend(cfg), dtype), cache)
     out, fed = [logits.numpy()], []
     for t in range(T):
         tok = (torch.argmax(logits, -1)[:, None].to(torch.int32) if greedy
@@ -225,7 +280,7 @@ def test_fp32_model_parity(ref, toks):
     import jax.numpy as jnp
     jax, arch = ref["jax"], ref["arch"]
     rp = jax.tree.map(lambda a: a.astype(jnp.float32), ref["params"])
-    pp = bridge.load_model(_np_tree(jax, rp))
+    pp = bridge.load_model(_np_tree(jax, rp), _port_cfg(arch))
     assert pp["embed"].dtype == torch.float32
     want, _ = _ref_run(ref, rp, jnp.asarray(toks), cache_dtype=jnp.float32)
     got, _ = _port_run(_port_cfg(arch), pp, toks, torch.float32)
@@ -244,8 +299,9 @@ def test_fp32_model_parity(ref, toks):
     for w, g in zip(want, got):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
     model = Model(_port_cfg(arch))
-    batch = {"tokens": torch.from_numpy(toks)}
-    rbatch = {"tokens": jnp.asarray(toks)}
+    front = _frontend(ref["cfg"])
+    batch = _port_batch(toks, front, torch.float32)
+    rbatch = _ref_batch(toks, front, jnp.float32)
     np.testing.assert_allclose(
         model.last_logits(pp, batch).numpy(),
         np.asarray(ref["model"].last_logits(rp, rbatch)), rtol=0, atol=1e-4)
@@ -257,7 +313,8 @@ def test_fp32_model_parity(ref, toks):
 def test_bf16_model_parity(ref, toks, monkeypatch):
     import jax.numpy as jnp
     arch = ref["arch"]
-    pp = bridge.load_model(_np_tree(ref["jax"], ref["params"]))
+    pp = bridge.load_model(_np_tree(ref["jax"], ref["params"]),
+                           _port_cfg(arch))
     assert pp["embed"].dtype == torch.bfloat16
     assert {t.dtype for _, t in _leaves(
         pp["segments"][-1][-1]["0"]["mixer"])} == {torch.bfloat16}
@@ -279,17 +336,18 @@ def test_bf16_model_parity(ref, toks, monkeypatch):
                        routes=tape)
     if tape is not None:
         assert len(tape.recorded) == T + 1
-    last = Model(_port_cfg(arch)).last_logits(pp, {
-        "tokens": torch.from_numpy(toks)}).numpy()
-    want_last = np.asarray(ref["model"].last_logits(ref["params"], {
-        "tokens": jnp.asarray(toks)}))
+    front = _frontend(ref["cfg"])
+    last = Model(_port_cfg(arch)).last_logits(
+        pp, _port_batch(toks, front, torch.bfloat16)).numpy()
+    want_last = np.asarray(ref["model"].last_logits(
+        ref["params"], _ref_batch(toks, front, jnp.bfloat16)))
     if arch in RECURRENT:
         rp = ref["jax"].tree.map(lambda a: a.astype(jnp.float32),
                                  ref["params"])
         exact, _ = _ref_run(ref, rp, jnp.asarray(toks),
                             cache_dtype=jnp.float32)
-        exact.append(np.asarray(ref["model"].last_logits(rp, {
-            "tokens": jnp.asarray(toks)})))
+        exact.append(np.asarray(ref["model"].last_logits(
+            rp, _ref_batch(toks, front, jnp.float32))))
         _bf16_noise_bar(np.stack(want + [want_last]),
                         np.stack(got + [last]), np.stack(exact))
         return
@@ -338,22 +396,23 @@ def test_decode_matches_full_forward(toks, arch):
     prefill(S) + decode(token S) equals last_logits over S+1 tokens."""
     model = Model(_port_cfg(arch))
     params = model.init(0, "cpu")
-    full = model.last_logits(params, {"tokens": torch.from_numpy(
-        toks[:, :S + 1])}).numpy()
+    front = _frontend(model.cfg)
+    full = model.last_logits(params, _port_batch(
+        toks[:, :S + 1], front, torch.bfloat16)).numpy()
     cache = model.init_cache(B, S + 4, "cpu")
-    cache, _ = model.prefill(params, {"tokens": torch.from_numpy(
-        toks[:, :S])}, cache)
+    cache, _ = model.prefill(params, _port_batch(
+        toks[:, :S], front, torch.bfloat16), cache)
     dec, cache = model.decode_step(params, cache, torch.from_numpy(
         toks[:, S:S + 1]))
     assert int(cache["len"]) == S + 1
-    assert np.mean(np.argmax(full, -1) == np.argmax(dec.numpy(), -1)) >= 0.99
+    _argmax_bar(full, dec.numpy(), _ties(arch, "decode_vs_forward"))
     np.testing.assert_allclose(dec.numpy(), full, rtol=0.08, atol=0.08)
 
 
 def _ref_serving_replica(ref, seed, batch, prompt_len, steps, max_len):
     """The body of repro's run_serving (same jitted functions, same
-    inputs), keeping what its dict throws away: the fed tokens and every
-    step's scores."""
+    inputs: zero frames and patch embeddings), keeping what its dict
+    throws away: the fed tokens and every step's scores."""
     import jax.numpy as jnp
     from repro.common.param import init_params
     from repro.data.synthetic import lm_pool
@@ -363,8 +422,9 @@ def _ref_serving_replica(ref, seed, batch, prompt_len, steps, max_len):
     prompt, _ = lm_pool(batch, prompt_len, ref["cfg"].vocab, seed=seed)
     cache = init_params(model.cache_decls(batch, max_len),
                         jax.random.PRNGKey(1))
-    cache, logits = ref["prefill"](params, {"tokens": jnp.asarray(prompt)},
-                                   cache)
+    front = _zero_frontend(ref["cfg"], batch, prompt_len)
+    cache, logits = ref["prefill"](
+        params, _ref_batch(prompt, front, jnp.bfloat16), cache)
     fed, scores = [], []
     tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
     for _ in range(steps):
@@ -374,6 +434,15 @@ def _ref_serving_replica(ref, seed, batch, prompt_len, steps, max_len):
         scores.append(np.stack([np.asarray(s[k]) for k in KINDS]))
         tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
     return params, np.stack(fed), np.stack(scores, 1), int(cache["len"])
+
+
+def _zero_frontend(cfg, batch, prompt_len):
+    """What both ``run_serving``s feed: zero frames (batch, n_enc_frames,
+    d) and min(n_patches, prompt_len) zero patch embeddings."""
+    front = _frontend(cfg, batch, zeros=True)
+    if "patch_embeds" in front:
+        front["patch_embeds"] = front["patch_embeds"][:, :prompt_len]
+    return front
 
 
 def test_run_serving_matches_reference(ref, monkeypatch):
@@ -391,7 +460,8 @@ def test_run_serving_matches_reference(ref, monkeypatch):
     np.testing.assert_allclose(rscores[0].mean(), want["mean_lc"], rtol=1e-6)
     np.testing.assert_allclose(rscores[3].mean(), want["mean_es"], rtol=1e-6)
 
-    params = bridge.load_model(_np_tree(ref["jax"], rparams))
+    params = bridge.load_model(_np_tree(ref["jax"], rparams),
+                               _port_cfg(arch))
     got = serve.run_serving(arch, smoke=True, log=False, device="cpu",
                             params=params, tokens=torch.from_numpy(fed), **kw)
     assert got["arch"] == want["arch"] == ref["cfg"].name
@@ -409,8 +479,9 @@ def test_run_serving_matches_reference(ref, monkeypatch):
     prompt, _ = lm_pool(kw["batch"], kw["prompt_len"], ref["cfg"].vocab,
                         seed=kw["seed"])
     cache = model.init_cache(kw["batch"], kw["max_len"], "cpu")
-    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
-        prompt)}, cache)
+    front = _zero_frontend(model.cfg, kw["batch"], kw["prompt_len"])
+    cache, logits = model.prefill(
+        params, _port_batch(prompt, front, torch.bfloat16), cache)
     scores, pfed = serve.serve_steps(model, params, cache, logits,
                                      kw["decode_steps"],
                                      feed=torch.from_numpy(fed))
@@ -506,8 +577,7 @@ def test_reference_registry_fields(arch):
                 (getattr(theirs, sub) is None), sub
 
 
-@pytest.mark.parametrize("name", ["deepseek_v3_671b", "whisper-medium",
-                                  "llava_next_34b"])
+@pytest.mark.parametrize("name", ["deepseek_v3_671b"])
 def test_unported_archs_raise(name):
     with pytest.raises(KeyError, match="ROADMAP A12"):
         configs.get_config(name)
@@ -528,7 +598,8 @@ def _leaves(tree, path=""):
 
 def _ref_decl_leaves(cfg):
     """(path in the port's layout, shape, dtype name) of every leaf of the
-    reference's ``model_decls``, its stacked layer axes unstacked."""
+    reference's ``model_decls``, its stacked layer axes unstacked (the
+    encoder's segment too)."""
     from repro.common.param import ParamDecl as RefDecl
     from repro.models.transformer import build_segments, model_decls
     decls = model_decls(cfg)
@@ -544,11 +615,16 @@ def _ref_decl_leaves(cfg):
         for k, v in node.items():
             walk(v, f"{path}/{k}", stacked)
     for k, v in decls.items():
-        if k != "segments":
+        if k not in ("segments", "encoder"):
             walk(v, f"/{k}", 0)
     for si, (seg, sd) in enumerate(zip(build_segments(cfg),
                                        decls["segments"])):
         walk(sd, f"/segments[{si}][u]", seg.count if seg.count > 1 else 0)
+    if "encoder" in decls:
+        enc = decls["encoder"]
+        walk(enc["final_norm"], "/encoder/final_norm", 0)
+        n = cfg.n_enc_layers
+        walk(enc["segment"], "/encoder/segment[u]", n if n > 1 else 0)
     return out
 
 
@@ -602,9 +678,10 @@ def test_flash_kernel_keeps_bf16(gpu):
 def test_serving_on_the_card_runs_every_kernel(gpu, arch):
     """The smoke config served on the card: every kernel of the path
     launches as often as the path says (flash once per attention layer,
-    global or local; decode attention once per global attention layer a
-    step; the scores once a step), and the means stay within 1e-2 of the
-    CPU run on the same weights and fed tokens."""
+    global or local, encoder layer and cross-attention layer; decode
+    attention once per global attention layer and cross-attention layer
+    a step; the scores once a step), and the means stay within 1e-2 of
+    the CPU run on the same weights and fed tokens."""
     model = Model(_port_cfg(arch))
     params = model.init(0, "cpu")
     kw = dict(batch=3, prompt_len=8, decode_steps=5, max_len=16, log=False)
@@ -612,8 +689,8 @@ def test_serving_on_the_card_runs_every_kernel(gpu, arch):
     from repro_torch.data.synthetic import lm_pool
     prompt, _ = lm_pool(3, 8, model.cfg.vocab, seed=0)
     cache = model.init_cache(3, 16, "cpu")
-    cache, logits = model.prefill(params, {"tokens": torch.from_numpy(
-        prompt)}, cache)
+    cache, logits = model.prefill(params, _port_batch(
+        prompt, _zero_frontend(model.cfg, 3, 8), torch.bfloat16), cache)
     _, fed = serve.serve_steps(model, params, cache, logits, 5)
     on_card = _to(params, gpu)
     for ops in (fa_ops, da_ops, unc_ops):
@@ -625,8 +702,10 @@ def test_serving_on_the_card_runs_every_kernel(gpu, arch):
              for _ in range(seg.count) for spec in seg.unit]
     attn = sum(spec.mixer in ("attn", "attn_local") for spec in specs)
     glob = sum(spec.mixer == "attn" for spec in specs)
-    assert fa_ops.LAUNCHES["flash_attention"] == attn
-    assert da_ops.LAUNCHES["decode_attention"] == glob * 5
+    cross = sum(spec.cross_attn for spec in specs)
+    enc = model.cfg.n_enc_layers if model.cfg.enc_dec else 0
+    assert fa_ops.LAUNCHES["flash_attention"] == attn + enc + cross
+    assert da_ops.LAUNCHES["decode_attention"] == (glob + cross) * 5
     assert unc_ops.LAUNCHES["uncertainty_stats"] == 5
     assert out["final_len"] == cpu["final_len"] == 13
     for key in ("mean_lc", "mean_es"):
