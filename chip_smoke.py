@@ -33,14 +33,20 @@ Phases, one line each (any failure raises and exits non-zero):
             llava-next-34b's 56/8; the global-attention archs' decode
             steps, whisper's cross-attention step over all 1,500 frames
             (cur_len = cache = 1,500) among them; scores at 16 x 92,672,
-            100,352, 152,064, 102,400, 65,536, 256,000, 51,968 and
-            64,000); the
+            100,352, 152,064, 102,400, 65,536, 256,000, 51,968, 64,000
+            and 129,280); the
             recurrent arithmetic's card oracles in fp32, TF32 off
             (``recurrent_oracles``: rwkv6-3b's chunked WKV against the
             sequential recurrence at B 16, S 512, H 40, D 64, chunk 64,
             within WKV_TOL; recurrentgemma-2b's RG-LRU log-depth scan
             against a stepwise float64 loop at B 16, S 512, W 2,560,
-            within SCAN_TOL; each timed);
+            within SCAN_TOL; each timed); the MLA card oracle
+            (``mla_oracle``: deepseek-v3's absorbed decode at full width,
+            H 128, kv rank 512, rope 64, one layer, B 16, 577 cached
+            tokens of a 1,024-entry cache whose other rows hold noise,
+            against the last row of the chunked prefill's expansion, fp32
+            with TF32 off within the reference's 2e-4 and bf16 within
+            MLA_BF16_TOL; the bf16 decode timed);
             gated_greedy_round at 50,000 x 512, n_block 256 (ragged last
             block): live share all / ~10 % / none, pending zeros and
             seeded, R 1 and 8, weights or not, planted ties across two
@@ -169,19 +175,22 @@ Phases, one line each (any failure raises and exits non-zero):
 9. serve    LLM serving with per-step uncertainty scores, one path per
             served arch (qwen3-8b, internlm2-20b, phi3-medium-14b,
             qwen1.5-4b, deepseek-moe-16b, rwkv6-3b, recurrentgemma-2b,
-            whisper-medium, llava-next-34b): ``run_serving(arch,
-            smoke=False)`` at full width and all layers in bf16 (random
-            weights from seed 0), batch 16, 512-token prompts, 64 greedy
-            decode steps, cache 1,024 (whisper's frontend 1,500 zero
-            frames, llava's 512 zero patch embeddings, as the
-            reference's). Launch counts are zeroed just before and read
-            just after: flash attention once per attention layer, global
-            or local, encoder layer and cross-attention layer (prefill;
-            none at rwkv6-3b, 8 at recurrentgemma-2b, 72 at whisper),
-            decode attention once per global attention layer and
-            cross-attention layer per step (none at either recurrent
-            arch, 48 at whisper), uncertainty_stats once per step, the
-            selection kernels never. Then prefill + 8 teacher-forced
+            whisper-medium, llava-next-34b, deepseek-v3-671b):
+            ``run_serving`` of the arch's full config at full width and all
+            layers in bf16 (random weights from seed 0; deepseek-v3 at 5 of
+            its 61 layers, ``SERVE_DEPTH``: its 3 dense MLA layers and 2 of
+            its 58 MoE MLA layers, 54.6 GB, served as a config), batch 16,
+            512-token prompts, 64 greedy decode steps, cache 1,024
+            (whisper's frontend 1,500 zero frames, llava's 512 zero patch
+            embeddings, as the reference's). Launch counts are zeroed just
+            before and read just after: flash attention once per attention
+            layer, global or local, encoder layer and cross-attention layer
+            (prefill; none at rwkv6-3b, 8 at recurrentgemma-2b, 72 at
+            whisper, none at deepseek-v3, whose MLA runs no attention
+            kernel), decode attention once per global attention layer and
+            cross-attention layer per step (none at either recurrent arch or
+            deepseek-v3, 48 at whisper), uncertainty_stats once per step,
+            the selection kernels never. Then prefill + 8 teacher-forced
             steps through the kernel path and through the plain path
             (``attention_impl="chunked"``, plain scores), same weights,
             tokens and seeded N(0, 1) frames or patch embeddings, held
@@ -190,11 +199,11 @@ Phases, one line each (any failure raises and exits non-zero):
             path's routes forced, held); whisper's and llava's kernel path
             also runs on zero frames or patches, and the logits' largest
             difference from the seeded run must exceed AGREE_TOL's (the
-            frontend reaches the logits); and a torch.profiler window over
-            a prefill and 4 decode steps (device time by kernel class:
-            the device's busy share). Each model is freed before the next
-            (llava-next-34b last: 68.8 GB of weights); peak device memory
-            is printed per arch.
+            frontend reaches the logits); and a torch.profiler window over a
+            prefill and 4 decode steps (device time by kernel class: the
+            device's busy share). Each model is freed before the next
+            (llava-next-34b, 68.8 GB of weights, then deepseek-v3, 54.6 GB);
+            peak device memory is printed per arch.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -250,11 +259,17 @@ UNC_TOL = {"fp32": 3e-5, "scale80": 1e-4}
 ATT_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 DECODE_BF16_TOL = 1e-2
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 16, 512, 64, 1_024
-# the served configs, each at full width and depth in bf16; qwen3-8b first,
-# llava-next-34b (68.8 GB of weights) last
+# the served configs, each at full width and depth in bf16 (but for
+# SERVE_DEPTH); qwen3-8b first, then the rest, llava-next-34b (68.8 GB of
+# weights) and deepseek-v3-671b (54.6 GB) last
 SERVE_ARCHS = ("qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",
                "deepseek_moe_16b", "rwkv6_3b", "recurrentgemma_2b",
-               "whisper_medium", "llava_next_34b")
+               "whisper_medium", "llava_next_34b", "deepseek_v3_671b")
+# depth cuts: deepseek-v3-671b's 61 layers need 1,342 GB in bf16; one H100
+# holds its 3 dense MLA layers, 2 of its 58 MoE MLA layers (22.5 GB of
+# routed experts each), the embeddings, the LM head and the MTP head:
+# 54.6 GB. Every width is kept.
+SERVE_DEPTH = {"deepseek_v3_671b": 5}
 SERVE_CUR = 577                          # a decode step's cur_len, timed
 # card oracles of the recurrent arithmetic in fp32, TF32 off. The chunked
 # WKV against the sequential recurrence: max |d| <= WKV_TOL * max |out|.
@@ -266,6 +281,14 @@ SERVE_CUR = 577                          # a decode step's cur_len, timed
 # loop: the reference's 1e-4 (rtol = atol), its outputs being O(1).
 WKV_TOL = 2e-5
 SCAN_TOL = 1e-4
+# the MLA oracle in bf16: absorbed decode against the expansion's last row
+# as allclose(rtol=atol=MLA_BF16_TOL). Both round to bf16 in other places
+# (the expansion its per-head K/V, the attention output and q; the
+# absorbed form q_lat and p); the outputs reach ~0.8 (a bf16 step 2**-8 at
+# 0.5-1, the largest difference seen on the CPU at these widths, B 2,
+# S 65), so the bar is ~5 steps. fp32 is held at the reference's 2e-4.
+MLA_BF16_TOL = 2e-2
+MLA_CACHED = 577                         # cached tokens of SERVE_MAX
 AGREE_STEPS = 8
 KINDS = ("lc", "mc", "rc", "es")
 
@@ -1331,10 +1354,18 @@ QWEN3_DECODE = [dict(B=SERVE_BATCH, H=32, KH=8, D=128, S=SERVE_MAX,
                      cur=SERVE_CUR, win=w) for w in (None, 128)]
 
 
-def serve_layout(arch):
-    """(H, KH, head_dim, padded vocab) of a served arch's full config."""
+def serve_config(arch):
+    """A served arch's full config, its depth cut where SERVE_DEPTH says."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
+    return cfg
+
+
+def serve_layout(arch):
+    """(H, KH, head_dim, padded vocab) of a served arch's full config."""
+    cfg = serve_config(arch)
     return cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.padded_vocab
 
 
@@ -1344,10 +1375,9 @@ def serve_attention(arch):
     attention once per attention layer (global or local), encoder layer
     and cross-attention layer in prefill, and decode attention once per
     global attention layer and cross-attention layer a step (local decode
-    is plain torch, as the reference's)."""
-    from repro_torch.configs import get_config
+    is plain torch, as the reference's; MLA runs neither)."""
     from repro_torch.models.transformer import build_segments
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     specs = [spec for seg in build_segments(cfg)
              for _ in range(seg.count) for spec in seg.unit]
     cross = sum(sp.cross_attn for sp in specs)
@@ -1367,9 +1397,8 @@ def layout_decode():
     (phi3), G 1 (qwen1.5, deepseek-moe, whisper at D 64), G 7 (llava);
     and whisper's cross-attention step over its 1,500 cached frames
     (cache = cur_len = n_enc_frames; labelled ``whisper_medium:cross``).
-    rwkv6-3b has no attention and recurrentgemma-2b only local attention,
-    so neither runs B6."""
-    from repro_torch.configs import get_config
+    rwkv6-3b has no attention, recurrentgemma-2b only local attention and
+    deepseek-v3 MLA, so none of them runs B6."""
     out = []
     for arch in SERVE_ARCHS[1:]:
         if not serve_attention(arch)[1]:
@@ -1377,7 +1406,7 @@ def layout_decode():
         h, kh, hd, _ = serve_layout(arch)
         out.append(dict(B=SERVE_BATCH, H=h, KH=kh, D=hd, S=SERVE_MAX,
                         cur=SERVE_CUR, win=None, arch=arch))
-        cfg = get_config(arch)
+        cfg = serve_config(arch)
         if cfg.enc_dec:
             out.append(dict(out[-1], S=cfg.n_enc_frames,
                             cur=cfg.n_enc_frames, arch=arch + ":cross"))
@@ -1492,8 +1521,7 @@ def flash_layouts(arch):
     the encoder's (n_enc_frames x n_enc_frames) and the cross-attention's
     (512 x n_enc_frames), both non-causal, under ``arch:encoder`` and
     ``arch:cross``."""
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     out = [(arch, dict(window=None if cfg.griffin is None
                        else cfg.griffin.window))]
     if cfg.enc_dec:
@@ -1602,6 +1630,63 @@ def check_recurrent(dev):
             "stepwise_fp32_ms": median_ms(stepwise32, reps=3, inner=1)}
     return {"wkv_chunked_vs_sequential": wkv,
             "rglru_scan_vs_stepwise": scan}
+
+
+def check_mla(dev):
+    """The MLA card oracle at deepseek-v3's full widths (d 7,168, H 128,
+    q/kv ranks 1,536/512, QK 128 + 64, V 128), one layer, B 16: the
+    absorbed decode of token 577 against a 1,024-entry latent cache that
+    holds the chunked prefill's 577 latents and noise in the other rows
+    (the mask must hide them), held to the last row of the prefill's
+    expansion: fp32 (TF32 off) within the reference's 2e-4, bf16 within
+    MLA_BF16_TOL (allclose). Weights N(0, 1/fan_in), norm scales N(1,
+    0.5), x N(0, 1), from one generator. The bf16 decode is timed (CUDA
+    events): no kernel runs in it, as none does in the reference's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import mla
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("deepseek_v3_671b")
+    g = torch.Generator(device=dev).manual_seed(13)
+    params = {}
+    for name, decl in mla.mla_decls(cfg).items():
+        if isinstance(decl, dict):
+            params[name] = {"scale": 1.0 + 0.5 * torch.randn(
+                decl["scale"].shape, generator=g, device=dev)}
+        else:
+            params[name] = torch.randn(decl.shape, generator=g, device=dev
+                                       ).mul_(decl.shape[0] ** -0.5)
+    B, n = SERVE_BATCH, MLA_CACHED
+    x = torch.randn((B, n, cfg.d_model), generator=g, device=dev)
+    pos = torch.arange(n, device=dev)[None].expand(B, n)
+    noise = [torch.randn((B, SERVE_MAX - n, w), generator=g, device=dev)
+             for w in (cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim)]
+    out = {"shape": {"batch": B, "cached": n, "cache": SERVE_MAX,
+                     "heads": cfg.n_heads, "kv_rank": cfg.mla.kv_lora_rank,
+                     "rope": cfg.mla.qk_rope_head_dim}}
+    for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, MLA_BF16_TOL)):
+        p = {k: ({kk: vv.to(dtype) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dtype))
+             for k, v in params.items()}
+        xx = x.to(dtype)
+        full, (ckv, kr) = mla.mla_prefill(p, xx, cfg, pos, impl="chunked")
+        ckv = torch.cat([ckv, noise[0].to(dtype)], 1)
+        kr = torch.cat([kr, noise[1].to(dtype)], 1)
+        cur = torch.tensor(n, dtype=torch.int32, device=dev)
+
+        def decode():
+            return mla.mla_decode(p, xx[:, n - 1:n], cfg, ckv, kr, cur,
+                                  pos[:, n - 1:n])
+        dec = decode()[:, 0].float()
+        want = full[:, -1].float()
+        torch.cuda.synchronize()
+        err = float((dec - want).abs().max())
+        assert torch.allclose(dec, want, rtol=tol, atol=tol), (dtype, err)
+        out[str(dtype).replace("torch.", "")] = {
+            "max_abs_err": err, "tolerance": tol,
+            "out_abs_max": float(want.abs().max()),
+            "decode_ms": median_ms(decode, reps=5, inner=4)}
+        del p, xx, full, ckv, kr, dec, want
+    return out
 
 
 # ---------------------------------------------------------------- server --
@@ -2441,16 +2526,17 @@ PROFILE_STEPS = 4
 
 
 def run_serve(counters, arch):
-    """``run_serving(arch)`` at full width and depth, bf16. Returns this
-    path's launch counts."""
+    """``run_serving`` of the arch's ``serve_config`` (full width and
+    depth, but for SERVE_DEPTH), bf16. Returns this path's launch
+    counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import run_serving
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     for reset in counters:
         reset()                                  # the serve path starts here
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    out = run_serving(arch, smoke=False, batch=SERVE_BATCH,
+    out = run_serving(cfg, batch=SERVE_BATCH,
                       prompt_len=SERVE_PROMPT, decode_steps=SERVE_STEPS,
                       max_len=SERVE_MAX, seed=0, log=False, device="cuda")
     torch.cuda.synchronize()
@@ -2459,7 +2545,6 @@ def run_serve(counters, arch):
     for counts in counters.values():             # ... and ends here
         launches.update(counts)
     peak = torch.cuda.max_memory_allocated()
-    n_layers = cfg.n_layers
     flash, decode = serve_attention(arch)
     assert launches["flash_attention"] == flash, launches
     assert launches["decode_attention"] == decode * SERVE_STEPS, launches
@@ -2474,7 +2559,13 @@ def run_serve(counters, arch):
         peak_allocated_gb=peak / 1e9, launches=launches,
         shape={"batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
                "decode_steps": SERVE_STEPS, "max_len": SERVE_MAX,
-               "layers": n_layers, "flash_launches_prefill": flash,
+               "layers": cfg.n_layers,
+               "layers_full": get_config(arch).n_layers,
+               "first_dense": cfg.moe.first_dense if cfg.moe else None,
+               "moe_layers": (cfg.n_layers - cfg.moe.first_dense
+                              if cfg.moe else 0),
+               "mla": cfg.mla is not None,
+               "flash_launches_prefill": flash,
                "decode_launches_step": decode,
                "encoder_layers": cfg.n_enc_layers if cfg.enc_dec else 0,
                "n_patches": cfg.n_patches, "family": cfg.family,
@@ -2578,12 +2669,11 @@ def serve_checks(dev, arch):
     (``moe.RouteTape``), and that run is held; (2) a torch.profiler
     window over the kernel path's prefill and over PROFILE_STEPS decode
     steps: device time by kernel class, for the device's busy share."""
-    from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_pool
     from repro_torch.kernels.uncertainty import ops as unc
     from repro_torch.models.layers import moe
     from repro_torch.models.transformer import Model
-    cfg = get_config(arch)
+    cfg = serve_config(arch)
     prompt = torch.from_numpy(lm_pool(SERVE_BATCH, SERVE_PROMPT, cfg.vocab,
                                       seed=0)[0]).to(dev)
     feed = torch.from_numpy(lm_pool(SERVE_BATCH, AGREE_STEPS, cfg.vocab,
@@ -2763,6 +2853,7 @@ def run(tune_dir, kernels_only=False) -> int:
     d_time = time_decode(da, dev)
     at_serve = time_serve_shapes(fa, da, unc, dev)
     recurrent = check_recurrent(dev)
+    mla_oracle = check_mla(dev)
     gt_err, gt_cases = check_gated(ops, dev, rng)
     gt_forms = check_gated_forms(ops, dev, rng)
     gt_time = time_gated(ops, dev, rng)
@@ -2811,7 +2902,8 @@ def run(tune_dir, kernels_only=False) -> int:
                             "live_10": gt_time[0.1],
                             "engine_wave": {"live_100": gt_wave[1.0],
                                             "live_10": gt_wave[0.1]}},
-        at_serve_shapes=at_serve, recurrent_oracles=recurrent)
+        at_serve_shapes=at_serve, recurrent_oracles=recurrent,
+        mla_oracle=mla_oracle)
     if kernels_only:
         return 0
 

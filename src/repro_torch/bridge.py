@@ -13,8 +13,8 @@ numpy arrays only, so it needs nothing of the reference package:
 * ``load_mlp``: an MLP backend's ``w1``/``w2``.
 * ``load_encoder``: an ``init_encoder`` tree into a TransformerBackend,
   its stacked layer axis unstacked.
-* ``load_model``: a ``Model.init`` tree of the dense, MoE, RWKV,
-  Griffin, enc-dec or patch-prefix LM into the port's
+* ``load_model``: a ``Model.init`` tree of the dense, MoE (with or
+  without MLA), RWKV, Griffin, enc-dec or patch-prefix LM into the port's
   ``models.transformer`` tree, every dtype kept (bf16 stays bf16, the MoE
   router fp32), the encoder's stacked layers unstacked too.
 * ``head_state`` / ``set_initial_head``: a softmax head (trained, or the
@@ -135,19 +135,21 @@ def _unstack(seg, tree):
 
 
 def load_model(params: Mapping[str, Any], cfg, device="cpu"):
-    """The port's parameter tree for a reference ``Model.init`` tree of
-    the dense, MoE, RWKV, Griffin, enc-dec or patch-prefix LM, given as
-    numpy arrays. A segment of ``count > 1`` units carries a leading
-    ``layer`` axis on every leaf, unstacked here into a list of ``count``
-    units (an expert weight ``(L, E, d, F)`` becomes ``(E, d, F)`` a unit,
-    an RWKV ``mu`` ``(L, 5, d)`` becomes ``(5, d)``); a segment of one
-    unit has none (a MoE config's ``first_dense`` segment, Griffin's
-    remainder segment ``(rec, rec)``, or any segment of a smoke config
-    with one unit). An enc-dec tree's ``encoder`` (``segment``, stacked
-    the same way, and ``final_norm``) becomes ``{"segment": [unit, ...],
-    "final_norm": ...}``; a cross layer's ``norm_x`` and ``cross`` carry
-    over with the rest. Every leaf keeps its dtype. Every leaf's path and
-    shape must equal the port's declarations for ``cfg``
+    """The port's parameter tree for a reference ``Model.init`` tree of the
+    dense, MoE (with or without MLA), RWKV, Griffin, enc-dec or patch-prefix
+    LM, given as numpy arrays. A segment of ``count > 1`` units carries a
+    leading ``layer`` axis on every leaf, unstacked here into a list of
+    ``count`` units (an expert weight ``(L, E, d, F)`` becomes ``(E, d, F)``
+    a unit, an RWKV ``mu`` ``(L, 5, d)`` becomes ``(5, d)``); a segment of
+    one unit has none (a MoE config's ``first_dense`` segment, Griffin's
+    remainder segment ``(rec, rec)``, or any segment of a smoke config with
+    one unit). An enc-dec tree's ``encoder`` (``segment``, stacked the same
+    way, and ``final_norm``) becomes ``{"segment": [unit, ...],
+    "final_norm": ...}``; a cross layer's ``norm_x`` and ``cross``, and an
+    MLA layer's latent projections and norms, carry over with the rest. The
+    MTP head (``mtp``: no layer axis, its one layer unstacked in the
+    reference too) carries over as it is. Every leaf keeps its dtype. Every
+    leaf's path and shape must equal the port's declarations for ``cfg``
     (``transformer.model_decls``), else ValueError naming the paths that
     either side lacks."""
     def tree(node, pick):

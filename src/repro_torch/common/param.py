@@ -13,7 +13,9 @@ reference's parameter dtype, and then held in ``dtype``: fp32 for the
 blockwise encoder (which computes in fp32), bf16 for the LM and its KV
 cache, as the reference holds them. A declaration that names no dtype
 takes the tree's (``with_dtype``), else fp32; one that names it keeps it,
-as the MoE router keeps fp32 in the bf16 LM.
+as the MoE router keeps fp32 in the bf16 LM. The scaling is in place, so
+that a draw holds one fp32 copy and its bf16 rounding at once (a
+deepseek-v3 expert tensor is 15 GB in fp32).
 """
 from __future__ import annotations
 
@@ -49,13 +51,13 @@ def init_one(decl: ParamDecl, g: torch.Generator, device) -> torch.Tensor:
     if decl.init == "uniform":
         lim = scale if scale is not None else math.sqrt(
             1.0 / fan_in(decl.shape))
-        x = (torch.rand(decl.shape, generator=g, device=device) * 2.0
-             - 1.0) * lim
+        x = torch.rand(decl.shape, generator=g, device=device)
+        x.mul_(2.0).sub_(1.0).mul_(lim)
     else:
         if scale is None:
             scale = (0.02 if decl.init == "embed"
                      else 1.0 / math.sqrt(fan_in(decl.shape)))
-        x = torch.randn(decl.shape, generator=g, device=device) * scale
+        x = torch.randn(decl.shape, generator=g, device=device).mul_(scale)
     return x.to(torch.bfloat16).to(decl.held)
 
 

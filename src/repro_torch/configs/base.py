@@ -1,14 +1,13 @@
-# Copied from repro/configs/base.py: MoEConfig, RWKVConfig, GriffinConfig,
-# ArchConfig, pad_to and the two properties the encoder and the decode
-# stack use (hd, padded_vocab), with the fields the ported stacks read:
-# q_chunk and kv_chunk (prefill attention), moe, rwkv, griffin,
-# logits_soft_cap, the enc-dec fields (enc_dec, n_enc_layers,
-# n_enc_frames) and n_patches. The LM head is always untied:
-# tie_embeddings comes back with the first config that sets it (ROADMAP
-# A12). Dropped: the MLA sub-config, the MTP field, n_params,
-# tp_friendly, active_params, subquadratic and the dry-run shapes, which
-# only the TPU dry run and the rest of the LLM stack use (ROADMAP A12);
-# and the remat knob, which inference has no use for.
+# Copied from repro/configs/base.py: MoEConfig, MLAConfig, RWKVConfig,
+# GriffinConfig, ArchConfig, pad_to and the two properties the encoder
+# and the decode stack use (hd, padded_vocab), with the fields the ported
+# stacks read: q_chunk and kv_chunk (prefill attention), moe, mla, rwkv,
+# griffin, logits_soft_cap, the enc-dec fields (enc_dec, n_enc_layers,
+# n_enc_frames), n_patches and mtp (the MTP head's declarations; its loss
+# waits for ROADMAP A13). The LM head is always untied: no config of the
+# registry sets tie_embeddings. Dropped: n_params, tp_friendly,
+# active_params, subquadratic and the dry-run shapes, which only the TPU
+# dry run uses; and the remat knob, which inference has no use for.
 """Architecture configuration.
 
 One ``ArchConfig`` describes a backbone; each arch file under
@@ -36,6 +35,15 @@ class MoEConfig:
     group_size: int = 2048        # tokens per dispatch group
     aux_loss_alpha: float = 0.001
     router_dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +82,7 @@ class ArchConfig:
     mlp: str = "swiglu"           # swiglu | gelu
     norm_eps: float = 1e-6
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     rwkv: Optional[RWKVConfig] = None
     griffin: Optional[GriffinConfig] = None
     # enc-dec (whisper): n_layers == decoder layers
@@ -82,6 +91,7 @@ class ArchConfig:
     n_enc_frames: int = 1500      # stub audio frontend sequence length
     # vlm stub frontend
     n_patches: int = 0            # patch embeddings spliced into prefix
+    mtp: bool = False             # deepseek-v3 multi-token prediction head
     logits_soft_cap: Optional[float] = None
     # runtime knobs
     q_chunk: int = 512

@@ -9,7 +9,9 @@ pool is just "serve the pool, keep the scores".
 ``--arch`` names a ported config by module name or canonical id:
 ``rwkv6_3b`` (RWKV6, the default, as the reference's), ``qwen3_8b``,
 ``internlm2_20b``, ``phi3_medium_14b``, ``qwen15_4b`` (the dense stack),
-``deepseek_moe_16b`` (token-choice MoE), ``recurrentgemma_2b`` (RG-LRU
+``deepseek_moe_16b`` (token-choice MoE), ``deepseek_v3_671b`` (MLA with
+a 256-expert MoE; at full size one card holds it only with its depth
+cut, which ``run_serving`` takes as a config), ``recurrentgemma_2b`` (RG-LRU
 with local attention and the logit soft cap), ``whisper_medium``
 (encoder-decoder over stub frame embeddings) or ``llava_next_34b`` (stub
 patch embeddings spliced over the prompt's prefix); ``--full`` serves its
@@ -22,8 +24,9 @@ prefill of every attention layer (global or local), of every encoder
 layer and of every cross-attention layer, decode attention in every
 global attention layer and every cross-attention layer of every step, and
 the uncertainty-stats pass over every step's logits (rwkv6-3b has no
-attention, so it runs the last alone; recurrentgemma-2b's local decode is
-plain torch, as the reference's). Scores and tokens stay on the device
+attention, and deepseek-v3's MLA runs no attention kernel, so both run
+the last alone; recurrentgemma-2b's local decode is plain torch, as the
+reference's). Scores and tokens stay on the device
 until the loop ends; the only host syncs are the timers'.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen15_4b \\
@@ -34,10 +37,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Union
 
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ArchConfig, get_config, get_smoke_config
 from repro_torch.data.synthetic import lm_pool
 from repro_torch.kernels.uncertainty import ops as unc_ops
 from repro_torch.models.transformer import Model
@@ -69,7 +73,8 @@ def serve_steps(model: Model, params, cache, logits, steps: int, feed=None):
     return scores, torch.stack(fed)
 
 
-def run_serving(arch: str = "rwkv6-3b", *, smoke: bool = True,
+def run_serving(arch: Union[str, ArchConfig] = "rwkv6-3b", *,
+                smoke: bool = True,
                 batch: int = 4, prompt_len: int = 32, decode_steps: int = 16,
                 max_len: int = 128, seed: int = 0, log: bool = True,
                 device="cuda", params=None, tokens=None) -> dict:
@@ -77,8 +82,12 @@ def run_serving(arch: str = "rwkv6-3b", *, smoke: bool = True,
     ``decode_steps`` steps with ``cfg.attention_impl = "pallas"`` (the
     kernels on a CUDA device, their plain versions on the CPU).
 
-    ``params``: a parameter tree to serve (e.g. ``bridge.load_model`` of
-    the reference's weights) instead of random weights seeded ``seed``.
+    ``arch``: a registry name (``smoke`` picks its smoke or full config)
+    or an ``ArchConfig``, served as given (``smoke`` is then unused): the
+    seam for a depth cut, e.g. ``dataclasses.replace(get_config(
+    "deepseek_v3_671b"), n_layers=5)``. ``params``: a parameter tree to
+    serve (e.g. ``bridge.load_model`` of the reference's weights) instead
+    of random weights seeded ``seed``.
     ``tokens``: (decode_steps, batch) tokens to feed instead of the greedy
     argmax (see ``serve_steps``). Returns the reference's dict: ``arch``,
     ``prefill_s``, ``decode_s_per_step``, ``tokens_per_s``, ``mean_lc``,
@@ -90,7 +99,10 @@ def run_serving(arch: str = "rwkv6-3b", *, smoke: bool = True,
     if prompt_len + decode_steps > max_len:
         raise ValueError(f"prompt_len {prompt_len} + decode_steps "
                          f"{decode_steps} exceed max_len {max_len}")
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if isinstance(arch, ArchConfig):
+        cfg = arch
+    else:
+        cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(cfg, attention_impl="pallas")
     model = Model(cfg)
     if params is None:

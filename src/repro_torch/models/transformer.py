@@ -24,9 +24,17 @@ cross-attention (``norm_x``, ``cross``: no rope, all T frames) after its
 self-attention, whose K/V the prefill writes into the cache's ``xk`` and
 ``xv`` once. A patch-prefix config (``cfg.n_patches``, llava) splices
 ``batch["patch_embeds"][:, :P]`` over the first P = min(n_patches, S)
-token embeddings. The MLA mixer and the MTP head wait for ROADMAP A12; a
-config that needs them raises ``NotImplementedError``. ``loss`` and its
-chunked cross-entropy wait for A13.
+token embeddings. An MLA config (``cfg.mla``, deepseek-v3) takes the
+``mla`` mixer in place of attention in both of its MoE config's
+segments (``layers/mla.py``): prefill expands the latents to per-head
+K/V through the chunked path, as the reference names it, and writes the
+compressed latents into the cache's ``ckv`` (L, B, S, kv_lora_rank) and
+``kr`` (L, B, S, qk_rope); decode writes the token's latents at
+``cur_len`` and attends in latent space (absorbed). ``cfg.mtp`` declares
+the MTP head (``mtp``: ``proj``, ``norm_h``, ``norm_e``, one dense MLA
+``layer`` and ``final_norm``) so that the reference's tree loads; no
+serving path reads it. ``loss``, its chunked cross-entropy and the MTP
+loss wait for ROADMAP A13.
 
 Modes, as in the reference:
   train    full sequence, no cache (``last_logits``, ``embed_pool``)
@@ -67,8 +75,11 @@ does on every backend, and the encoder and cross-attention prefill to the
 chunked path, which the reference names for them whatever the config
 says (``"oracle"`` mode: naive attention there too). The local
 decode over the ring is plain torch (``decode_attention_pos``) on every
-device, as the reference's is jnp. The RWKV and RG-LRU layers have no
-kernel in the reference and none here.
+device, as the reference's is jnp. MLA takes the chunked path in prefill
+whatever ``attention_impl`` says but ``"naive"`` (and in ``"oracle"``
+mode), as the reference's MLA branch does, and its decode is plain
+torch: no kernel. The RWKV and RG-LRU layers have no kernel in the
+reference and none here.
 """
 from __future__ import annotations
 
@@ -80,6 +91,7 @@ import torch
 from repro_torch.common.param import ParamDecl, init_params, with_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import attention as attn_lib
+from repro_torch.models.layers import mla as mla_lib
 from repro_torch.models.layers import moe as moe_lib
 from repro_torch.models.layers import rglru as rglru_lib
 from repro_torch.models.layers import rwkv as rwkv_lib
@@ -92,7 +104,7 @@ PARAM_DTYPE = torch.bfloat16        # the reference's ParamDecl default
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str          # attn | attn_local | rec | rwkv_att
+    mixer: str          # attn | attn_local | mla | rec | rwkv_att
     mlp: str            # dense | moe | rwkv_ffn
     cross_attn: bool = False   # whisper decoder
 
@@ -104,10 +116,12 @@ class Segment:
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Admit the dense and MoE stacks, RWKV (``ssm`` with ``cfg.rwkv``),
-    Griffin (``hybrid`` with ``cfg.griffin``), the encoder-decoder
-    (``audio`` with ``cfg.enc_dec``) and the patch prefix (``vlm`` with
-    ``cfg.n_patches``); refuse every other family."""
+    """Admit the dense and MoE stacks (``moe`` with ``cfg.moe``, with
+    ``cfg.mla`` or without), RWKV (``ssm`` with ``cfg.rwkv``), Griffin
+    (``hybrid`` with ``cfg.griffin``), the encoder-decoder (``audio``
+    with ``cfg.enc_dec``) and the patch prefix (``vlm`` with
+    ``cfg.n_patches``); refuse a family without its sub-config or
+    frontend, and any other family."""
     if (cfg.family == "dense"
             or (cfg.family == "moe" and cfg.moe is not None)
             or (cfg.family == "ssm" and cfg.rwkv is not None)
@@ -116,10 +130,9 @@ def require_ported(cfg: ArchConfig) -> None:
             or (cfg.family == "vlm" and cfg.n_patches > 0)):
         return
     raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family (MLA, MTP, or a family "
-        f"without its sub-config or frontend) waits for ROADMAP A12; the "
-        f"port has the dense, MoE, RWKV, Griffin, enc-dec and patch-prefix "
-        f"stacks")
+        f"{cfg.name}: the {cfg.family!r} family without its sub-config or "
+        f"frontend; the port has the dense, MoE (with or without MLA), "
+        f"RWKV, Griffin, enc-dec and patch-prefix stacks")
 
 
 def build_segments(cfg: ArchConfig) -> List[Segment]:
@@ -135,12 +148,13 @@ def build_segments(cfg: ArchConfig) -> List[Segment]:
         if rem:
             segs.append(Segment(1, unit[:rem]))
         return segs
+    mixer = "mla" if cfg.mla is not None else "attn"
     if cfg.moe is not None:
         fd = cfg.moe.first_dense
-        segs = [Segment(fd, (LayerSpec("attn", "dense"),))] if fd else []
+        segs = [Segment(fd, (LayerSpec(mixer, "dense"),))] if fd else []
         return segs + [Segment(cfg.n_layers - fd,
-                               (LayerSpec("attn", "moe"),))]
-    return [Segment(cfg.n_layers, (LayerSpec("attn", "dense",
+                               (LayerSpec(mixer, "moe"),))]
+    return [Segment(cfg.n_layers, (LayerSpec(mixer, "dense",
                                              cross_attn=cfg.enc_dec),))]
 
 
@@ -151,11 +165,13 @@ def _mixer_decls(cfg: ArchConfig, spec: LayerSpec):
         return attn_lib.attn_decls(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.hd, cfg.qkv_bias, cfg.qk_norm,
                                    out_bias=(cfg.norm == "ln"))
+    if spec.mixer == "mla":
+        return mla_lib.mla_decls(cfg)
     if spec.mixer == "rec":
         return rglru_lib.rglru_decls(cfg)
     if spec.mixer == "rwkv_att":
         return rwkv_lib.timemix_decls(cfg)
-    raise NotImplementedError(f"mixer {spec.mixer!r} waits for ROADMAP A12")
+    raise ValueError(f"unknown mixer {spec.mixer!r}")
 
 
 def _mlp_decls(cfg: ArchConfig, spec: LayerSpec):
@@ -166,7 +182,7 @@ def _mlp_decls(cfg: ArchConfig, spec: LayerSpec):
         return moe_lib.moe_decls(cfg.d_model, cfg.moe)
     if spec.mlp == "rwkv_ffn":
         return rwkv_lib.chanmix_decls(cfg)
-    raise NotImplementedError(f"mlp {spec.mlp!r} waits for ROADMAP A12")
+    raise ValueError(f"unknown mlp {spec.mlp!r}")
 
 
 def layer_decls(cfg: ArchConfig, spec: LayerSpec = LayerSpec("attn",
@@ -189,10 +205,13 @@ def layer_decls(cfg: ArchConfig, spec: LayerSpec = LayerSpec("attn",
 
 def model_decls(cfg: ArchConfig):
     """Embedding, segments (a list of ``count`` units each, a unit being
-    ``{"0": layer, ...}``), final norm and the untied LM head, and for an
+    ``{"0": layer, ...}``), final norm and the untied LM head; for an
     enc-dec config the ``encoder`` (``segment``: ``n_enc_layers`` units of
-    one ``(attn, dense)`` layer, and its ``final_norm``); bf16 but for the
-    declarations that name their dtype (the MoE router: fp32)."""
+    one ``(attn, dense)`` layer, and its ``final_norm``); for ``cfg.mtp``
+    the MTP head (``mtp``: ``proj`` (2d, d), ``norm_h``, ``norm_e``, one
+    dense layer of the config's mixer, ``final_norm``), declared only;
+    bf16 but for the declarations that name their dtype (the MoE router:
+    fp32)."""
     V, d = cfg.padded_vocab, cfg.d_model
     decls: Dict[str, Any] = {
         "embed": ParamDecl((V, d), init="embed"),
@@ -207,6 +226,14 @@ def model_decls(cfg: ArchConfig):
         decls["encoder"] = {
             "segment": [{"0": layer_decls(cfg)}
                         for _ in range(cfg.n_enc_layers)],
+            "final_norm": norm_decls(cfg.norm, d)}
+    if cfg.mtp:
+        decls["mtp"] = {
+            "proj": ParamDecl((2 * d, d)),
+            "norm_h": norm_decls(cfg.norm, d),
+            "norm_e": norm_decls(cfg.norm, d),
+            "layer": layer_decls(cfg, LayerSpec(
+                "mla" if cfg.mla is not None else "attn", "dense")),
             "final_norm": norm_decls(cfg.norm, d)}
     return with_dtype(decls, PARAM_DTYPE)
 
@@ -227,11 +254,17 @@ def _layer_cache_decls(cfg: ArchConfig, spec: LayerSpec, count: int, B: int,
         return {"k": ParamDecl((count, B, W, F), "zeros", dtype),
                 "v": ParamDecl((count, B, W, F), "zeros", dtype),
                 "pos": ParamDecl((count, W), "zeros", torch.int32)}
+    if spec.mixer == "mla":
+        m = cfg.mla
+        return {"ckv": ParamDecl((count, B, S, m.kv_lora_rank), "zeros",
+                                 dtype),
+                "kr": ParamDecl((count, B, S, m.qk_rope_head_dim), "zeros",
+                                dtype)}
     if spec.mixer == "rec":
         return rglru_lib.rglru_state_decls(cfg, B, count, dtype)
     if spec.mixer == "rwkv_att":
         return rwkv_lib.rwkv_state_decls(cfg, B, count)
-    raise NotImplementedError(f"mixer {spec.mixer!r} waits for ROADMAP A12")
+    raise ValueError(f"unknown mixer {spec.mixer!r}")
 
 
 def cache_decls(cfg: ArchConfig, B: int, S: int,
@@ -240,7 +273,9 @@ def cache_decls(cfg: ArchConfig, B: int, S: int,
     layer's cache with a leading ``count`` axis: K and V ``(count, B, S,
     KH*hd)`` for global attention (and a cross layer's ``xk``, ``xv``
     ``(count, B, n_enc_frames, KH*hd)``), the ring for local attention,
-    the recurrent state for RG-LRU and RWKV; an enc-dec cache also holds
+    the latents ``ckv`` ``(count, B, S, kv_lora_rank)`` and ``kr``
+    ``(count, B, S, qk_rope)`` for MLA, the recurrent state for RG-LRU
+    and RWKV; an enc-dec cache also holds
     ``enc_len`` (an int32 scalar: the frames the prefill wrote).
     ``dtype`` is the cache dtype; the declarations that name theirs (the
     fp32 states, int32 ``pos``) keep it."""
@@ -312,6 +347,30 @@ def _apply_attn(cfg: ArchConfig, params, x, positions, mode, lc=None,
                 _fill_prefix(lc["k"][li], kf)
                 _fill_prefix(lc["v"][li], vf)
     return _out_proj(params, o)
+
+
+def _apply_mla(cfg: ArchConfig, params, x, positions, mode, lc=None,
+               li: int = 0, cur_len=None, valid=None):
+    """The ``mla`` mixer. ``lc`` is the segment's stacked cache, written in
+    place at layer ``li``: the prompt's latents in prefill (the rest
+    zeroed), the new token's at ``cur_len`` in decode, which then attends
+    over ``valid = cur_len + 1`` entries."""
+    if mode == "decode":
+        ckv, kr = lc["ckv"][li], lc["kr"][li]           # (B, Sc, R|rope)
+        lat = mla_lib.latents(params, x, cfg, positions)
+        at = cur_len.reshape(1).long()
+        ckv.index_copy_(1, at, lat[2].to(ckv.dtype))
+        kr.index_copy_(1, at, lat[3].to(kr.dtype))
+        return mla_lib.mla_decode(params, x, cfg, ckv, kr, valid, positions,
+                                  lat)
+    impl = ("naive" if mode == "oracle" or cfg.attention_impl == "naive"
+            else "chunked")
+    out, (c_kv, k_rope) = mla_lib.mla_prefill(params, x, cfg, positions,
+                                              impl)
+    if mode == "prefill":
+        _fill_prefix(lc["ckv"][li], c_kv)
+        _fill_prefix(lc["kr"][li], k_rope)
+    return out
 
 
 def _fill_prefix(buf, t):
@@ -409,6 +468,8 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
     if spec.mixer in ("attn", "attn_local"):
         mo = _apply_attn(cfg, mp, h, positions, mode, lc, li, cur_len, valid,
                          local=spec.mixer == "attn_local")
+    elif spec.mixer == "mla":
+        mo = _apply_mla(cfg, mp, h, positions, mode, lc, li, cur_len, valid)
     elif spec.mixer == "rec":
         mo = _stateful(lambda t, st: rglru_lib.rglru_block_apply(
             mp, t, cfg, st), h, mode, lc, li)
@@ -416,7 +477,7 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
         mo = _stateful(lambda t, st: rwkv_lib.timemix_apply(mp, t, cfg, st),
                        h, mode, None if lc is None else lc["att"], li)
     else:
-        raise NotImplementedError(f"layer {spec} waits for ROADMAP A12")
+        raise ValueError(f"unknown mixer {spec.mixer!r}")
     x = x + mo
     if spec.cross_attn:
         hx = apply_norm(cfg.norm, params["norm_x"], x, cfg.norm_eps)

@@ -369,12 +369,12 @@ def test_kernel_path_on_the_cpu_launches_nothing(arch):
                                           ("vlm", "n_patches")])
 def test_frontend_families_need_their_frontend(family, field):
     """The gate admits ``audio`` only with ``enc_dec`` and ``vlm`` only
-    with ``n_patches``: the config without it raises naming ROADMAP A12,
-    with it builds its segments (a cross layer per decoder layer for
+    with ``n_patches``: the config without it raises, naming the missing
+    sub-config or frontend, with it builds its segments (a cross layer per decoder layer for
     ``audio``)."""
     cfg = configs.get_smoke_config("qwen3-8b")
     off = dataclasses.replace(cfg, family=family)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="sub-config or frontend"):
         Model(off)
     on = dataclasses.replace(off, **{field: 8 if field == "n_patches"
                                      else True},

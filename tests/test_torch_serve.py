@@ -1,10 +1,13 @@
 """Port parity: repro_torch's LM (``models/transformer.py``) and its
 serving entry point (``launch/serve.py``) against repro's, on the smoke
-configs of the nine ported archs (d_model 64, vocab 256 each):
+configs of the ten archs of the registry (d_model 64, vocab 256 each):
 qwen3-8b (GQA 4/2, qk_norm), internlm2-20b and phi3-medium-14b (GQA 4/2),
 qwen1.5-4b (MHA 4/4 with qkv bias: the port's test of ``qkv_bias``),
 deepseek-moe-16b (one dense layer, then one token-choice MoE layer: 8
-experts top-2, a shared expert, groups of 64), rwkv6-3b (2 RWKV6 layers,
+experts top-2, a shared expert, groups of 64), deepseek-v3-671b (MLA, 4
+heads, q/kv LoRA ranks 32/16, QK head dim 16 + 8 rope, V 16: one dense
+layer, then three MoE layers of 8 experts top-2 and a shared expert,
+groups of 64; the MTP head declared), rwkv6-3b (2 RWKV6 layers,
 4 heads of 16, chunk 16, LayerNorm) and recurrentgemma-2b (6 layers, two
 units of (rec, rec, attn_local): RG-LRU width 64, local GQA 4/1 over a
 16-slot ring, which the 20 positions of these tests wrap, and the logit
@@ -18,7 +21,10 @@ mixes ``mu_x``/``mu``/``mu_k``/``mu_r`` and ``gn_bias``, RG-LRU's
 ``conv_b`` and gate biases; and for the two frontend archs only, so that
 the other archs' inputs stay as they were, the LayerNorm ``bias`` and
 ``b_o``, ``b_in``, ``b_out``) are drawn from N(0, 0.5) in both trees, so
-that a port that drops or misplaces one fails. The frontends are fed
+that a port that drops or misplaces one fails; for deepseek-v3 alone the
+MLA's RMSNorm scales (``q_norm``, ``kv_norm``, all ones in the
+reference) are drawn from N(1, 0.5), so that swapping or dropping one
+fails. The frontends are fed
 seeded N(0, 1) frames and patch embeddings (rounded to bf16): zeros would
 leave whisper's encoder output at its final norm's bias and hide a broken
 splice, as the reference's own tests draw them (tests/test_arch_smoke.py).
@@ -29,30 +35,32 @@ splice, as the reference's own tests draw them (tests/test_arch_smoke.py).
     agree within 1e-4 (the two sum in other orders: the largest difference
     seen is 2.4e-6, at logits up to 4.3), and greedy tokens are equal.
 (b) bf16, as the reference serves: the reference's own decode-vs-forward
-    bar (tests/test_models.py): argmax agreement >= 0.99, rtol = atol =
-    0.08 (the largest logit difference seen is 0.043). Four rows, listed
-    in ``NEAR_TIES`` with their gaps, count as agreeing if the port picks
-    either of the reference's top two: the reference's top two logits
-    there lie within one bf16 step of each other, and the port picks the
-    runner-up. Every other row of every arch counts as the reference's
-    bar counts it. rwkv6-3b and recurrentgemma-2b are held to the
-    reference's fp32 run instead, with its own bf16 run as the yardstick
-    (``_bf16_noise_bar``: their bf16 noise exceeds the 0.08 bar between
-    any two roundings). Also, for every arch but the MoE, the port's prefill +
-    decode_step against its own last_logits over S+1 tokens, on the same
-    bar (one listed row, whisper-medium's row 1, whose full-forward top
-    two round to one bf16 value, counts if the decode step picks either
-    of them). Not for the
-    MoE: a decode step routes B tokens as one group of capacity
-    max(..., top_k), the full forward B*(S+1) tokens in other groups, so
-    drops differ (the reference leaves deepseek-moe out of its own
-    decode-vs-forward test); its prefill + decode is held against the
-    reference's prefill + decode instead, by (a) and (b). In bf16 one
-    prefill route (token 4, second choice) differs from the reference's,
-    so that case forces the reference's routes, read from its
-    ``_dispatch_combine`` by a callback, through the port's ``routes=``
-    seam; so does (c)'s per-step replay (one prefill route differs
-    there too).
+    bar (tests/test_models.py): argmax agreement >= 0.99, rtol = atol = 0.08
+    (the largest logit difference seen is 0.046). Five rows, listed in
+    ``NEAR_TIES`` with their gaps, count as agreeing if the port picks
+    either of the reference's top two: the reference's top two logits there,
+    rounded to bf16, lie within one bf16 step of each other, and the port
+    picks the runner-up. Every other row of every arch counts as the
+    reference's bar counts it. rwkv6-3b and recurrentgemma-2b are held to
+    the reference's fp32 run instead, with its own bf16 run as the yardstick
+    (``_bf16_noise_bar``: their bf16 noise exceeds the 0.08 bar between any
+    two roundings). Also, for every arch but the MoE, the port's prefill +
+    decode_step against its own last_logits over S+1 tokens, on the same bar
+    (one listed row, whisper-medium's row 1, whose full-forward top two
+    round to one bf16 value, counts if the decode step picks either of
+    them). Not for the MoE at these sizes: a decode step routes B tokens as
+    one group of capacity max(..., top_k), the full forward B*(S+1) tokens
+    in other groups, so drops differ (the reference leaves deepseek-moe out
+    of its own decode-vs-forward test); its prefill + decode is held against
+    the reference's prefill + decode instead, by (a) and (b). deepseek-v3
+    has the twin at the reference's own sizes (B 2, S 24), which its test
+    lists. In bf16 one prefill route differs from the reference's at each
+    MoE arch (deepseek-moe: token 4, second choice; deepseek-v3: one choice
+    of its second MoE layer), so that case forces the reference's routes,
+    read from its ``_dispatch_combine`` by a callback, through the port's
+    ``routes=`` seam; so does (c)'s per-step replay at deepseek-moe (one
+    prefill route differs there too); deepseek-v3's replay holds SCORE_TOL
+    on its own routes.
 (c) End to end: the port's ``run_serving(smoke=True, device="cpu")``
     against the reference's at the same seed, batch, lengths and weights,
     with the reference's fed tokens replayed so that a near-tie cannot
@@ -85,15 +93,18 @@ SCORE_TOL = {"lc": 1e-2, "mc": 1e-2, "rc": 6e-2, "es": 1e-2}
 
 
 ARCHS = ["qwen3-8b", "internlm2-20b", "phi3-medium-14b", "qwen1.5-4b",
-         "deepseek-moe-16b", "rwkv6-3b", "recurrentgemma-2b",
-         "whisper-medium", "llava-next-34b"]
-NOT_MOE = [a for a in ARCHS if a != "deepseek-moe-16b"]
+         "deepseek-moe-16b", "deepseek-v3-671b", "rwkv6-3b",
+         "recurrentgemma-2b", "whisper-medium", "llava-next-34b"]
+MOE = ("deepseek-moe-16b", "deepseek-v3-671b")
+NOT_MOE = [a for a in ARCHS if a not in MOE]
 # leaves the reference initialises to zero, drawn non-zero in both trees
 DRAWN = ("b_q", "b_k", "b_v", "mu_x", "mu", "mu_k", "mu_r", "gn_bias",
          "conv_b", "gate_a_b", "gate_x_b")
 # ... and, for the frontend archs alone, the LayerNorm and linear biases
 FRONTEND = ("whisper-medium", "llava-next-34b")
 DRAWN_FRONTEND = ("bias", "b_o", "b_in", "b_out")
+# ... and, for deepseek-v3 alone, the MLA's norm scales (ones)
+MLA_NORMS = ("q_norm", "kv_norm")
 
 
 def _port_cfg(arch="qwen3-8b", impl="pallas"):
@@ -115,7 +126,12 @@ def ref(request):
 
     drawn = DRAWN + (DRAWN_FRONTEND if request.param in FRONTEND else ())
 
+    mla = request.param == "deepseek-v3-671b"
+
     def draw(path, a):
+        if mla and len(path) > 1 and \
+                getattr(path[-2], "key", None) in MLA_NORMS:
+            return jax.numpy.asarray(rng.normal(1.0, 0.5, a.shape), a.dtype)
         if getattr(path[-1], "key", None) not in drawn:
             return a
         return jax.numpy.asarray(rng.normal(0.0, 0.5, a.shape), a.dtype)
@@ -164,18 +180,29 @@ def _port_batch(tokens, front, dtype):
 # (arch, index in _ref_run's logits, "last_logits" or
 # "decode_vs_forward", row): the reference's top-2 gap (for
 # "decode_vs_forward", the port's own full forward's, which the decode
-# step is held to). Each gap is at most one bf16 step at these logits
-# (2**-6 in [2, 4); the eager last_logits are bf16 values, so its
-# smallest gap is that step, or 0: whisper's full forward rounds its two
-# top logits to one bf16 value, 0.013 apart in fp32), so the rounding of
-# either model decides the argmax: the port picks the runner-up in each
-# row.
+# step is held to). Each gap, with the two logits rounded to bf16 (the
+# dtype both LM heads' products come out in), is at most one bf16 step
+# at these logits (2**-6 in [2, 4); the eager last_logits are bf16
+# values, so its smallest gap is that step, or 0: whisper's full forward
+# rounds its two top logits to one bf16 value, 0.013 apart in fp32), so
+# the rounding of either model decides the argmax: the port picks the
+# runner-up in each row. deepseek-v3's row is 0.0194 apart as the
+# reference's jit leaves it (2.2786 and 2.2980: XLA keeps fp32 through
+# the fused head), one step apart in bf16 (2.28125, 2.296875); the
+# port's two logits are one bf16 value, 2.296875, and its argmax takes
+# the lower index.
 NEAR_TIES = {("internlm2-20b", 1, 1): 0.0100,
              ("deepseek-moe-16b", 2, 1): 0.0011,
+             ("deepseek-v3-671b", 2, 0): 0.0194,
              ("qwen1.5-4b", "last_logits", 1): 0.0156,
              ("whisper-medium", 7, 0): 0.0073,
              ("whisper-medium", "decode_vs_forward", 1): 0.0}
 TIE_GAP = 2.0 ** -6
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16().float(
+        ).numpy()
 
 
 def _argmax_bar(want, got, ties=()):
@@ -187,7 +214,8 @@ def _argmax_bar(want, got, ties=()):
     for row, gap in ties:
         top2 = np.argsort(want[row], kind="stable")[-2:]
         seen = want[row, top2[1]] - want[row, top2[0]]
-        assert seen <= TIE_GAP and abs(seen - gap) < 1e-3, (row, seen)
+        steps = np.diff(_bf16(want[row, top2]))[0]
+        assert steps <= TIE_GAP and abs(seen - gap) < 1e-3, (row, seen)
         agree[row] = np.argmax(got[row]) in top2
     assert np.mean(agree) >= 0.99
 
@@ -324,18 +352,28 @@ def test_bf16_model_parity(ref, toks, monkeypatch):
         assert mlp["router"].dtype == torch.float32
         assert mlp["w_in"].dtype == torch.bfloat16
         assert tuple(mlp["w_in"].shape) == (8, 64, 32)
+    if arch == "deepseek-v3-671b":
+        assert [len(s) for s in pp["segments"]] == [1, 3]
+        mixer = pp["segments"][1][2]["0"]["mixer"]
+        assert tuple(mixer["w_uk"].shape) == (16, 4 * 16)
+        assert tuple(mixer["w_dkv"].shape) == (64, 16 + 8)
+        assert tuple(pp["mtp"]["proj"].shape) == (128, 64)
+        assert set(pp["mtp"]["layer"]["mixer"]) == set(mixer)
     tape = None
-    if arch == "deepseek-moe-16b":
+    if arch in MOE:
+        # one prefill route differs in bf16 at each MoE arch: replay the
+        # reference's
+        n_moe = ROUTERS[arch][1]
         recorded, routes = _record_routes(ref, monkeypatch)
         want, _ = _ref_run(recorded, ref["params"], jnp.asarray(toks))
-        assert len(routes()) == T + 1     # one MoE layer: prefill + T steps
+        assert len(routes()) == n_moe * (T + 1)   # prefill + T steps
         tape = RouteTape(force=routes())
     else:
         want, _ = _ref_run(ref, ref["params"], jnp.asarray(toks))
     got, _ = _port_run(_port_cfg(arch), pp, toks, torch.bfloat16,
                        routes=tape)
     if tape is not None:
-        assert len(tape.recorded) == T + 1
+        assert len(tape.recorded) == len(tape._force)
     front = _frontend(ref["cfg"])
     last = Model(_port_cfg(arch)).last_logits(
         pp, _port_batch(toks, front, torch.bfloat16)).numpy()
@@ -406,6 +444,28 @@ def test_decode_matches_full_forward(toks, arch):
         toks[:, S:S + 1]))
     assert int(cache["len"]) == S + 1
     _argmax_bar(full, dec.numpy(), _ties(arch, "decode_vs_forward"))
+    np.testing.assert_allclose(dec.numpy(), full, rtol=0.08, atol=0.08)
+
+
+def test_decode_matches_full_forward_mla():
+    """The twin for deepseek-v3, at the reference's own sizes (its test
+    lists this arch, tests/test_models.py): B 2, S 24, so that the
+    prefill routes its 48 tokens as one group of capacity 15, the full
+    forward 50 at 16 and the decode step 2 at 2, and no choice the
+    decode step keeps is one the forward drops; the reference's bar."""
+    arch, seq = "deepseek-v3-671b", 24
+    model = Model(_port_cfg(arch))
+    params = model.init(0, "cpu")
+    toks = np.random.default_rng(3).integers(0, 256, (B, seq + 1)).astype(
+        np.int32)
+    full = model.last_logits(params, _port_batch(toks, {}, None)).numpy()
+    cache = model.init_cache(B, seq + 4, "cpu")
+    cache, _ = model.prefill(params, _port_batch(toks[:, :seq], {}, None),
+                             cache)
+    dec, cache = model.decode_step(params, cache, torch.from_numpy(
+        toks[:, seq:seq + 1]))
+    assert int(cache["len"]) == seq + 1
+    _argmax_bar(full, dec.numpy())
     np.testing.assert_allclose(dec.numpy(), full, rtol=0.08, atol=0.08)
 
 
@@ -505,6 +565,22 @@ def test_run_serving_greedy_on_cpu():
         assert set(counts.values()) == {0}       # the CPU launches none
 
 
+def test_run_serving_takes_a_config():
+    """``run_serving`` serves an ``ArchConfig`` as given (the depth cut
+    the card serves deepseek-v3 with): deepseek-v3's smoke config cut to
+    2 layers (1 dense, 1 MoE) serves, and its seeded weights are
+    ``Model(cut).init(seed)``'s."""
+    cut = dataclasses.replace(configs.get_smoke_config("deepseek-v3-671b"),
+                              n_layers=2)
+    kw = dict(batch=2, prompt_len=5, decode_steps=3, max_len=8,
+              device="cpu", log=False)
+    out = serve.run_serving(cut, **kw)
+    assert out["arch"] == "dsv3-smoke" and out["final_len"] == 8
+    same = serve.run_serving(cut, params=Model(cut).init(0, "cpu"), **kw)
+    assert (same["mean_lc"], same["mean_es"]) == (out["mean_lc"],
+                                                  out["mean_es"])
+
+
 def test_run_serving_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the cuda path runs")
@@ -514,25 +590,29 @@ def test_run_serving_defaults_to_cuda():
 
 @pytest.mark.parametrize("family", ["mla", "hybrid", "ssm", "audio", "vlm"])
 def test_non_dense_configs_raise(family):
+    """A family without its sub-config or frontend is refused. ``mla``:
+    deepseek-v3's family is ``moe``, so a ``moe``-family config with
+    neither ``moe`` nor ``mla`` (qwen3-8b's), and deepseek-v3's own
+    config with its MoE sub-config removed (MLA alone is not its
+    stack), are refused."""
+    cfgs = [dataclasses.replace(qwen3_8b.smoke_config(),
+                                family="moe" if family == "mla" else family)]
     if family == "mla":
-        # deepseek-v3's MLA (a "moe" family config): the registry refuses
-        # it, and a moe-family config without its MoE sub-config too
-        with pytest.raises(KeyError, match="A12"):
-            configs.get_config("deepseek-v3-671b")
-        family = "moe"
-    cfg = dataclasses.replace(qwen3_8b.smoke_config(), family=family)
-    with pytest.raises(NotImplementedError, match="A12"):
-        Model(cfg)
-    with pytest.raises(NotImplementedError, match="A12"):
-        transformer.build_segments(cfg)
+        cfgs.append(dataclasses.replace(
+            configs.get_smoke_config("deepseek-v3-671b"), moe=None))
+    for cfg in cfgs:
+        with pytest.raises(NotImplementedError, match="sub-config"):
+            Model(cfg)
+        with pytest.raises(NotImplementedError, match="sub-config"):
+            transformer.build_segments(cfg)
 
 
 def test_registry_and_declarations():
     assert configs.get_smoke_config("qwen3-8b") == \
         configs.get_smoke_config("qwen3_8b") == qwen3_8b.smoke_config()
     assert configs.get_config("qwen3-8b") is qwen3_8b.CONFIG
-    with pytest.raises(KeyError, match="A12"):
-        configs.get_config("deepseek-v3-671b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("qwen3-9b")
     for name, mod in configs.ALIASES.items():
         assert configs.get_config(name) is configs.get_config(mod)
         assert mod in configs.ARCH_IDS
@@ -559,7 +639,8 @@ def test_registry_and_declarations():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reference_registry_fields(arch):
     """Every field of the port's config (full size and smoke) equals the
-    reference's, the MoE, RWKV and Griffin sub-configs field by field."""
+    reference's, the MoE, MLA, RWKV and Griffin sub-configs field by
+    field."""
     pytest.importorskip("jax")
     from repro.configs import get_config, get_smoke_config
     for ours, theirs in ((configs.get_config(arch), get_config(arch)),
@@ -567,22 +648,30 @@ def test_reference_registry_fields(arch):
                           get_smoke_config(arch))):
         for field in dataclasses.fields(ours):
             mine, ref = getattr(ours, field.name), getattr(theirs, field.name)
-            if field.name in ("moe", "rwkv", "griffin") and \
+            if field.name in ("moe", "mla", "rwkv", "griffin") and \
                     mine is not None:
                 assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
             else:
                 assert mine == ref, field.name
-        for sub in ("moe", "rwkv", "griffin"):
+        for sub in ("moe", "mla", "rwkv", "griffin"):
             assert (getattr(ours, sub) is None) == \
                 (getattr(theirs, sub) is None), sub
 
 
 @pytest.mark.parametrize("name", ["deepseek_v3_671b"])
 def test_unported_archs_raise(name):
-    with pytest.raises(KeyError, match="ROADMAP A12"):
-        configs.get_config(name)
-    with pytest.raises(KeyError, match="ROADMAP A12"):
-        configs.get_smoke_config(name)
+    """The registry resolves the last arch it lacked, by module name and
+    canonical id, and still refuses a name it does not list (a version
+    that does not exist, in either form)."""
+    canonical = name.replace("_", "-")
+    assert configs.get_config(name) is configs.get_config(canonical)
+    assert configs.get_smoke_config(name) == \
+        configs.get_smoke_config(canonical)
+    for unknown in (name.replace("v3", "v4"), canonical.replace("v3", "v4")):
+        with pytest.raises(KeyError, match="unknown arch"):
+            configs.get_config(unknown)
+        with pytest.raises(KeyError, match="unknown arch"):
+            configs.get_smoke_config(unknown)
 
 
 def _leaves(tree, path=""):
@@ -641,13 +730,19 @@ def test_init_dtypes_match_reference(arch):
            for p, t in _leaves(Model(configs.get_smoke_config(arch)).init(
                0, "cpu"))}
     assert got == want
+    routers = [p for p in got if p.endswith("/router")]
+    assert len(routers) == ROUTERS.get(arch, (0, 0))[1]
     want = _ref_decl_leaves(get_config(arch))
     got = {p: (d.shape, str(d.dtype).replace("torch.", ""))
            for p, d in _leaves(Model(configs.get_config(arch)).param_decls())}
     assert got == want
     routers = [p for p in got if p.endswith("/router")]
     assert all(got[p][1] == "float32" for p in routers)
-    assert len(routers) == (0 if arch != "deepseek-moe-16b" else 27)
+    assert len(routers) == ROUTERS.get(arch, (0, 0))[0]
+
+
+# MoE layers (one router each) at full size and at the smoke size
+ROUTERS = {"deepseek-moe-16b": (27, 1), "deepseek-v3-671b": (58, 3)}
 
 
 # ------------------------------------------------------------- on the card --

@@ -235,8 +235,8 @@ def test_committed_config_examples_build_backends():
 
 
 def test_arch_registry():
-    """The port's registry holds what is ported, at the reference's
-    widths, and refuses the rest."""
+    """The port's registry holds the reference's configs, at the
+    reference's widths, and refuses a name it does not list."""
     pytest.importorskip("jax")
     from repro.configs import qwen3_8b as ref_qwen3
     cfg = configs.get_config("qwen3_8b")
@@ -244,7 +244,7 @@ def test_arch_registry():
     for field in dataclasses.fields(cfg):
         assert getattr(cfg, field.name) == getattr(ref_qwen3.CONFIG,
                                                    field.name), field.name
-    with pytest.raises(KeyError, match="unported"):
+    with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("llama3_8b")
 
 
