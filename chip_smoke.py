@@ -205,6 +205,46 @@ Phases, one line each (any failure raises and exits non-zero):
             (llava-next-34b, 68.8 GB of weights, then deepseek-v3, 54.6 GB);
             peak device memory is printed per arch.
 
+10. train  ``run_training`` of qwen1.5-4b's full config (full width,
+            all 40 layers, 3.95 B params in bf16, AdamW with fp32 state,
+            remat), B 4 x S 512, 20 steps at lr 3e-4 with warmup 5, TF32
+            off, no checkpoint: every loss finite and the mean of the last
+            5 below the first 5's; the median step after 3 warm-up steps,
+            tokens/s, ``train_mfu`` (6 * n_params * tokens / step time /
+            989 TFLOP/s, the bf16 dense peak) and peak memory. Launch
+            counts zeroed before, read after: the path runs no
+            hand-written kernel (chunked attention and a plain
+            cross-entropy, as the reference trains). Then
+            ``train_profile``, from two steps of that same run: step 19
+            split by CUDA events into the forward + backward and the
+            optimizer's update, step 20 under torch.profiler (busy share,
+            top kernels).
+    train_resume  the smoke config on the card with ``ckpt_every=5,
+            fail_at=[8]``, 16 steps: one restart, the last checkpoint at
+            16; the step-16 checkpoint restored onto the card, saved from
+            there again (sync and async) and restored, equal bit for bit.
+    al_train  ``repro_torch.examples.al_train_loop`` at qwen1.5-4b's full
+            width, 4 layers: pool 256 x 48, 3 rounds of budget 32, 30
+            fine-tune steps a round, es and random: every loss finite, the
+            loss on the labeled rows down by more than AL_MIN_FALL from
+            the weights before round 0 to those after round 3; held-out
+            losses and seconds a round logged.
+11. mesh   the mesh half of selection (``core/selection.py``) on debug
+            meshes of spawned ranks (``launch/mesh.py``): world 1 over
+            NCCL, 2 and 4 over gloo, every rank on cuda:0, at the
+            distributed-selection example's pool (65,536 x 64, 512
+            classes, budget 128) and the image path's 50,000 x 512
+            (budget 1,000); k-center unweighted and weighted. Every B1
+            round of a second k-center run held against the plain round
+            on its inputs (``CheckedRounds``) and every rank's B4 scores
+            against the plain scores; indices equal across world sizes
+            and to the checked run's, top-k equal to the unsharded B4
+            scores' ``stable_top_k``, the sharded scores and the seed's
+            min-dists equal to the unsharded rows bit for bit, B1
+            launches world x (budget - 1) a k-center and B4 world a
+            scoring; ms a k-center round and a round's all_gather alone
+            at each world size.
+
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -293,8 +333,14 @@ AGREE_STEPS = 8
 KINDS = ("lc", "mc", "rc", "es")
 
 
+START = time.perf_counter()
+
+
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase, its fields, and ``at_s``, the seconds
+    since the script started."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": time.perf_counter() - START}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -2787,6 +2833,463 @@ def serve_checks(dev, arch):
     del params, cache, state, front
 
 
+# --------------------------------------------------------------- train --
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARM = 4, 512, 20, 3
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 5
+TRAIN_TOP_OPS = 12
+
+
+def path_launches(counters):
+    out = {}
+    for counts in counters.values():
+        out.update(counts)
+    return out
+
+
+class SplitUpdate:
+    """An optimizer whose ``update`` is the given one's, with CUDA events
+    recorded just before and just after it while ``events`` is set."""
+
+    def __init__(self, opt):
+        self.opt, self.events = opt, None
+
+    def update(self, grads, state, params):
+        if self.events:
+            self.events[1].record()
+        out = self.opt.update(grads, state, params)
+        if self.events:
+            self.events[2].record()
+        return out
+
+
+class MeasuredSteps:
+    """Stands in for ``launch.train.make_train_step`` during one
+    ``run_training`` call and measures two of that run's own steps: the
+    one before the last split by CUDA events into the loss's forward +
+    backward and the optimizer's update, the last under torch.profiler.
+    Every step is the entry point's own ``train_step``."""
+
+    def __init__(self, make_train_step):
+        self.make, self.events, self.prof, self.wall = (make_train_step,
+                                                        None, None, None)
+
+    def __call__(self, model, opt):
+        split = SplitUpdate(opt)
+        step_fn = self.make(model, split)
+        calls = [0]
+
+        def train_step(params, opt_state, batch):
+            calls[0] += 1
+            if calls[0] == TRAIN_STEPS - 1:
+                self.events = split.events = [
+                    torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                self.events[0].record()
+                try:
+                    return step_fn(params, opt_state, batch)
+                finally:
+                    split.events = None
+            if calls[0] == TRAIN_STEPS:
+                from torch.profiler import ProfilerActivity, profile
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t = time.perf_counter()
+                    out = step_fn(params, opt_state, batch)
+                    torch.cuda.synchronize()
+                    self.wall = time.perf_counter() - t
+                self.prof = prof
+                return out
+            return step_fn(params, opt_state, batch)
+        return train_step
+
+    def report(self):
+        """(fwd_bwd ms, optimizer ms) by events; (busy ms, kernels, ms by
+        class, top rows) of the profiled step's device time."""
+        self.events[2].synchronize()
+        ev = self.events
+        rows, by_class, kernels = [], {}, 0
+        for e in self.prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            rows.append((us / 1e3, e.count, e.key[:120]))
+            label = _kernel_class(e.key)
+            by_class[label] = by_class.get(label, 0.0) + us / 1e3
+            kernels += e.count
+        rows.sort(reverse=True)
+        return ((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])),
+                (sum(r[0] for r in rows), kernels, by_class, rows))
+
+
+def run_train(counters):
+    """``run_training`` of qwen1.5-4b's full config (full width, all 40
+    layers, bf16 params, AdamW with fp32 state, remat), B 4 x S 512, 20
+    steps at the reference's lr 3e-4, warmup 5; no checkpoint, TF32 off.
+    Launch counts zeroed just before, read just after (the path runs no
+    hand-written kernel: chunked attention and a plain cross-entropy, as
+    the reference trains). Checks every loss finite and the mean of the
+    last 5 below the mean of the first 5 (``tests/test_train.py``'s
+    rule); logs the median step after 3 warm-up steps (the profiled last
+    step left out), tokens/s, ``train_mfu`` (6 * n_params * tokens a step
+    / step time / the bf16 dense peak) and peak memory. Then the
+    ``train_profile`` line: the run's step 19 split by CUDA events, its
+    step 20 under torch.profiler (``MeasuredSteps``): the device's busy
+    share and its top kernels. Returns the path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    measured = MeasuredSteps(train.make_train_step)
+    train.make_train_step = measured
+    try:
+        for reset in counters:
+            reset()                              # the train path starts here
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rep = train.run_training(
+            TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+            seq=TRAIN_SEQ, lr=TRAIN_LR, warmup=TRAIN_WARMUP, log_every=0,
+            device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = path_launches(counters)       # ... and ends here
+    finally:
+        train.make_train_step = measured.make
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.asarray(rep.losses)
+    assert len(losses) == TRAIN_STEPS and np.isfinite(losses).all(), losses
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    assert last < first, (first, last)
+    step_s = float(np.median(rep.step_s[TRAIN_WARM:-1]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6.0 * cfg.n_params() * tokens
+    log("train", arch=TRAIN_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        n_params=cfg.n_params(), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+        optimizer="adamw", param_dtype="bfloat16", state_dtype="float32",
+        remat=cfg.remat, attention_impl=cfg.attention_impl, tf32=False,
+        losses=rep.losses, first5_mean=first, last5_mean=last,
+        step_ms=[s * 1e3 for s in rep.step_s],
+        median_step_ms=step_s * 1e3, warmup_steps=TRAIN_WARM,
+        median_of_steps=[TRAIN_WARM + 1, TRAIN_STEPS - 1],
+        tokens_per_s=tokens / step_s, model_flops_per_step=flops,
+        peak_flops_s=BF16_FLOPS_S, train_mfu=flops / step_s / BF16_FLOPS_S,
+        peak_allocated_gb=peak / 1e9, run_training_wall_s=wall,
+        straggler_events=rep.straggler_events, launches=launches,
+        nvidia_smi=nvidia_smi())
+    (fwd_bwd, upd), (busy, kernels, by_class, rows) = measured.report()
+    log("train_profile", arch=TRAIN_ARCH, events_step=TRAIN_STEPS - 1,
+        profiled_step=TRAIN_STEPS, events_fwd_bwd_ms=fwd_bwd,
+        events_optimizer_ms=upd,
+        optimizer_share_of_step=upd / (fwd_bwd + upd),
+        profiled_step_wall_ms=measured.wall * 1e3, device_busy_ms=busy,
+        device_busy_share=busy / (measured.wall * 1e3), kernels=kernels,
+        device_ms_by_class=by_class,
+        top_kernels=[{"ms": ms, "count": n, "name": k}
+                     for ms, n, k in rows[:TRAIN_TOP_OPS]],
+        nvidia_smi=nvidia_smi())
+    return launches
+
+
+def run_train_resume(counters, tmp):
+    """``run_training`` of the smoke config on the card with
+    ``ckpt_every=5, fail_at=[8]``, 16 steps: one restart, the last
+    checkpoint at step 16. Then the device -> host -> device trip: the
+    step-16 checkpoint restored onto the card, saved again from there
+    (sync and async), and restored again equals the first restore bit for
+    bit, and so does a restore onto the CPU."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.transformer import Model
+    from repro_torch.optim.optimizer import make_optimizer
+    for reset in counters:
+        reset()
+    t = time.perf_counter()
+    rep = run_training(TRAIN_ARCH, smoke=True, steps=16, batch=2, seq=32,
+                       pool_size=32, ckpt_dir=os.path.join(tmp, "ck"),
+                       ckpt_every=5, fail_at=[8], log_every=0, device="cuda")
+    wall = time.perf_counter() - t
+    launches = path_launches(counters)
+    assert rep.restarts == 1 and rep.steps == 16, rep
+    assert rep.ckpt_steps[-1] == 16, rep.ckpt_steps
+    assert np.isfinite(rep.losses).all() and len(rep.losses) == 19
+    cfg = get_smoke_config(TRAIN_ARCH)
+    params = Model(cfg).init(0, "cuda")
+    template = (params, make_optimizer("adamw").init(params))
+    mgr = CheckpointManager(os.path.join(tmp, "ck"))
+    first, step, _ = mgr.restore(template)
+    on_cpu, _, _ = mgr.restore(tree_map(lambda t: t.cpu(), template))
+    again = CheckpointManager(os.path.join(tmp, "again"))
+    again.save(step, first)
+    second, _, _ = again.restore(template)
+    again.save_async(step + 1, first)
+    again.wait()
+    third, _, _ = again.restore(template, step + 1)
+    leaves = tree_leaves(first)
+    for other in (second, third, on_cpu):
+        for a, b in zip(leaves, tree_leaves(other)):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    assert all(t.device.type == "cuda" for t in leaves)
+    log("train_resume", arch=TRAIN_ARCH, smoke=True, restarts=rep.restarts,
+        ckpt_steps=rep.ckpt_steps, losses=rep.losses, wall_s=wall,
+        restored_step=step, leaves=len(leaves),
+        trip_bitwise_equal=True, launches=launches)
+    return launches
+
+
+AL_MIN_FALL = 0.5      # nats; the two strategies' untrained losses on
+                       # their labeled rows differ by ~0.02 (smoke, CPU)
+
+
+def run_al_train(counters):
+    """The AL-train loop (``repro_torch.examples.al_train_loop``) at
+    qwen1.5-4b's full width, depth cut to 4 layers: pool 256 x 48, 3
+    rounds of budget 32, 30 AdamW fine-tune steps a round, es against
+    random. Checks, for both strategies: every loss finite, and the loss
+    on the rows labeled by the end falls by more than AL_MIN_FALL from the
+    weights before round 0 to those after the last round (what the
+    fine-tuning must move). Logs every round's held-out loss (the
+    reference's eval, on ``lm_pool`` at seed 99, whose token tables share
+    almost no tokens with the training pool's at V 152,064, so fine-tuning
+    need not move it) and wall seconds."""
+    from repro_torch.examples import al_train_loop as alt
+    cfg = alt.config(full=True, depth=4)
+    for reset in counters:
+        reset()
+    out = {s: alt.run(s, cfg, "cuda", log=False) for s in ("es", "random")}
+    launches = path_launches(counters)
+    for s, o in out.items():
+        losses = np.asarray([o["eval0"], *o["evals"], o["labeled0"],
+                             o["labeled"]])
+        assert np.isfinite(losses).all(), (s, o)
+        assert o["labeled"] < o["labeled0"] - AL_MIN_FALL, (s, o)
+    log("al_train", arch=alt.ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        pool=alt.POOL, seq=alt.SEQ, rounds=alt.ROUNDS, budget=alt.BUDGET,
+        ft_steps=alt.FT_STEPS, min_fall=AL_MIN_FALL,
+        labeled_loss_before={s: o["labeled0"] for s, o in out.items()},
+        labeled_loss_after={s: o["labeled"] for s, o in out.items()},
+        eval_untrained={s: o["eval0"] for s, o in out.items()},
+        evals={s: o["evals"] for s, o in out.items()},
+        round_s={s: o["round_s"] for s, o in out.items()},
+        launches=launches, nvidia_smi=nvidia_smi())
+    return launches
+
+
+# ---------------------------------------------------------------- mesh --
+# (name, N, d, classes, budget): the distributed-selection example's pool
+# and the image path's 50,000 x 512 features
+MESH_SHAPES = (("example", 65_536, 64, 512, 128),
+               ("image", 50_000, 512, 10, 1_000))
+MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def mesh_pool(n, d, c, seed=0):
+    """(features (n, d), logits (n, c), weights (n,)), fp32, from a seed."""
+    rng = np.random.default_rng(seed)
+    emb = rng.standard_normal((n, d), dtype=np.float32)
+    logits = rng.standard_normal((n, c), dtype=np.float32) * 2
+    w = rng.uniform(0.001, 1.0, n).astype(np.float32)
+    return emb, logits, w
+
+
+class CheckedRounds:
+    """Stands in for ``ops.greedy_round`` in a rank while a k-center runs
+    a second time: every kernel round, at the inputs the path gives it
+    (the shard's rows, the carried min-dists, the gathered winner, a mask
+    of -1 where the winner is another rank's), is held against the plain
+    round on the same inputs. The new min-dists within ATOL of the plain
+    ones relative to their size (masked rows -1 in both), and the
+    kernel's pick scoring, under the plain min-dists, within that much of
+    the plain round's best (so the index is the plain one wherever the
+    plain top two are further apart) and its score within that much of
+    the plain score of that row. Kept on the device, read once."""
+
+    def __init__(self, ops, device):
+        self.ops, self.kernel = ops, ops.greedy_round
+        self.worst = torch.zeros((), device=device)
+        self.bad = torch.zeros((), dtype=torch.bool, device=device)
+        self.rounds = 0
+
+    def __call__(self, x, mind, centers, sel_idx, weights=None, **kw):
+        got = self.kernel(x, mind, centers, sel_idx, weights=weights, **kw)
+        pn, _, ps = self.kernel(x, mind, centers, sel_idx, weights=weights,
+                                impl="ref")
+        kn, ki, ks = got
+        rel = ((kn - pn).abs() / pn.abs().clamp_min(1.0)).max()
+        self.worst = torch.maximum(self.worst, rel)
+        s = self.ops.masked_weighted_score(pn, weights)
+        tol = ATOL * ps.abs().clamp_min(1.0)
+        pick = s[ki.long()]
+        self.bad |= (rel > ATOL) | ((kn < 0) != (pn < 0)).any()
+        self.bad |= pick < ps - tol
+        self.bad |= (ks - pick).abs() > tol
+        self.rounds += 1
+        return got
+
+    def result(self):
+        return float(self.worst), bool(self.bad)
+
+
+def mesh_rank(rank, world, group, device):
+    """One rank of the mesh phase: for each shape, its shard's B4 scores
+    (held against the plain scores within UNC_TOL) and the replicated
+    top-k, k-center unweighted and weighted; launches zeroed just before
+    each call, read just after; each k-center timed (ms a round) beside
+    ``budget - 1`` all_gathers of a round's buffer alone, then run again
+    with every B1 round held against the plain round (``CheckedRounds``),
+    which must pick the same indices; the seed's min-dists of the shard
+    against the whole pool's rows, bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.core.selection import (_all_gather,
+                                            distributed_k_center,
+                                            distributed_top_k,
+                                            sharded_scores)
+    from repro_torch.kernels.pairwise import ops
+    from repro_torch.kernels.uncertainty import ops as unc
+    out = {}
+    for name, n_all, d, c, budget in MESH_SHAPES:
+        emb, logits, w = mesh_pool(n_all, d, c)
+        n = n_all // world
+        sl = slice(rank * n, (rank + 1) * n)
+        x = torch.from_numpy(emb[sl]).to(device)
+        lg = torch.from_numpy(logits[sl]).to(device)
+        wt = torch.from_numpy(w[sl]).to(device)
+        whole = torch.from_numpy(emb).to(device)
+        seed_bits = bool(torch.equal(
+            ops.sq_dist_to_center(x, whole[0]),
+            ops.sq_dist_to_center(whole, whole[0])[sl]))
+        del whole
+        # warm: the libraries load and the group connects
+        distributed_k_center(x, 3, group)
+        sync(device)
+        r = {"seed_bits_equal": seed_bits}
+        ops.reset_launches()
+        unc.reset_launches()
+        scores = sharded_scores(lg, "lc")
+        r["b4_launches"] = unc.LAUNCHES["uncertainty_stats"]
+        r["b4_err"] = within(scores, unc.uncertainty_scores(lg, "lc",
+                                                            impl="ref"),
+                             UNC_TOL["fp32"])
+        r["scores"] = scores.cpu()
+        r["top_k"] = distributed_top_k(scores, budget, group).cpu()
+        for wname, weights in (("unweighted", None), ("weighted", wt)):
+            ops.reset_launches()
+            dist.barrier(group)
+            sync(device)
+            t = time.perf_counter()
+            sel = distributed_k_center(x, budget, group, weights=weights)
+            sync(device)
+            dt = time.perf_counter() - t
+            r[f"kc_{wname}"] = sel.cpu()
+            r[f"kc_{wname}_b1"] = ops.LAUNCHES["greedy_round"]
+            r[f"kc_{wname}_ms_round"] = dt * 1e3 / (budget - 1)
+            checked = CheckedRounds(ops, device)
+            ops.greedy_round = checked
+            try:
+                again = distributed_k_center(x, budget, group,
+                                             weights=weights)
+            finally:
+                ops.greedy_round = checked.kernel
+            worst, bad = checked.result()
+            assert not bad and checked.rounds == budget - 1, \
+                (name, world, rank, wname, worst, checked.rounds)
+            assert torch.equal(again.cpu(), r[f"kc_{wname}"]), \
+                (name, world, rank, wname)
+            r[f"kc_{wname}_b1_rel_err"] = worst
+        buf = torch.zeros(d + 3, device=device)
+        dist.barrier(group)
+        sync(device)
+        t = time.perf_counter()
+        for _ in range(budget - 1):
+            _all_gather(buf, group)
+        sync(device)
+        r["gather_ms_round"] = (time.perf_counter() - t) * 1e3 / (budget - 1)
+        out[name] = r
+    return out
+
+
+def run_mesh(counters, dev):
+    """A11 on the card: ``mesh_rank`` at world 1 (NCCL) and 2 and 4 (gloo,
+    every rank on cuda:0), each a spawned debug mesh (the kernels built
+    once before, by the env phase). Checks: k-center's indices equal,
+    bit for bit, across the world sizes (unweighted and weighted);
+    every rank's B1 rounds within ATOL of the plain rounds on the same
+    inputs and its B4 scores within UNC_TOL of the plain scores (checked
+    in ``mesh_rank``); ``distributed_top_k`` equal to ``stable_top_k`` of
+    the unsharded B4 scores; ``sharded_scores`` equal to the unsharded
+    scores bit for bit, per row; the seed's min-dists of every shard equal
+    to the pool's rows; B1 launches world x (budget - 1) a k-center and
+    B4 launches world.
+    Returns the path's launches (B1 and B4 summed over ranks and
+    calls)."""
+    from repro_torch.core.selection import stable_top_k
+    from repro_torch.kernels.uncertainty import ops as unc
+    from repro_torch.launch.mesh import run_debug_mesh
+    for reset in counters:
+        reset()                                  # the mesh path starts here
+    by_world = {}
+    for world, backend in MESH_WORLDS:
+        t = time.perf_counter()
+        ranks = run_debug_mesh(mesh_rank, world, backend=backend,
+                               device=dev.type)
+        by_world[world] = (ranks, time.perf_counter() - t)
+    launches = path_launches(counters)           # ... and ends here
+    b1 = b4 = 0
+    for name, n_all, d, c, budget in MESH_SHAPES:
+        _, logits, _ = mesh_pool(n_all, d, c)
+        whole = unc.uncertainty_scores(torch.from_numpy(logits).to(dev),
+                                       "lc").cpu()
+        want_top = stable_top_k(whole, budget)[1]
+        first = by_world[1][0][0][name]
+        summary = {}
+        for world, backend in MESH_WORLDS:
+            ranks, spawn_s = by_world[world]
+            rs = [o[name] for o in ranks]
+            assert all(r["seed_bits_equal"] for r in rs), name
+            got = torch.cat([r["scores"] for r in rs])
+            assert torch.equal(got, whole), (name, world)
+            assert sum(r["b4_launches"] for r in rs) == world
+            for r in rs:
+                assert torch.equal(r["top_k"], want_top), (name, world)
+                for wname in ("unweighted", "weighted"):
+                    assert torch.equal(r[f"kc_{wname}"],
+                                       first[f"kc_{wname}"]), \
+                        (name, world, wname)
+            for wname in ("unweighted", "weighted"):
+                n_b1 = sum(r[f"kc_{wname}_b1"] for r in rs)
+                assert n_b1 == world * (budget - 1), (name, world, n_b1)
+                b1 += n_b1
+            b4 += world
+            summary[world] = {
+                "backend": backend, "spawn_and_run_s": spawn_s,
+                "ms_round": {w: max(r[f"kc_{w}_ms_round"] for r in rs)
+                             for w in ("unweighted", "weighted")},
+                "gather_ms_round": max(r["gather_ms_round"] for r in rs),
+                "b1_max_rel_err_vs_plain": {
+                    w: max(r[f"kc_{w}_b1_rel_err"] for r in rs)
+                    for w in ("unweighted", "weighted")},
+                "b4_max_abs_err_vs_plain": max(r["b4_err"] for r in rs)}
+        assert len(set(first["kc_unweighted"].tolist())) == budget
+        log("mesh", shape=name, pool=[n_all, d], classes=c, budget=budget,
+            tolerance={"b1_rel": ATOL, "b4": UNC_TOL["fp32"]},
+            worlds=summary, nvidia_smi=nvidia_smi())
+    # the ranks' own launches (the parent's comparison above not counted)
+    launches["greedy_round"] += b1
+    launches["uncertainty_stats"] += b4
+    return launches
+
+
 def free_device():
     gc.collect()
     torch.cuda.empty_cache()
@@ -2933,6 +3436,15 @@ def run(tune_dir, kernels_only=False) -> int:
 
     serve_launches = run_serve_archs(counters, dev)
 
+    train_launches = run_train(counters)
+    free_device()
+    with tempfile.TemporaryDirectory(prefix="repro-torch-ckpt-") as tmp:
+        resume_launches = run_train_resume(counters, tmp)
+    free_device()
+    al_launches = run_al_train(counters)
+    free_device()
+    mesh_launches = run_mesh(counters, dev)
+
     def counts(name):
         by_path = {"picker": picker_launches[name], "image": launches[name],
                    "sharded": sharded_launches.get(name, 0),
@@ -2941,6 +3453,10 @@ def run(tune_dir, kernels_only=False) -> int:
                    "text": text_launches[name]}
         by_path.update({"serve_" + arch: counts_[name]
                         for arch, counts_ in serve_launches.items()})
+        by_path.update({"train": train_launches[name],
+                        "train_resume": resume_launches[name],
+                        "al_train": al_launches[name],
+                        "mesh": mesh_launches[name]})
         return sum(by_path.values()), by_path
 
     src = "src/repro_torch/kernels/"

@@ -1,13 +1,13 @@
 # Copied from repro/configs/base.py: MoEConfig, MLAConfig, RWKVConfig,
-# GriffinConfig, ArchConfig, pad_to and the two properties the encoder
-# and the decode stack use (hd, padded_vocab), with the fields the ported
-# stacks read: q_chunk and kv_chunk (prefill attention), moe, mla, rwkv,
-# griffin, logits_soft_cap, the enc-dec fields (enc_dec, n_enc_layers,
-# n_enc_frames), n_patches and mtp (the MTP head's declarations; its loss
-# waits for ROADMAP A13). The LM head is always untied: no config of the
-# registry sets tie_embeddings. Dropped: n_params, tp_friendly,
-# active_params, subquadratic and the dry-run shapes, which only the TPU
-# dry run uses; and the remat knob, which inference has no use for.
+# GriffinConfig, ArchConfig, pad_to, the two properties the encoder and
+# the decode stack use (hd, padded_vocab) and n_params (the training
+# path's model FLOPs), with the fields the ported stacks read: q_chunk and
+# kv_chunk (prefill attention), remat (the training loss), moe, mla,
+# rwkv, griffin, logits_soft_cap, the enc-dec fields (enc_dec,
+# n_enc_layers, n_enc_frames), n_patches and mtp. The LM head is always
+# untied: no config of the registry sets tie_embeddings. Dropped:
+# tp_friendly, active_params, subquadratic and the dry-run shapes, which
+# only the TPU dry run uses.
 """Architecture configuration.
 
 One ``ArchConfig`` describes a backbone; each arch file under
@@ -96,6 +96,7 @@ class ArchConfig:
     # runtime knobs
     q_chunk: int = 512
     kv_chunk: int = 1024
+    remat: bool = True            # recompute each unit in the backward
     attention_impl: str = "chunked"   # chunked | naive | pallas
 
     @property
@@ -105,3 +106,40 @@ class ArchConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to(self.vocab, 256)
+
+    def n_params(self) -> int:
+        """Analytic parameter count (embedding + blocks), for the training
+        path's model FLOPs (6 * n_params a token)."""
+        d, L, V = self.d_model, self.n_layers, self.padded_vocab
+        total = V * d * 2
+        if self.rwkv is not None:
+            per = d * d * 5 + 2 * d * self.d_ff + d * self.d_ff  # approx
+            return total + L * per
+        for i in range(L):
+            # attention
+            if self.mla is not None:
+                m = self.mla
+                qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+                per_attn = (
+                    d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.n_heads
+                    * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.n_heads * m.v_head_dim * d)
+            else:
+                per_attn = (d * self.hd * (self.n_heads + 2 * self.n_kv_heads)
+                            + self.n_heads * self.hd * d)
+            # mlp
+            if self.moe is not None and i >= self.moe.first_dense:
+                mo = self.moe
+                per_mlp = ((mo.n_routed + mo.n_shared) * 3 * d
+                           * mo.d_ff_expert + d * mo.n_routed)
+            else:
+                mult = 3 if self.mlp == "swiglu" else 2
+                per_mlp = mult * d * self.d_ff
+            total += per_attn + per_mlp
+        if self.enc_dec:
+            # encoder layers + cross attention in decoder
+            per_enc = 4 * d * d + 2 * d * self.d_ff
+            total += self.n_enc_layers * per_enc + L * 4 * d * d
+        return total

@@ -1,9 +1,37 @@
-# Port of the host half of repro/core/selection.py: the storage classes
-# (replica_of, ShardView, ColumnSpill, grow_append, ShardColumns) are
-# copied; the sharded merges and the persisted k-center state are ported
-# to torch. The jax mesh half (distributed_top_k, distributed_k_center)
-# is ROADMAP A11.
-"""Host-level replica sharding (the serving layer's ``replicas: N``).
+# Port of repro/core/selection.py: the mesh half (distributed_top_k,
+# distributed_k_center, sharded_scores) over a torch.distributed group in
+# place of the ``data`` mesh axis; the storage classes (replica_of,
+# ShardView, ColumnSpill, grow_append, ShardColumns) copied; the sharded
+# merges and the persisted k-center state ported to torch.
+"""Distributed AL selection over a process group (pod-scale data
+selection) and host-level replica sharding (service scale-out).
+
+**Over a process group** (``launch.mesh`` starts one): every rank holds
+a contiguous shard of the pool, rank r rows [r * n, (r + 1) * n), all
+shards of one size, and calls the same function with its shard and the
+group; the result comes back replicated on every rank.
+
+  * ``distributed_top_k``: local top-B (ties to the lower index, as
+    ``lax.top_k``), one all_gather of the B (value, global index) pairs,
+    and the global top-B of the gathered (lowest rank first on ties:
+    the lowest global index).
+  * ``distributed_k_center``: greedy k-center where each round
+    all_gathers one (global index, score, vector) candidate a rank in
+    one fp32 buffer (the index's int64 bits ride two of its floats,
+    copied, never computed on, so no index is rounded), picks the best
+    (ties to the lowest rank, as ``jnp.argmax``), and folds the winner
+    into the local min-dists with ONE fused ``greedy_round`` (B1) on each
+    rank, which masks the winner on its home shard and gives the rank's
+    next candidate. The seed's
+    min-dists are ``ops.sq_dist_to_center`` (plain torch), as the
+    reference's ``jnp.sum``.
+  * ``sharded_scores``: the fused uncertainty scores (B4) of the rank's
+    logits; they stay sharded.
+
+Per round: O(pool / ranks) compute + O(ranks x d) communication,
+independent of the pool's size.
+
+**Host-level replica sharding** (the serving layer's ``replicas: N``).
 
 A pool is hash-partitioned by content key (``replica_of``), each shard
 scores its rows on a worker lane, and the merges (``replica_top_k`` for the
@@ -37,7 +65,111 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+
+# ===========================================================================
+# Mesh selection over a torch.distributed group (the ``data`` axis)
+# ===========================================================================
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """(world, *t.shape): every rank's ``t``, in rank order."""
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t.contiguous(), group=group)
+    return torch.stack(out)
+
+
+def _shard_base(n: int, group, device) -> Tuple[int, int]:
+    """(rank, rank * n) for a rank holding n rows; raises unless every
+    rank holds n rows (the reference needs N divisible by the ranks)."""
+    sizes = _all_gather(torch.tensor([n], dtype=torch.int64, device=device),
+                        group)
+    if bool((sizes != n).any()):
+        raise ValueError(f"shards of {sizes.reshape(-1).tolist()} rows: the "
+                         f"pool must split evenly over the ranks")
+    rank = dist.get_rank(group)
+    return rank, rank * n
+
+
+def distributed_top_k(scores_local: torch.Tensor, budget: int,
+                      group=None) -> torch.Tensor:
+    """Global top-``budget`` indices of a score vector sharded over
+    ``group``: this rank's (n,) shard in, (budget,) int64 global indices
+    out, the same on every rank."""
+    s = scores_local.reshape(-1)
+    n = s.shape[0]
+    _, base = _shard_base(n, group, s.device)
+    b = min(budget, n)
+    v, i = stable_top_k(s, b)
+    if b < budget:
+        v = torch.cat([v, v.new_full((budget - b,), float("-inf"))])
+        i = torch.cat([i, i.new_zeros((budget - b,))])
+    av = _all_gather(v, group)                        # (ranks, B)
+    ai = _all_gather(i.to(torch.int64) + base, group)
+    fi = stable_top_k(av.reshape(-1), budget)[1]
+    return ai.reshape(-1)[fi]
+
+
+def distributed_k_center(emb_local: torch.Tensor, budget: int, group=None,
+                         init_center: Optional[torch.Tensor] = None,
+                         impl: str = "auto",
+                         weights: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Greedy k-center over an (N, d) pool sharded over ``group``: this
+    rank's (n, d) shard in, (budget,) int64 global indices out, the same
+    on every rank. Without ``init_center`` the seed is global row 0, and
+    it is the first index returned. ``weights`` (this rank's (n,) shard)
+    makes every round the weighted fused round: candidates, and so the
+    cross-rank pick, rank by ``min_dist * weight``."""
+    from repro_torch.kernels.pairwise import ops
+    emb = emb_local.float().contiguous()
+    n, d = emb.shape
+    dev = emb.device
+    rank, base = _shard_base(n, group, dev)
+    w_loc = None if weights is None else weights.reshape(n).float()
+    sel = torch.zeros((budget,), dtype=torch.int64, device=dev)
+    start = 0
+    if init_center is None:
+        # seed = global row 0, the first index returned (sel[0] = 0)
+        c0 = _all_gather(emb[0], group)[0]
+        start = 1
+    else:
+        c0 = init_center.to(dev).float()
+    mind = ops.sq_dist_to_center(emb, c0)
+    if init_center is None and rank == 0:
+        mind[0] = -1.0
+    score0 = mind if w_loc is None else ops.masked_weighted_score(mind,
+                                                                   w_loc)
+    li = torch.argmax(score0)
+    lv = score0[li]
+    for i in range(start, budget):
+        # one buffer a rank: [global index (int64 bits), score, vector]
+        gi = (li.to(torch.int64) + base).reshape(1)
+        buf = torch.cat([gi.view(torch.float32), lv.reshape(1).float(),
+                         emb[li.long()]])
+        cand = _all_gather(buf, group)                   # (ranks, 3 + d)
+        # ties: lowest rank; a copy, so its first two floats view as int64
+        win = torch.index_select(cand, 0, torch.argmax(cand[:, 2])[None])[0]
+        g = win[:2].view(torch.int64)                    # (1,)
+        sel[i] = g[0]
+        # never re-pick the winner on its home shard
+        mine = (g >= base) & (g < base + n)
+        mask = torch.where(mine, g - base, -1).to(torch.int32)
+        mind, li, lv = ops.greedy_round(emb, mind, win[3:][None, :], mask,
+                                        weights=w_loc, impl=impl)
+    return sel
+
+
+def sharded_scores(logits_local: torch.Tensor, kind: str) -> torch.Tensor:
+    """Data-parallel fused uncertainty scoring of this rank's logits
+    (stays sharded: no collective)."""
+    from repro_torch.kernels.uncertainty import ops
+    return ops.uncertainty_scores(logits_local, kind)
+
+
+# ===========================================================================
+# Host-level replica sharding (the serving layer's ``replicas: N``)
+# ===========================================================================
 
 def replica_of(key: str, replicas: int) -> int:
     """Content-hash shard assignment: stable across pool mutations, so a

@@ -203,12 +203,19 @@ def decode_attention_pos(q, k_cache, v_cache, k_pos, cur_pos,
 def attention(q, k, v, *, impl: str = "chunked", **kw):
     """``impl``: "naive", "chunked", or "pallas" (the configs' name for the
     flash kernel: the CUDA kernel on a CUDA tensor, the chunked path on a
-    CPU tensor; ``kernels/flash_attention/ops.py``)."""
+    CPU tensor; ``kernels/flash_attention/ops.py``). The kernel has no
+    backward: "pallas" on a CUDA tensor that requires grad raises."""
     if impl == "naive":
         kw.pop("q_chunk", None)
         kw.pop("kv_chunk", None)
         return naive_attention(q, k, v, **kw)
     if impl == "pallas":
+        if q.is_cuda and torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            raise RuntimeError(
+                "attention_impl='pallas' on a CUDA tensor that requires "
+                "grad: the flash-attention kernel has no backward (the "
+                "reference trains through 'chunked' attention)")
         from repro_torch.kernels.flash_attention import ops as fa_ops
         return fa_ops.flash_attention_auto(q, k, v, **kw)
     if impl != "chunked":

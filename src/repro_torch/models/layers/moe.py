@@ -25,7 +25,11 @@ cast to ``x.dtype``, in fp32 and casts once.
 draw seam in ``common/rng.py``: a ``RouteTape`` records every call's
 routes (top-k indices and slots, in call order) or forces recorded ones
 back, so a second run routes every token as the first did while its own
-router probabilities weight the combine.
+router probabilities weight the combine. The training loss passes a
+``RecomputeRoutes`` per checkpointed unit, which hands the backward's
+recomputation the routes of the unit's first run. The aux loss is
+differentiable through the router probabilities alone, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -96,6 +100,30 @@ class RouteTape:
                              f"a call routing {tuple(own.topi.shape)}")
         self.recorded.append(forced)
         return forced
+
+
+class RecomputeRoutes:
+    """The routes of one unit under ``torch.utils.checkpoint``: its first
+    run routes through ``tape`` (a ``RouteTape``, or none) and keeps each
+    MoE call's routes; the backward's recomputation (``begin`` restarts
+    the count) gets the same routes back, so the tape records or forces
+    each call once and the recomputed forward routes as the first did."""
+
+    def __init__(self, tape: Optional[RouteTape] = None):
+        self.tape = tape
+        self.kept: List[Routes] = []
+        self.at = 0
+
+    def begin(self) -> "RecomputeRoutes":
+        self.at = 0
+        return self
+
+    def route(self, own: Routes) -> Routes:
+        if self.at == len(self.kept):
+            self.kept.append(own if self.tape is None
+                             else self.tape.route(own))
+        self.at += 1
+        return self.kept[self.at - 1]
 
 
 def top_k(probs: torch.Tensor, k: int):

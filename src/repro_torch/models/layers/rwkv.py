@@ -147,11 +147,17 @@ def wkv_chunked(r, k, v, log_w, bonus, state0, chunk: int):
         o = torch.einsum("bthk,bhkv->bthv", rr * torch.exp(b_prev), state)
         # intra-chunk: s_tj = sum_d r_td k_jd exp(b_{t-1,d} - b_{j,d}), j<t;
         # -inf above the diagonal BEFORE the exp (b_prev - b > 0 there), and
-        # the one (B,C,C,H,D) tensor multiplied in place
+        # the one (B,C,C,H,D) tensor multiplied in place, but where autograd
+        # records the chunk (the same operations out of place)
         e = b_prev[:, :, None] - b[:, None, :]              # (B,C,C,H,D)
-        e.masked_fill_(above[None, :, :, None, None], float("-inf"))
-        e.exp_()
-        e.mul_(rr[:, :, None]).mul_(kk[:, None, :])
+        mask = above[None, :, :, None, None]
+        if e.requires_grad:
+            e = torch.exp(e.masked_fill(mask, float("-inf"))) \
+                * rr[:, :, None] * kk[:, None, :]
+        else:
+            e.masked_fill_(mask, float("-inf"))
+            e.exp_()
+            e.mul_(rr[:, :, None]).mul_(kk[:, None, :])
         s = e.sum(dim=-1)                                   # (B,C,C,H)
         del e
         o = o + torch.einsum("btjh,bjhv->bthv", s, vv)

@@ -32,12 +32,24 @@ compressed latents into the cache's ``ckv`` (L, B, S, kv_lora_rank) and
 ``kr`` (L, B, S, qk_rope); decode writes the token's latents at
 ``cur_len`` and attends in latent space (absorbed). ``cfg.mtp`` declares
 the MTP head (``mtp``: ``proj``, ``norm_h``, ``norm_e``, one dense MLA
-``layer`` and ``final_norm``) so that the reference's tree loads; no
-serving path reads it. ``loss``, its chunked cross-entropy and the MTP
-loss wait for ROADMAP A13.
+``layer`` and ``final_norm``); only the training loss reads it.
+
+``Model.loss`` is the training objective, the reference's: the
+cross-entropy of the next token (labels of -1 are padding) over the
+sequence in chunks of ``loss_chunk`` positions, so no (B, S, V) logits
+exist at once, plus the z-loss (1e-4 * mean lse²), plus the MoE layers'
+load-balance aux losses summed in layer order (``apply_backbone``), plus,
+for ``cfg.mtp``, 0.3 times the MTP head's cross-entropy of the token two
+ahead. Where ``cfg.remat``, each unit of every segment and of the encoder,
+and each CE chunk, runs under ``torch.utils.checkpoint`` (non-reentrant):
+the backward recomputes it, as the reference's ``jax.checkpoint`` does,
+and a MoE layer's recomputation takes the routes of its first run
+(``moe.RecomputeRoutes``). Every arch of the registry trains through
+this one path.
 
 Modes, as in the reference:
-  train    full sequence, no cache (``last_logits``, ``embed_pool``)
+  train    full sequence, no cache (``loss``, ``last_logits``,
+           ``embed_pool``)
   oracle   train with naive attention
   prefill  full sequence, fills the cache from a zero state
   decode   one token against the cache
@@ -87,6 +99,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.common.param import ParamDecl, init_params, with_dtype
 from repro_torch.configs.base import ArchConfig
@@ -463,6 +476,7 @@ def _stateful(apply, x, mode, lc, li: int):
 def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
                  mode, lc=None, li: int = 0, cur_len=None, valid=None,
                  routes=None, enc_out=None, enc_len=None):
+    """One layer -> (x, the MoE's aux loss, or None for another MLP)."""
     h = apply_norm(cfg.norm, params["norm1"], x, cfg.norm_eps)
     mp = params["mixer"]
     if spec.mixer in ("attn", "attn_local"):
@@ -484,34 +498,62 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
         x = x + _apply_cross_attn(cfg, params["cross"], hx, mode, lc, li,
                                   enc_out, enc_len)
     h2 = apply_norm(cfg.norm, params["norm2"], x, cfg.norm_eps)
-    if spec.mlp == "moe":      # serving drops the aux loss, as the reference
-        return x + moe_lib.moe_apply(params["mlp"], h2, cfg.moe,
-                                     cfg.norm_eps, routes=routes)[0]
+    if spec.mlp == "moe":
+        out, aux = moe_lib.moe_apply(params["mlp"], h2, cfg.moe,
+                                     cfg.norm_eps, routes=routes)
+        return x + out, aux
     if spec.mlp == "rwkv_ffn":
         return x + _stateful(
             lambda t, st: rwkv_lib.chanmix_apply(params["mlp"], t, st), h2,
-            mode, None if lc is None else lc["ffn"], li)
-    return x + mlp_apply(params["mlp"], h2, cfg.mlp)
+            mode, None if lc is None else lc["ffn"], li), None
+    return x + mlp_apply(params["mlp"], h2, cfg.mlp), None
+
+
+def _remat(cfg: ArchConfig, mode: str) -> bool:
+    """Recompute in the backward: the training forward under autograd
+    with ``cfg.remat``."""
+    return cfg.remat and mode == "train" and torch.is_grad_enabled()
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 def apply_backbone(cfg: ArchConfig, params, x, positions, mode, cache=None,
                    cur_len=None, routes=None, enc_out=None):
-    """x: (B,S,d) embedded inputs -> (B,S,d) final-norm hidden states.
-    In prefill and decode, ``cache`` is written in place. ``routes``: a
-    ``moe.RouteTape`` every MoE layer records into or is forced from.
-    ``enc_out``: the encoder's output (B, T, d) that an enc-dec config's
-    cross-attention reads in prefill and train (decode reads the cache)."""
+    """x: (B,S,d) embedded inputs -> ((B,S,d) final-norm hidden states, the
+    MoE layers' aux losses summed in layer order: a 0-d fp32, or 0.0
+    without MoE). In prefill and decode, ``cache`` is written in place.
+    ``routes``: a ``moe.RouteTape`` every MoE layer records into or is
+    forced from. ``enc_out``: the encoder's output (B, T, d) that an
+    enc-dec config's cross-attention reads in prefill and train (decode
+    reads the cache). Under ``_remat`` each unit is checkpointed."""
     valid = cur_len + 1 if mode == "decode" else None
     enc_len = cache.get("enc_len") if mode == "decode" else None
+    aux = 0.0
+    remat = _remat(cfg, mode)
     for si, seg in enumerate(build_segments(cfg)):
         seg_cache = None if cache is None else cache["segments"][si]
         for li, unit in enumerate(params["segments"][si]):
-            for i, spec in enumerate(seg.unit):
-                lc = None if seg_cache is None else seg_cache[str(i)]
-                x = _apply_layer(cfg, spec, unit[str(i)], x, positions, mode,
-                                 lc, li, cur_len, valid, routes, enc_out,
-                                 enc_len)
-    return apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+            def run(x, aux, tape, seg=seg, seg_cache=seg_cache, li=li,
+                    unit=unit):
+                for i, spec in enumerate(seg.unit):
+                    lc = None if seg_cache is None else seg_cache[str(i)]
+                    x, a = _apply_layer(cfg, spec, unit[str(i)], x,
+                                        positions, mode, lc, li, cur_len,
+                                        valid, tape, enc_out, enc_len)
+                    if a is not None:
+                        aux = aux + a
+                return x, aux
+            if remat:
+                tape = moe_lib.RecomputeRoutes(routes)
+                x, aux = _checkpoint(
+                    lambda x, aux, tape=tape, run=run: run(x, aux,
+                                                           tape.begin()),
+                    x, aux)
+            else:
+                x, aux = run(x, aux, routes)
+    return apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps), aux
 
 
 def apply_encoder(cfg: ArchConfig, params, frames, mode="train"):
@@ -525,8 +567,8 @@ def apply_encoder(cfg: ArchConfig, params, frames, mode="train"):
     x = frames.to(enc["final_norm"]["scale"].dtype)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    for unit in enc["segment"]:
-        lp = unit["0"]
+
+    def run(x, lp):
         h = apply_norm(cfg.norm, lp["norm1"], x, cfg.norm_eps)
         q, k, v = attn_lib.project_qkv(lp["mixer"], h, cfg.n_heads,
                                        cfg.n_kv_heads, cfg.hd, cfg.qk_norm,
@@ -535,7 +577,12 @@ def apply_encoder(cfg: ArchConfig, params, frames, mode="train"):
         k = apply_rope(k, positions, cfg.rope_theta)
         x = x + _out_proj(lp["mixer"], _bidir_attend(cfg, q, k, v, mode))
         h2 = apply_norm(cfg.norm, lp["norm2"], x, cfg.norm_eps)
-        x = x + mlp_apply(lp["mlp"], h2, cfg.mlp)
+        return x + mlp_apply(lp["mlp"], h2, cfg.mlp)
+
+    remat = _remat(cfg, mode)
+    for unit in enc["segment"]:
+        x = (_checkpoint(lambda x, lp=unit["0"]: run(x, lp), x) if remat
+             else run(x, unit["0"]))
     return apply_norm(cfg.norm, enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -549,11 +596,14 @@ def _soft_cap(x, cap: Optional[float]):
 
 class Model:
     """Functional model facade over a parameter tree (nested dicts and
-    lists of tensors). Every method runs under ``torch.inference_mode()``;
-    ``prefill`` and ``decode_step`` update the cache in place and return
-    it. ``routes``: a ``moe.RouteTape`` that every MoE layer of every
-    call records its routes into, or is forced from (tests and the
-    card's agreement check only)."""
+    lists of tensors). The serving and AL methods run under
+    ``torch.inference_mode()``; ``loss`` does not, so that autograd can
+    differentiate it (the params must then come from ``init`` or
+    ``bridge.load_model`` outside inference mode). ``prefill`` and
+    ``decode_step`` update the cache in place and return it. ``routes``:
+    a ``moe.RouteTape`` that every MoE layer of every call records its
+    routes into, or is forced from (tests and the card's agreement check
+    only)."""
 
     def __init__(self, cfg: ArchConfig, *, routes=None):
         require_ported(cfg)
@@ -606,19 +656,90 @@ class Model:
         return apply_encoder(self.cfg, params, batch["frames"], mode)
 
     def _logits(self, params, h):
-        """(B,d) hidden -> (B,V) fp32 logits (the product in the weights'
-        dtype, then cast, then ``cfg.logits_soft_cap``, as the
+        """(..., d) hidden -> (..., V) fp32 logits (the product in the
+        weights' dtype, then cast, then ``cfg.logits_soft_cap``, as the
         reference)."""
         return _soft_cap((h @ params["lm_head"]).float(),
                          self.cfg.logits_soft_cap)
 
     def _forward(self, params, batch, mode):
+        """-> (final-norm hidden states (B,S,d), MoE aux loss)."""
         x = self._embed_inputs(params, batch)
         B, S, _ = x.shape
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         return apply_backbone(self.cfg, params, x, positions, mode,
                               routes=self.routes,
                               enc_out=self._encode(params, batch, mode))
+
+    # -- training --------------------------------------------------------
+    def loss(self, params, batch, *, loss_chunk: int = 512):
+        """batch: tokens (B,S) int, labels (B,S) int (-1 = pad), and
+        ``frames`` / ``patch_embeds`` where the config takes them. Returns
+        (loss, metrics): 0-d fp32 tensors, metrics ``ce``, ``z_loss``,
+        ``aux_loss`` and, for ``cfg.mtp``, ``mtp``."""
+        h, aux = self._forward(params, batch, "train")
+        ce, z = self._chunked_ce(params, h, batch["labels"], loss_chunk)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+        loss = ce + z + aux
+        metrics = {"ce": ce, "z_loss": z, "aux_loss": aux}
+        if self.cfg.mtp:
+            mtp_loss = self._mtp_loss(params, h, batch)
+            loss = loss + 0.3 * mtp_loss
+            metrics["mtp"] = mtp_loss
+        return loss, metrics
+
+    def _chunked_ce(self, params, h, labels, chunk: int):
+        """Mean CE and z-loss over the positions whose label is >= 0, the
+        sequence taken ``chunk`` positions at a time (padded with -1
+        labels to a whole number of chunks): each chunk's fp32 logits
+        (``_logits``) live only inside it. Returns (ce, 1e-4 * mean
+        lse²)."""
+        B, S, d = h.shape
+        c = min(chunk, S)
+        n = -(-S // c)
+        if n * c != S:
+            h = torch.nn.functional.pad(h, (0, 0, 0, n * c - S))
+            labels = torch.nn.functional.pad(labels, (0, n * c - S),
+                                             value=-1)
+
+        def step(hh, ll):
+            logits = self._logits(params, hh)              # (B, c, V) fp32
+            lse = torch.logsumexp(logits, dim=-1)
+            lbl = torch.clamp_min(ll, 0).long()
+            lbl_logit = torch.gather(logits, -1, lbl[..., None])[..., 0]
+            w = (ll >= 0).float()
+            return (torch.sum((lse - lbl_logit) * w),
+                    torch.sum(torch.square(lse) * w), torch.sum(w))
+
+        remat = _remat(self.cfg, "train")
+        ce_sum = z_sum = n_tok = 0.0
+        for i in range(n):
+            hh, ll = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+            a, b, cnt = _checkpoint(step, hh, ll) if remat else step(hh, ll)
+            ce_sum, z_sum, n_tok = ce_sum + a, z_sum + b, n_tok + cnt
+        n_tok = torch.clamp_min(n_tok, 1.0)
+        return ce_sum / n_tok, 1e-4 * z_sum / n_tok
+
+    def _mtp_loss(self, params, h, batch):
+        """deepseek-v3's MTP (depth 1): predict token t+2 from
+        [norm_h(h_t); norm_e(emb_{t+1})] through ``proj``, one dense layer
+        of the config's mixer and ``final_norm``; the CE of the labels
+        rolled by one, the last two masked."""
+        cfg = self.cfg
+        mp = params["mtp"]
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        positions = torch.arange(S, device=h.device)[None].expand(B, S)
+        emb_next = self._embed(params, torch.roll(tokens, -1, dims=1))
+        hh = apply_norm(cfg.norm, mp["norm_h"], h, cfg.norm_eps)
+        ee = apply_norm(cfg.norm, mp["norm_e"], emb_next, cfg.norm_eps)
+        z = torch.cat([hh, ee], -1) @ mp["proj"]
+        spec = LayerSpec("mla" if cfg.mla is not None else "attn", "dense")
+        z, _ = _apply_layer(cfg, spec, mp["layer"], z, positions, "train")
+        z = apply_norm(cfg.norm, mp["final_norm"], z, cfg.norm_eps)
+        labels2 = torch.roll(labels, -1, dims=1)
+        labels2[:, -2:] = -1
+        return self._chunked_ce(params, z, labels2, 512)[0]
 
     # -- serving ----------------------------------------------------------
     @torch.inference_mode()
@@ -638,8 +759,9 @@ class Model:
                                  f"n_enc_frames {self.cfg.n_enc_frames}")
             cache["enc_len"] = torch.full((), T, dtype=torch.int32,
                                           device=x.device)
-        h = apply_backbone(self.cfg, params, x, positions, "prefill",
-                           cache=cache, routes=self.routes, enc_out=enc_out)
+        h, _ = apply_backbone(self.cfg, params, x, positions, "prefill",
+                              cache=cache, routes=self.routes,
+                              enc_out=enc_out)
         cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
         return cache, self._logits(params, h[:, -1])
 
@@ -651,8 +773,9 @@ class Model:
         x = self._embed(params, token)
         B = x.shape[0]
         positions = cur_len.reshape(1, 1).expand(B, 1)
-        h = apply_backbone(self.cfg, params, x, positions, "decode",
-                           cache=cache, cur_len=cur_len, routes=self.routes)
+        h, _ = apply_backbone(self.cfg, params, x, positions, "decode",
+                              cache=cache, cur_len=cur_len,
+                              routes=self.routes)
         cache["len"] = cur_len + 1
         return self._logits(params, h[:, 0]), cache
 
@@ -660,7 +783,7 @@ class Model:
     @torch.inference_mode()
     def embed_pool(self, params, batch):
         """Mean-pooled final hidden state (B,d) over tokens >= 0."""
-        h = self._forward(params, batch, "train")
+        h, _ = self._forward(params, batch, "train")
         mask = (batch["tokens"] >= 0).to(h.dtype)[..., None]
         return torch.sum(h * mask, dim=1) / torch.clamp_min(
             torch.sum(mask, dim=1), 1)
@@ -668,5 +791,5 @@ class Model:
     @torch.inference_mode()
     def last_logits(self, params, batch):
         """Last-position fp32 logits (B,V) of the stateless forward."""
-        h = self._forward(params, batch, "train")
+        h, _ = self._forward(params, batch, "train")
         return self._logits(params, h[:, -1])

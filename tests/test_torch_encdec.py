@@ -168,7 +168,7 @@ def test_decode_layer_matches_reference_step(whisper, li, impl):
     plc = {k: _t(v) for k, v in lc.items()}
     cur_t = torch.tensor(cur, dtype=torch.int32)
     with torch.inference_mode():
-        got = transformer._apply_layer(
+        got, _ = transformer._apply_layer(
             cfg, LayerSpec("attn", "dense", cross_attn=True),
             whisper["pp"]["segments"][0][li]["0"], _t(x),
             cur_t.reshape(1, 1).expand(B, 1), "decode", plc, li, cur_t,
