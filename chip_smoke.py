@@ -244,6 +244,27 @@ Phases, one line each (any failure raises and exits non-zero):
             launches world x (budget - 1) a k-center and B4 world a
             scoring; ms a k-center round and a round's all_gather alone
             at each world size.
+12. cell   the dry run's tooling on the card (``launch/profile_cell.py``,
+            ``launch/steps.py``, ``roofline/``): qwen3-8b at full width,
+            all 36 layers, bf16, through ``build_cell``'s serving steps on
+            one device: ``prefill_32k`` (batch 32 cut to 1, S 32,768) and
+            ``decode_32k`` (batch 128 cut to 8, the 32,768-entry cache
+            filled with seeded K/V to 32,767). Each: one counted step
+            (launch counts zeroed just before it and read just after:
+            B3 36 and B6 36), the median of CELL_REPS steps by CUDA
+            events, torch.profiler's top 10 kernels by device time and
+            the busy share, the dry run's terms for the same cell counted
+            on the host (``Cell.trace``) and ``roofline_share``. B3 at
+            S 32,768 held against its plain version (the chunked path)
+            on the last CELL_ROWS query rows over all 32,768 keys, and B6
+            at cur_len 32,767 over a copy of the filled cache's layer 0
+            against its plain version, each on queries aimed at keys
+            (``aimed_queries``: O(1) outputs) and timed beside its bound
+            and SDPA; the plain version with each defect (keys dropped,
+            one key more or less, a wrong scale) must fail the bar. Then
+            ``dryrun.run_cell`` of qwen3-8b's ``decode_32k`` on the
+            production mesh (a fake group of 256 ranks, in a subprocess),
+            whose record must come back ``ok``.
 
 The last three lines are the card's name and power limit as nvidia-smi
 gives them, ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -331,6 +352,12 @@ MLA_BF16_TOL = 2e-2
 MLA_CACHED = 577                         # cached tokens of SERVE_MAX
 AGREE_STEPS = 8
 KINDS = ("lc", "mc", "rc", "es")
+# the cell phase: qwen3-8b's two serving cells on one card, cut in batch
+CELL_ARCH = "qwen3-8b"
+CELLS = (("cell_prefill", "prefill_32k", 1), ("cell_decode", "decode_32k", 8))
+CELL_REPS = 5
+CELL_ROWS = 128            # B3's plain version over the last rows only
+AIM_SHARP, AIM_SOFT = 17.0, 11.0   # an aimed key's logit (aimed_queries)
 
 
 START = time.perf_counter()
@@ -3295,6 +3322,231 @@ def free_device():
     torch.cuda.empty_cache()
 
 
+def aimed_queries(k, pos, h, scale, seed):
+    """Queries aimed at keys, so that a cell check's outputs are O(1) and
+    move with every key a row may or may not see: (B, len(pos), h, D)
+    bf16 over k (B, S, KH, D). Query head j of the row at position
+    ``pos[r]`` aims at one key of its KV head by mode (r + j) % 4: 0 the
+    row's own position (the diagonal, or the last valid key), 1 the next
+    one (masked: a right kernel ignores it), 2 a key in the first half,
+    3 any key it sees. The aimed key's logit is AIM_SHARP (modes 0-2: ~all
+    the weight over 32,768 N(0, 1) keys) or AIM_SOFT (mode 3: about half,
+    so the softmax scale shows)."""
+    B, S, KH, D = k.shape
+    dev = k.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = len(pos)
+    mode = (torch.arange(n, device=dev)[:, None]
+            + torch.arange(h, device=dev)[None, :]) % 4
+    p = torch.as_tensor(pos, device=dev)[:, None].expand(n, h)
+    early = torch.randint(0, S // 2, (n, h), generator=g, device=dev)
+    seen = (torch.rand((n, h), generator=g, device=dev) * (p + 1)).long()
+    t = torch.where(mode == 0, p, torch.where(
+        mode == 1, torch.clamp_max(p + 1, S - 1),
+        torch.where(mode == 2, early, seen)))
+    kt = k[:, t, torch.arange(h, device=dev) // (h // KH)].float()
+    aim = torch.where(mode == 3, AIM_SOFT, AIM_SHARP)[None, :, :, None]
+    return (aim * kt / (scale * kt.square().sum(-1, keepdim=True))
+            ).bfloat16()
+
+
+def bar_ratio(got, want, tol) -> float:
+    """max |got - want| / (tol + tol * |want|): above 1 fails ``within``."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def mutants_fail(want, mutants, tol) -> dict:
+    """Each defect's output (a plain version with the defect) must fail
+    the check's bar against ``want``: the bar sees it at this shape."""
+    out = {name: bar_ratio(m, want, tol) for name, m in mutants.items()}
+    for name, r in out.items():
+        assert r > 1.0, (name, r)
+    return out
+
+
+def cell_flash_check(fa, dev, cfg, s):
+    """B3 at a prefill cell's shape (B 1, S ``s``, qwen3-8b's heads, bf16,
+    causal): the kernel's last CELL_ROWS rows, whose queries are aimed
+    (``aimed_queries``), against the plain version (the chunked path on
+    those rows over all ``s`` keys) within the bf16 flash tolerance; the
+    plain version with each defect (the last 64 keys dropped, a row
+    seeing one key more or one less, the scale of half the head dim) must
+    fail it. Timed beside its bound and SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers.attention import chunked_attention
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    g = torch.Generator(device=dev).manual_seed(21)
+    q = torch.randn((1, s, h, hd), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((1, s, kh, hd), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    lo = s - CELL_ROWS
+    q[:, lo:] = aimed_queries(k, range(lo, s), h, hd ** -0.5, seed=23)
+    got = fa.flash_attention_auto(q, k, v, causal=True)[:, lo:]
+    tol = ATT_TOL[torch.bfloat16]
+
+    def plain(keys=s, shift=0, scale=hd ** -0.5):
+        return chunked_attention(q[:, lo:], k[:, :keys], v[:, :keys],
+                                 causal=True, q_offset=lo + shift,
+                                 q_chunk=CELL_ROWS, kv_chunk=4096,
+                                 scale=scale)
+    want = plain()
+    torch.cuda.synchronize()
+    err = within(got, want, tol)
+    mutants = mutants_fail(want, {
+        "last_64_keys_dropped": plain(keys=s - 64),
+        "one_key_more": plain(shift=1), "one_key_less": plain(shift=-1),
+        "scale_half_head_dim": plain(scale=(hd // 2) ** -0.5)}, tol)
+    out = {"want_max_abs": float(want.float().abs().max()),
+           "want_rms": float(want.float().square().mean().sqrt()),
+           "bar_ratio": bar_ratio(got, want, tol),
+           "mutant_bar_ratios": mutants}
+    del got, want
+    ms = median_ms(lambda: fa.flash_attention_auto(q, k, v, causal=True),
+                   reps=3, inner=1)
+    plain_ms = median_ms(lambda: chunked_attention(
+        q, k, v, causal=True, q_chunk=512, kv_chunk=4096,
+        scale=hd ** -0.5), reps=1, inner=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=3, inner=1)
+    flops = 4.0 * h * hd * s * (s + 1) / 2
+    bnd, by = bound(2.0 * (2 * s * h * hd + 2 * s * kh * hd), flops,
+                    BF16_FLOPS_S)
+    return {"timed_shape": [1, s, s, h, kh, hd], "causal": True,
+            "checked_rows": CELL_ROWS, "max_abs_err": err,
+            "tolerance": tol, **out, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd, "bound_by": by, "library_ms": library}
+
+
+def cell_decode_check(da, dev, cfg, cache, cur):
+    """B6 at a decode cell's shape: a copy of layer 0 of the filled cache
+    (B 8, 32,768 entries; the entry at ``cur`` seeded too, so that a key
+    past the length would show), cur_len ``cur``, aimed queries
+    (``aimed_queries``), against the plain version within
+    DECODE_BF16_TOL; the plain version with each defect (cur_len one more
+    or one less, the last 64 keys dropped, the scale of half the head
+    dim) must fail it. Timed beside its bound and SDPA (a length
+    mask)."""
+    import torch.nn.functional as F
+    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    lc = cache["segments"][0]["0"]
+    b, sc = lc["k"].shape[1:3]
+    k, v = (lc[n][0].view(b, sc, kh, hd).clone() for n in ("k", "v"))
+    g = torch.Generator(device=dev).manual_seed(22)
+    for t in (k, v):
+        t[:, cur].copy_(torch.randn(t[:, cur].shape, generator=g,
+                                    device=dev))
+    q = aimed_queries(k, [cur - 1], h, hd ** -0.5, seed=24)  # (b,1,h,hd)
+    n = torch.tensor(cur, dtype=torch.int32, device=dev)
+    got = da.decode_attention_auto(q, k, v, n)
+
+    def plain(length=cur, scale=None):
+        return da.decode_attention_auto(
+            q, k, v, torch.tensor(length, dtype=torch.int32, device=dev),
+            scale=scale, impl="ref")
+    want = plain()
+    torch.cuda.synchronize()
+    err = within(got, want, DECODE_BF16_TOL)
+    mutants = mutants_fail(want, {
+        "one_key_more": plain(cur + 1), "one_key_less": plain(cur - 1),
+        "last_64_keys_dropped": plain(cur - 64),
+        "scale_half_head_dim": plain(scale=(hd // 2) ** -0.5)},
+        DECODE_BF16_TOL)
+    out = {"want_max_abs": float(want.float().abs().max()),
+           "want_rms": float(want.float().square().mean().sqrt()),
+           "bar_ratio": bar_ratio(got, want, DECODE_BF16_TOL),
+           "mutant_bar_ratios": mutants}
+    ms = median_ms(lambda: da.decode_attention_auto(q, k, v, n))
+    plain_ms = median_ms(lambda: da.decode_attention_auto(q, k, v, n,
+                                                          impl="ref"))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = (torch.arange(sc, device=dev) < cur)[None, None, None, :]
+    library = median_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    bnd, by = bound(2.0 * (2 * b * cur * kh * hd + 2 * b * h * hd),
+                    4.0 * b * h * hd * cur, BF16_FLOPS_S)
+    return {"timed_shape": [b, sc, cur, h, kh, hd], "max_abs_err": err,
+            "tolerance": DECODE_BF16_TOL, **out, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": library}
+
+
+def run_cells(counters, dev):
+    """Phase 12: qwen3-8b's serving cells through ``build_cell`` and
+    ``profile_cell``'s functions (each cell's launch counts zeroed just
+    before its counted step, read just after), B3 and B6 checked at the
+    cells' shapes, and the production-mesh dry run of one cell in a
+    subprocess. Returns launches by path."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import profile_cell as pc
+    from repro_torch.roofline import analysis
+    out = {}
+    for label, shape, batch in CELLS:
+        cell, cuts = pc.one_device_cell(CELL_ARCH, shape, batch=batch)
+        trace = cell.trace()
+        roof = analysis.roofline(trace, cell.cfg, cell.shape, 1)
+        args = list(cell.init_args("cuda", seed=0))
+        cur = None
+        if cell.shape.kind == "decode":
+            cur = cell.seq - 1
+            pc.fill_cache(args[1], cur, seed=0)
+        torch.cuda.synchronize()
+        for reset in counters:
+            reset()                              # the cell's path starts
+        step = pc.step_fn(cell, args, cur)
+        result = step()
+        torch.cuda.synchronize()
+        out[label] = path_launches(counters)     # ... and ends here
+        logits = result[1] if cell.shape.kind == "prefill" else result[0]
+        assert logits.shape == (batch, cell.cfg.padded_vocab)
+        assert bool(torch.isfinite(logits).all()), label
+        del result, logits
+        m = pc.measure(cell, args, reps=CELL_REPS, cur_len=cur)
+        prof = pc.profile_kernels(cell, args, top=10, cur_len=cur,
+                                  step_ms=m["ms"])
+        if cell.shape.kind == "prefill":
+            check = {"flash_attention_bf16": cell_flash_check(
+                fa, dev, cell.cfg, cell.seq)}
+            assert out[label]["flash_attention"] == cell.cfg.n_layers
+        else:
+            check = {"decode_attention": cell_decode_check(
+                da, dev, cell.cfg, args[1], cur)}
+            assert out[label]["decode_attention"] == cell.cfg.n_layers
+        r = roof.as_dict()
+        log("cell", cell=label, arch=CELL_ARCH, shape=shape, cut=cuts,
+            layers=cell.cfg.n_layers, cur_len=cur,
+            launches={k: v for k, v in out[label].items() if v},
+            measured_ms=m["ms"], measured_ms_all=m["ms_all"],
+            roofline={k: r[k] for k in (
+                "flops_per_chip", "bytes_per_chip", "t_compute", "t_memory",
+                "bottleneck", "step_time_bound", "mfu_bound")},
+            roofline_share=roof.step_time / (m["ms"] / 1e3),
+            trace_s=trace.t_trace_s, trace_kernels=trace.kernels,
+            memory=trace.memory(), profile=prof, kernels_checked=check,
+            nvidia_smi=nvidia_smi())
+        del args
+        free_device()
+    with tempfile.TemporaryDirectory(prefix="repro-torch-dryrun-") as tmp:
+        path = os.path.join(tmp, "dryrun.json")
+        t = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             CELL_ARCH, "--shape", "decode_32k", "--mesh", "single",
+             "--out", path], check=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            stdout=subprocess.DEVNULL)
+        with open(path) as f:
+            rec = json.load(f)[f"{CELL_ARCH}|decode_32k|single"]
+        assert rec["status"] == "ok", rec.get("error")
+        log("cell", cell="dryrun_production", wall_s=time.perf_counter() - t,
+            record={k: rec[k] for k in ("arch", "shape", "mesh", "status",
+                                        "t_trace_s", "memory", "kernels",
+                                        "roofline")})
+    return out
+
+
 def run_serve_archs(counters, dev):
     """Each served arch in turn (launch counts zeroed just before its
     ``run_serving``, read just after), its agreement and profile checks,
@@ -3444,6 +3696,8 @@ def run(tune_dir, kernels_only=False) -> int:
     al_launches = run_al_train(counters)
     free_device()
     mesh_launches = run_mesh(counters, dev)
+    free_device()
+    cell_launches = run_cells(counters, dev)
 
     def counts(name):
         by_path = {"picker": picker_launches[name], "image": launches[name],
@@ -3457,6 +3711,8 @@ def run(tune_dir, kernels_only=False) -> int:
                         "train_resume": resume_launches[name],
                         "al_train": al_launches[name],
                         "mesh": mesh_launches[name]})
+        by_path.update({label: cell_launches[label][name]
+                        for label in cell_launches})
         return sum(by_path.values()), by_path
 
     src = "src/repro_torch/kernels/"

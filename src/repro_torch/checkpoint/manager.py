@@ -21,9 +21,10 @@ Guarantees:
     and writes it on a background thread, so the train loop only blocks
     for the device -> host copy.
 
-Restore onto another device count (the reference's elastic restore)
-waits for ROADMAP A13's tooling slice; ``restore`` puts each leaf on its
-template leaf's device.
+``restore`` puts each leaf on its template leaf's device; given
+``placements`` (``distributed/elastic.reshard_plan``), it restores onto
+another mesh, the reference's elastic restore: each rank slices its shard
+of the whole leaf.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.tree import leaves_with_paths, tree_unflatten
+from repro_torch.distributed import partition
 
 try:
     import zstandard as zstd
@@ -153,11 +155,16 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None) -> tuple:
+    def restore(self, template: Any, step: Optional[int] = None,
+                placements: Any = None) -> tuple:
         """Returns (tree, step, metadata). ``template`` fixes the tree's
         structure; each leaf comes back in the dtype and shape the file
         names, on the template leaf's device where that is a tensor, else
-        on the CPU."""
+        on the CPU. ``placements`` (a ``partition.tree_placements`` tree
+        matching ``template``, whose leaves are then DTensors): each leaf
+        comes back as a DTensor on its template's mesh with those
+        placements, each rank slicing its shard from the whole leaf
+        (elastic restore)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -166,8 +173,9 @@ class CheckpointManager:
             manifest = msgpack.unpackb(f.read(), raw=False)
         by_path = {e["path"]: e for e in manifest["entries"]}
         paths, leaves = _leaf_paths(template)
+        pls = partition.placement_leaves(placements, len(leaves))
         out = []
-        for p, tmpl in zip(paths, leaves):
+        for p, tmpl, pl in zip(paths, leaves, pls):
             e = by_path[p]
             with open(os.path.join(d, e["file"]), "rb") as f:
                 blob = f.read()
@@ -177,6 +185,9 @@ class CheckpointManager:
             t = (torch.frombuffer(bytearray(blob), dtype=dtype) if blob
                  else torch.empty((0,), dtype=dtype)).reshape(e["shape"])
             dev = tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu"
-            out.append(t.to(dev))
+            t = t.to(dev)
+            if pl is not None:
+                t = partition.shard_of(t, tmpl.device_mesh, pl)
+            out.append(t)
         return tree_unflatten(template, out), manifest["step"], \
             manifest["metadata"]

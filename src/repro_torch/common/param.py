@@ -1,5 +1,10 @@
-"""Parameter init (the recipe of repro/common/param.py: ``_fan_in`` and
-``init_one``).
+"""Parameter declarations and init (the recipe of repro/common/param.py:
+``ParamDecl`` with its logical axes, ``_fan_in``, ``init_one``,
+``logical_tree``, ``count_params`` and ``param_bytes``).
+
+A declaration names a logical axis per dim (``"embed"``, ``"qkv"``,
+``"batch"``, ...), or None; ``distributed/partition.py`` resolves the
+names to mesh dims. One left without names is replicated.
 
 Only the recipe carries over: ``torch.Generator`` cannot reproduce
 ``jax.random``, so equal weights come only through ``repro_torch.bridge``.
@@ -25,13 +30,23 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.common.tree import tree_leaves, tree_map
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDecl:
     shape: Tuple[int, ...]
+    logical: Optional[Tuple[Optional[str], ...]] = None   # None: replicated
     init: str = "normal"          # normal | zeros | ones | embed | uniform
     dtype: Optional[torch.dtype] = None     # None: the tree's, else fp32
     scale: Optional[float] = None  # std (or uniform limit) override
+
+    def __post_init__(self):
+        if self.logical is None:
+            object.__setattr__(self, "logical", (None,) * len(self.shape))
+        if len(self.shape) != len(self.logical):
+            raise ValueError(f"shape {self.shape} and logical axes "
+                             f"{self.logical} differ in length")
 
     @property
     def held(self) -> torch.dtype:
@@ -81,3 +96,26 @@ def with_dtype(decls, dtype: torch.dtype):
     if isinstance(decls, list):
         return [with_dtype(d, dtype) for d in decls]
     return {k: with_dtype(d, dtype) for k, d in decls.items()}
+
+
+def is_decl(x) -> bool:
+    return isinstance(x, ParamDecl)
+
+
+def _decl_leaves(decls):
+    return [d for d in tree_leaves(decls) if is_decl(d)]
+
+
+def logical_tree(decls):
+    """Tree of logical-axis tuples (same structure as the declarations)."""
+    return tree_map(lambda d: d.logical, decls)
+
+
+def count_params(decls) -> int:
+    return int(sum(math.prod(d.shape) for d in _decl_leaves(decls)))
+
+
+def param_bytes(decls) -> int:
+    """Bytes of the declared tensors, each in its held dtype."""
+    return int(sum(math.prod(d.shape) * d.held.itemsize
+                   for d in _decl_leaves(decls)))

@@ -17,7 +17,10 @@ from repro_torch.configs.base import (  # noqa: F401
     MLAConfig,
     MoEConfig,
     RWKVConfig,
+    SHAPES,
+    ShapeConfig,
     pad_to,
+    shape_applicable,
 )
 
 ARCH_IDS = ["qwen3_8b", "internlm2_20b", "phi3_medium_14b", "qwen15_4b",

@@ -1,13 +1,10 @@
 # Copied from repro/configs/base.py: MoEConfig, MLAConfig, RWKVConfig,
 # GriffinConfig, ArchConfig, pad_to, the two properties the encoder and
-# the decode stack use (hd, padded_vocab) and n_params (the training
-# path's model FLOPs), with the fields the ported stacks read: q_chunk and
-# kv_chunk (prefill attention), remat (the training loss), moe, mla,
-# rwkv, griffin, logits_soft_cap, the enc-dec fields (enc_dec,
-# n_enc_layers, n_enc_frames), n_patches and mtp. The LM head is always
-# untied: no config of the registry sets tie_embeddings. Dropped:
-# tp_friendly, active_params, subquadratic and the dry-run shapes, which
-# only the TPU dry run uses.
+# the decode stack use (hd, padded_vocab), n_params (the training path's
+# model FLOPs), and the dry run's part: subquadratic, tp_friendly,
+# active_params, ShapeConfig, SHAPES and shape_applicable
+# (repro/configs/base.py:137-190). The LM head is always untied: no
+# config of the registry sets tie_embeddings.
 """Architecture configuration.
 
 One ``ArchConfig`` describes a backbone; each arch file under
@@ -98,6 +95,8 @@ class ArchConfig:
     kv_chunk: int = 1024
     remat: bool = True            # recompute each unit in the backward
     attention_impl: str = "chunked"   # chunked | naive | pallas
+    # runs the long_500k shape (a recurrent or windowed state)
+    subquadratic: bool = False
 
     @property
     def hd(self) -> int:
@@ -143,3 +142,57 @@ class ArchConfig:
             per_enc = 4 * d * d + 2 * d * self.d_ff
             total += self.n_enc_layers * per_enc + L * 4 * d * d
         return total
+
+    def tp_friendly(self, tp: int = 16) -> "ArchConfig":
+        """Output-preserving TP transform: pad query heads up to a multiple
+        of ``tp`` (zero weights) and replicate KV heads up to ``tp`` (tiled
+        checkpoint), so attention is fully local per model shard. No-op
+        where already divisible or for attention-free archs."""
+        if self.rwkv is not None or self.mla is not None:
+            return self
+        hd = self.hd
+        nh = -(-self.n_heads // tp) * tp
+        kv = self.n_kv_heads
+        if kv < tp and self.n_kv_heads != self.n_heads:
+            kv = tp
+        elif self.n_kv_heads == self.n_heads:
+            kv = nh                      # MHA: pad together
+        if (nh, kv) == (self.n_heads, self.n_kv_heads):
+            return self
+        return dataclasses.replace(self, n_heads=nh, n_kv_heads=min(kv, nh),
+                                   head_dim=hd)
+
+    def active_params(self) -> int:
+        """Active params per token (for MoE MODEL_FLOPS = 6*N_active*D)."""
+        if self.moe is None:
+            return self.n_params()
+        mo = self.moe
+        d, L = self.d_model, self.n_layers
+        n_moe_layers = L - mo.first_dense
+        inactive = ((mo.n_routed - mo.top_k) * 3 * d * mo.d_ff_expert
+                    * n_moe_layers)
+        return self.n_params() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(runs?, reason). long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("full-attention arch: 500k exact-softmax decode "
+                       "cache is out of scope (DESIGN.md §shape-skips)")
+    return True, ""

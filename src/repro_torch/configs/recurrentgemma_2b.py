@@ -1,9 +1,8 @@
-# Copied from repro/configs/recurrentgemma_2b.py; imports renamed, and the
-# ``subquadratic`` flag (the TPU dry run's) dropped.
+# Copied from repro/configs/recurrentgemma_2b.py; imports renamed.
 """recurrentgemma-2b — Griffin: RG-LRU + local attention, 1 attn : 2 rec.
 [arXiv:2402.19427; hf]
 
-RG-LRU state + 2048-token local window => O(1) decode state.
+Sub-quadratic: RG-LRU state + 2048-token local window => runs long_500k.
 """
 from repro_torch.configs.base import ArchConfig, GriffinConfig
 
@@ -24,6 +23,7 @@ CONFIG = ArchConfig(
         window=2048,
     ),
     logits_soft_cap=30.0,
+    subquadratic=True,
 )
 
 

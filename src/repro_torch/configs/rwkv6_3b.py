@@ -1,9 +1,8 @@
-# Copied from repro/configs/rwkv6_3b.py; imports renamed, and the
-# ``subquadratic`` flag (the TPU dry run's) dropped.
+# Copied from repro/configs/rwkv6_3b.py; imports renamed.
 """rwkv6-3b (Finch) — attention-free, data-dependent decay.
 [arXiv:2404.05892; hf]
 
-Pure recurrent state => O(1) decode.
+Pure recurrent state => O(1) decode, runs long_500k.
 """
 from repro_torch.configs.base import ArchConfig, RWKVConfig
 
@@ -19,6 +18,7 @@ CONFIG = ArchConfig(
     norm="ln",
     norm_eps=1e-5,
     rwkv=RWKVConfig(head_dim=64, decay_lora=64, mix_lora=32, chunk=64),
+    subquadratic=True,
 )
 
 

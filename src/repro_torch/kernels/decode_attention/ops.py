@@ -114,6 +114,20 @@ def _decode_cuda(q, k_cache, v_cache, cur_len, *, window: Optional[int],
     return out
 
 
+def _stand_in(q, k_cache, v_cache, cur_len):
+    """A dry run's launch (``launches.stand_in``): the output's shape, and
+    the kernel's FLOPs (4 * D a query head and valid key) and bytes (q,
+    the valid K/V rows, o). A traced ``cur_len`` holds no value: the
+    whole cache counts."""
+    B, _, H, D = q.shape
+    KH = k_cache.shape[2]
+    valid = (cur_len if isinstance(cur_len, int) else k_cache.shape[1])
+    kv = 2 * B * valid * KH * D * k_cache.element_size()
+    nbytes = 2 * q.numel() * q.element_size() + kv
+    launches.stand_in("decode_attention", 4.0 * B * H * D * valid, nbytes)
+    return torch.empty_like(q)
+
+
 def decode_attention_auto(q, k_cache, v_cache, cur_len, *,
                           window: Optional[int] = None, scale=None,
                           kv_block: int = KV_BLOCK, impl: str = "auto"):
@@ -123,11 +137,14 @@ def decode_attention_auto(q, k_cache, v_cache, cur_len, *,
     by ``SPLIT_KEYS``) nor the plain version uses it."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    launches.refuse_dtensor(q, k_cache, v_cache)
     if impl == "ref":
         return ref.decode_attention_ref(q, k_cache, v_cache, cur_len,
                                         window=window, scale=scale)
     if impl != "auto":
         raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
+    if launches.standing_in(q):
+        return _stand_in(q, k_cache, v_cache, cur_len)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k_cache, v_cache, cur_len,
                                         window=window, scale=scale)

@@ -154,6 +154,31 @@ def _flash_cuda(q, k, v, *, causal: bool, window: Optional[int],
     return out.to(dtype)
 
 
+def attended_pairs(sq: int, skv: int, causal: bool,
+                   window: Optional[int]) -> int:
+    """(query, key) pairs the masks allow, query row i at key position
+    skv - sq + i."""
+    total = 0
+    for i in range(sq):
+        p = skv - sq + i
+        lo = 0 if window is None else max(0, p - window + 1)
+        hi = p + 1 if causal else skv
+        total += max(0, min(hi, skv) - lo)
+    return total
+
+
+def _stand_in(q, k, v, *, causal: bool, window: Optional[int]):
+    """A dry run's launch (``launches.stand_in``): the output's shape, and
+    the kernel's FLOPs (4 * D a (query head, key) pair the masks allow)
+    and bytes (q, k, v read once, o written once: its floor)."""
+    B, Sq, H, D = q.shape
+    pairs = (attended_pairs(Sq, k.shape[1], causal, window)
+             if causal or window is not None else Sq * k.shape[1])
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    launches.stand_in("flash_attention", 4.0 * B * H * D * pairs, nbytes)
+    return torch.empty_like(q)
+
+
 def flash_attention_auto(q, k, v, *, causal: bool = True,
                          window: Optional[int] = None,
                          scale: Optional[float] = None, q_chunk: int = 512,
@@ -163,12 +188,15 @@ def flash_attention_auto(q, k, v, *, causal: bool = True,
     never on ``q_chunk`` or Sq."""
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    launches.refuse_dtensor(q, k, v)
     if impl == "ref":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale)
     if impl != "auto":
         raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if launches.standing_in(q):
+        return _stand_in(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         from repro_torch.models.layers.attention import chunked_attention
         return chunked_attention(q, k, v, causal=causal, window=window,

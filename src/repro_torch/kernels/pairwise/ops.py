@@ -96,6 +96,7 @@ def _use_kernel(x: torch.Tensor, impl: str) -> bool:
         return False
     if impl != "auto":
         raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
+    launches.refuse_dtensor(x)
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":

@@ -117,6 +117,7 @@ def _use_kernel(logits: torch.Tensor, impl: str) -> bool:
         return False
     if impl != "auto":
         raise ValueError(f"impl must be 'auto' or 'ref', got {impl!r}")
+    launches.refuse_dtensor(logits)
     if logits.device.type == "cpu":
         return False
     if logits.device.type != "cuda":

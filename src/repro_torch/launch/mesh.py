@@ -1,5 +1,6 @@
-# Port of repro/launch/mesh.py's debug half (make_debug_mesh((n,),
-# ("data",))); make_production_mesh waits for ROADMAP A13's tooling slice.
+# Port of repro/launch/mesh.py: the debug half (make_debug_mesh((n,),
+# ("data",))) as spawned ranks, and the production half
+# (make_production_mesh, :27-37) over a fake process group.
 """A debug mesh of ``world`` ranks over one ``data`` axis: ``world``
 processes, each in a ``torch.distributed`` process group.
 
@@ -103,3 +104,44 @@ def run_debug_mesh(fn: Callable, world: int, *args, backend: str = "gloo",
         rank, tb = failed[0]
         raise RuntimeError(f"debug mesh rank {rank} failed:\n{tb}")
     return [results[r] for r in range(world)]
+
+
+# ------------------------------------------------------- production mesh ---
+# The reference's production meshes: (16, 16) ("data", "model"), 256
+# chips, and (2, 16, 16) ("pod", "data", "model"), 512 chips. On H100s
+# these are 32 or 64 nodes of 8 cards. The dry run builds them over a
+# *fake* process group (``torch.testing._internal.distributed.fake_pg``):
+# one process stands for rank 0 of the world, its collectives return at
+# once, and a step is traced on it, never run.
+
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def init_fake_world(world: int) -> None:
+    """Make this process rank 0 of a fake process group of ``world``
+    ranks, replacing any group it has. Raises ImportError where this
+    torch has no fake backend."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production DeviceMesh over the process group's world, which
+    must be 256 ranks (single pod) or 512 (multi pod): a smaller world is
+    never taken for one. The mesh's device type is ``cpu``: the dry run
+    traces fake CPU tensors."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axes = PRODUCTION[multi_pod]
+    need = 1
+    for n in shape:
+        need *= n
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have != need:
+        raise RuntimeError(
+            f"need a world of {need} ranks, have {have}: call "
+            f"init_fake_world({need}) first (launch.dryrun does)")
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)

@@ -13,7 +13,10 @@ and the optimizer state, restores the latest checkpoint if there is one
 past step 0, and restarts the batch iterator from its seed, so a resumed
 run replays the batches from the start of the stream at the restored
 step; ``losses`` keeps the steps of every round, those before a failure
-included. ``TrainReport.step_s`` (each step's seconds as the straggler
+included. A restarted round first waits for the checkpoint that the
+failed round left in flight: the reference reads the directory at once,
+and under load restores an older step than the one it saved (or none).
+``TrainReport.step_s`` (each step's seconds as the straggler
 monitor sees them, ending in the host's read of the loss) is the port's
 addition.
 
@@ -105,6 +108,8 @@ def run_training(arch: str = "qwen1.5-4b", *, smoke: bool = True,
                            params_init))
         opt_state = opt.init(params)
         step = 0
+        if mgr is not None:
+            mgr.wait()          # a failed round's checkpoint in flight lands
         if mgr is not None and mgr.latest_step():
             (params, opt_state), step, _ = mgr.restore((params, opt_state))
         for t in tree_leaves(params):

@@ -58,10 +58,11 @@ def encoder_decls(cfg: ArchConfig, input_dim: Optional[int] = None):
     decls = {"final_norm": norm_decls(cfg.norm, cfg.d_model),
              "layers": [layer_decls(cfg) for _ in range(cfg.n_layers)]}
     if input_dim:
-        decls["frame_proj"] = ParamDecl((input_dim, cfg.d_model))
+        decls["frame_proj"] = ParamDecl((input_dim, cfg.d_model),
+                                        ("embed", None))
     else:
         decls["embed"] = ParamDecl((cfg.padded_vocab, cfg.d_model),
-                                   init="embed")
+                                   ("vocab", "embed"), init="embed")
     return decls
 
 

@@ -6,9 +6,8 @@ repro/models/layers/attention.py).
 Layouts are the reference's: q (B, Sq, H, D), k and v (B, Skv, KH, D);
 query head h reads KV head h // G, G = H / KH. Weights stay 2-D
 (d_model, n * head_dim). Every function returns ``q.dtype``. Products
-accumulate in fp32 over operands in their storage dtype, as the
-reference's ``einsum_f32`` does (bf16 x bf16 products are exact in fp32,
-so casting the operands to fp32 first computes the same sums).
+accumulate in fp32 over operands in their storage dtype
+(``common/dots.einsum_f32``, the reference's helper).
 """
 from __future__ import annotations
 
@@ -16,27 +15,31 @@ from typing import Optional
 
 import torch
 
+from repro_torch.common.dots import einsum_f32
 from repro_torch.common.param import ParamDecl
+from repro_torch.distributed.partition import ac, split_heads
 from repro_torch.models.layers.norms import rms_decls, rmsnorm
 
 NEG_INF = -1e30
+MIN_TILE_ROWS = 16      # chunked_attention: fewest query rows a tile
 
 
 def attn_decls(d_model: int, n_heads: int, n_kv: int, head_dim: int,
                qkv_bias: bool = False, qk_norm: bool = False,
                out_bias: bool = False):
     decls = {
-        "w_q": ParamDecl((d_model, n_heads * head_dim)),
-        "w_k": ParamDecl((d_model, n_kv * head_dim)),
-        "w_v": ParamDecl((d_model, n_kv * head_dim)),
-        "w_o": ParamDecl((n_heads * head_dim, d_model)),
+        "w_q": ParamDecl((d_model, n_heads * head_dim), ("embed", "qkv")),
+        "w_k": ParamDecl((d_model, n_kv * head_dim), ("embed", "qkv")),
+        "w_v": ParamDecl((d_model, n_kv * head_dim), ("embed", "qkv")),
+        "w_o": ParamDecl((n_heads * head_dim, d_model), ("qkv", "embed")),
     }
     if qkv_bias:
-        decls["b_q"] = ParamDecl((n_heads * head_dim,), init="zeros")
-        decls["b_k"] = ParamDecl((n_kv * head_dim,), init="zeros")
-        decls["b_v"] = ParamDecl((n_kv * head_dim,), init="zeros")
+        decls["b_q"] = ParamDecl((n_heads * head_dim,), ("qkv",),
+                                 init="zeros")
+        decls["b_k"] = ParamDecl((n_kv * head_dim,), ("qkv",), init="zeros")
+        decls["b_v"] = ParamDecl((n_kv * head_dim,), ("qkv",), init="zeros")
     if out_bias:
-        decls["b_o"] = ParamDecl((d_model,), init="zeros")
+        decls["b_o"] = ParamDecl((d_model,), ("norm",), init="zeros")
     if qk_norm:
         decls["q_norm"] = rms_decls(head_dim)
         decls["k_norm"] = rms_decls(head_dim)
@@ -48,12 +51,14 @@ def project_qkv(params, x, n_heads: int, n_kv: int, head_dim: int,
     """x: (B,S,d) -> q (B,S,H,D), k,v (B,S,KH,D). No rope here; qk_norm is
     an RMSNorm over head_dim after the reshape."""
     B, S, _ = x.shape
-    q, k, v = x @ params["w_q"], x @ params["w_k"], x @ params["w_v"]
+    q = ac(x @ params["w_q"], "batch", None, "qkv")
+    k = ac(x @ params["w_k"], "batch", None, "qkv")
+    v = ac(x @ params["w_v"], "batch", None, "qkv")
     if "b_q" in params:
         q, k, v = q + params["b_q"], k + params["b_k"], v + params["b_v"]
-    q = q.reshape(B, S, n_heads, head_dim)
-    k = k.reshape(B, S, n_kv, head_dim)
-    v = v.reshape(B, S, n_kv, head_dim)
+    q = split_heads(q, n_heads, head_dim)
+    k = split_heads(k, n_kv, head_dim)
+    v = split_heads(v, n_kv, head_dim)
     if qk_norm:
         q = rmsnorm(params["q_norm"], q, norm_eps)
         k = rmsnorm(params["k_norm"], k, norm_eps)
@@ -84,7 +89,7 @@ def naive_attention(q, k, v, *, causal: bool = True,
     G = H // KH
     scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, Sq, KH, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    s = einsum_f32("bqkgd,bskd->bkgqs", qg, k) * scale
     q_pos = q_offset + torch.arange(Sq, device=q.device)
     k_pos = torch.arange(k.shape[1], device=q.device)
     m = _mask(q_pos, k_pos, causal=causal, window=window, kv_valid=kv_valid)
@@ -100,7 +105,12 @@ def chunked_attention(q, k, v, *, causal: bool = True,
                       scale: Optional[float] = None):
     """Flash-style attention in plain PyTorch: a loop over query chunks,
     an inner loop over KV chunks with the online-softmax carry (m, l, acc).
-    Peak memory per step: the (B, KH, G, qc, kc) fp32 score tile."""
+    Peak memory per step: the (B, KH, G, qc, kc) fp32 score tile. A tile
+    of fewer than ``MIN_TILE_ROWS`` query rows is zero-padded to that many
+    and the padding dropped: BLAS takes another route for a one-row
+    product (a vector product), whose sums then differ from the same
+    row's in a wider tile, and a row's bytes must not depend on the
+    tiling."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -111,6 +121,9 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     pad_q, pad_k = nq * qc - Sq, nk * kc - Skv
     qg = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q)).reshape(
         B, nq, qc, KH, G, D)
+    rows = max(qc, MIN_TILE_ROWS)
+    if rows > qc:
+        qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, rows - qc))
     kb = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k)).reshape(
         B, nk, kc, KH, D)
     vb = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k)).reshape(
@@ -119,15 +132,14 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     dev = q.device
     outs = []
     for qi in range(nq):
-        qch = qg[:, qi]                                  # (B,qc,KH,G,D)
-        q_pos = q_offset + qi * qc + torch.arange(qc, device=dev)
-        m = torch.full((B, KH, G, qc), NEG_INF, device=dev)
-        l = torch.zeros((B, KH, G, qc), device=dev)
-        acc = torch.zeros((B, KH, G, qc, D), device=dev)
+        qch = qg[:, qi]                                  # (B,rows,KH,G,D)
+        q_pos = q_offset + qi * qc + torch.arange(rows, device=dev)
+        m = torch.full((B, KH, G, rows), NEG_INF, device=dev)
+        l = torch.zeros((B, KH, G, rows), device=dev)
+        acc = torch.zeros((B, KH, G, rows, D), device=dev)
         for ki in range(nk):
             k_pos = ki * kc + torch.arange(kc, device=dev)
-            s = torch.einsum("bqkgd,bskd->bkgqs", qch.float(),
-                             kb[:, ki].float()) * scale
+            s = einsum_f32("bqkgd,bskd->bkgqs", qch, kb[:, ki]) * scale
             s = torch.where(_mask(q_pos, k_pos, causal=causal, window=window,
                                   kv_valid=valid), s, NEG_INF)
             m_cur = torch.maximum(m, torch.amax(s, dim=-1))
@@ -135,12 +147,12 @@ def chunked_attention(q, k, v, *, causal: bool = True,
             corr = torch.exp(m - m_cur)
             l = l * corr + torch.sum(p, dim=-1)
             # p rounded to the V dtype before its product, as the reference
-            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(vb.dtype).float(),
-                              vb[:, ki].float())
+            pv = einsum_f32("bkgqs,bskd->bkgqd", p.to(vb.dtype),
+                            vb[:, ki])
             acc = acc * corr[..., None] + pv
             m = m_cur
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]    # (B,KH,G,qc,D)
-        outs.append(out.permute(0, 3, 1, 2, 4))             # (B,qc,KH,G,D)
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]    # (B,KH,G,rows,D)
+        outs.append(out[..., :qc, :].permute(0, 3, 1, 2, 4))  # (B,qc,KH,G,D)
     out = torch.cat(outs, dim=1).reshape(B, nq * qc, H, D)[:, :Sq]
     return out.to(q.dtype)
 
@@ -161,15 +173,14 @@ def decode_attention(q, k_cache, v_cache, cur_len, *,
     G = H // KH
     scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, KH, G, D).to(k_cache.dtype)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
+    s = einsum_f32("bkgd,bskd->bkgs", qg, k_cache) * scale
     k_pos = torch.arange(k_cache.shape[1], device=q.device)
     ok = k_pos < cur_len
     if window is not None:
         ok &= k_pos > cur_len - 1 - window
     s = torch.where(ok[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
-                     v_cache.float())
+    o = einsum_f32("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -189,14 +200,13 @@ def decode_attention_pos(q, k_cache, v_cache, k_pos, cur_pos,
     G = H // KH
     scale = scale if scale is not None else D ** -0.5
     qg = q.reshape(B, KH, G, D).to(k_cache.dtype)
-    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) * scale
+    s = einsum_f32("bkgd,bskd->bkgs", qg, k_cache) * scale
     ok = (k_pos >= 0) & (k_pos <= cur_pos)
     if window is not None:
         ok &= k_pos > cur_pos - window
     s = torch.where(ok[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
-                     v_cache.float())
+    o = einsum_f32("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 

@@ -26,8 +26,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.dots import einsum_f32
 from repro_torch.common.param import ParamDecl
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import partition
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers.norms import rms_decls, rmsnorm
 from repro_torch.models.layers.rope import apply_rope
@@ -38,14 +40,17 @@ def mla_decls(cfg: ArchConfig):
     d, H = cfg.d_model, cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "w_dq": ParamDecl((d, m.q_lora_rank)),
+        "w_dq": ParamDecl((d, m.q_lora_rank), ("embed", "lora")),
         "q_norm": rms_decls(m.q_lora_rank),
-        "w_uq": ParamDecl((m.q_lora_rank, H * qk)),
-        "w_dkv": ParamDecl((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "w_uq": ParamDecl((m.q_lora_rank, H * qk), ("lora", "qkv")),
+        "w_dkv": ParamDecl((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("embed", "lora")),
         "kv_norm": rms_decls(m.kv_lora_rank),
-        "w_uk": ParamDecl((m.kv_lora_rank, H * m.qk_nope_head_dim)),
-        "w_uv": ParamDecl((m.kv_lora_rank, H * m.v_head_dim)),
-        "w_o": ParamDecl((H * m.v_head_dim, d)),
+        "w_uk": ParamDecl((m.kv_lora_rank, H * m.qk_nope_head_dim),
+                          ("lora", "qkv")),
+        "w_uv": ParamDecl((m.kv_lora_rank, H * m.v_head_dim),
+                          ("lora", "qkv")),
+        "w_o": ParamDecl((H * m.v_head_dim, d), ("qkv", "embed")),
     }
 
 
@@ -57,12 +62,14 @@ def latents(params, x, cfg: ArchConfig, positions):
     B, S, _ = x.shape
     H = cfg.n_heads
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
-    q = (cq @ params["w_uq"]).reshape(B, S, H, qk)
+    cq = rmsnorm(params["q_norm"],
+                 partition.ac(x @ params["w_dq"], "batch", None, None),
+                 cfg.norm_eps)
+    q = partition.split_heads(cq @ params["w_uq"], H, qk)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
                         cfg.rope_theta)
-    dkv = x @ params["w_dkv"]
+    dkv = partition.ac(x @ params["w_dkv"], "batch", None, None)
     c_kv = rmsnorm(params["kv_norm"], dkv[..., :m.kv_lora_rank],
                    cfg.norm_eps)
     k_rope = apply_rope(dkv[..., m.kv_lora_rank:], positions, cfg.rope_theta)
@@ -77,8 +84,9 @@ def mla_prefill(params, x, cfg: ArchConfig, positions, impl: str = "chunked"):
     B, S, _ = x.shape
     H = cfg.n_heads
     q_nope, q_rope, c_kv, k_rope = latents(params, x, cfg, positions)
-    k_nope = (c_kv @ params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (c_kv @ params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    k_nope = partition.split_heads(c_kv @ params["w_uk"], H,
+                                   m.qk_nope_head_dim)
+    v = partition.split_heads(c_kv @ params["w_uv"], H, m.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
@@ -88,7 +96,9 @@ def mla_prefill(params, x, cfg: ArchConfig, positions, impl: str = "chunked"):
     kw = dict(causal=True, scale=qk ** -0.5)
     if impl == "chunked":
         kw.update(q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    o = attn_lib.attention(q, k, v_p, impl=impl, **kw)[..., :m.v_head_dim]
+    o = partition.heads_local(
+        lambda q, k, v: attn_lib.attention(q, k, v, impl=impl, **kw),
+        q, k, v_p)[..., :m.v_head_dim]
     return o.reshape(B, S, -1) @ params["w_o"], (c_kv, k_rope)
 
 
@@ -108,11 +118,10 @@ def mla_decode(params, x, cfg: ArchConfig, c_kv_cache, k_rope_cache, cur_len,
     q_nope, q_rope = lat[:2]
     # absorb W_UK into the query: q_lat = q_nope @ W_UK^T  (B,1,H,R)
     w_uk = params["w_uk"].reshape(R, H, m.qk_nope_head_dim)
-    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), w_uk.float())
+    q_lat = einsum_f32("bqhd,rhd->bqhr", q_nope, w_uk)
     ckv = c_kv_cache.float()
     s = torch.einsum("bqhr,bsr->bhqs", q_lat.to(cdt).float(), ckv)
-    s = s + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
-                         k_rope_cache.float())
+    s = s + einsum_f32("bqhd,bsd->bhqs", q_rope, k_rope_cache)
     s = s * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
     ok = torch.arange(c_kv_cache.shape[1], device=s.device) < cur_len
     s = torch.where(ok[None, None, None, :], s, attn_lib.NEG_INF)

@@ -7,12 +7,12 @@ from repro_torch.common.param import ParamDecl
 
 
 def rms_decls(dim: int):
-    return {"scale": ParamDecl((dim,), init="ones")}
+    return {"scale": ParamDecl((dim,), ("norm",), init="ones")}
 
 
 def ln_decls(dim: int):
-    return {"scale": ParamDecl((dim,), init="ones"),
-            "bias": ParamDecl((dim,), init="zeros")}
+    return {"scale": ParamDecl((dim,), ("norm",), init="ones"),
+            "bias": ParamDecl((dim,), ("norm",), init="zeros")}
 
 
 def norm_decls(kind: str, dim: int):

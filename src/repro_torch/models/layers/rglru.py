@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.param import ParamDecl
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import partition
 
 _C_CONST = 8.0
 
@@ -35,33 +36,33 @@ def rglru_decls(cfg: ArchConfig):
     H = cfg.n_heads
     bw = W // H                      # block width for block-diagonal gates
     return {
-        "w_x": ParamDecl((d, W)),
-        "w_gate": ParamDecl((d, W)),
-        "w_out": ParamDecl((W, d)),
-        "conv_w": ParamDecl((g.conv_width, W), scale=0.1),
-        "conv_b": ParamDecl((W,), init="zeros"),
+        "w_x": ParamDecl((d, W), ("embed", "tp")),
+        "w_gate": ParamDecl((d, W), ("embed", "tp")),
+        "w_out": ParamDecl((W, d), ("tp", "embed")),
+        "conv_w": ParamDecl((g.conv_width, W), ("stack", "tp"), scale=0.1),
+        "conv_b": ParamDecl((W,), ("tp",), init="zeros"),
         # block-diagonal input/recurrence gates (H blocks)
-        "gate_a_w": ParamDecl((H, bw, bw)),
-        "gate_a_b": ParamDecl((H, bw), init="zeros"),
-        "gate_x_w": ParamDecl((H, bw, bw)),
-        "gate_x_b": ParamDecl((H, bw), init="zeros"),
+        "gate_a_w": ParamDecl((H, bw, bw), ("heads", None, None)),
+        "gate_a_b": ParamDecl((H, bw), ("heads", None), init="zeros"),
+        "gate_x_w": ParamDecl((H, bw, bw), ("heads", None, None)),
+        "gate_x_b": ParamDecl((H, bw), ("heads", None), init="zeros"),
         # Lambda: U(-1, 1)
-        "lam": ParamDecl((W,), init="uniform", scale=1.0),
+        "lam": ParamDecl((W,), ("norm",), init="uniform", scale=1.0),
     }
 
 
 def _gates(params, u, H: int):
     """u: (B,S,W) -> (log_a, gated_in) both (B,S,W) fp32."""
     B, S, W = u.shape
-    ub = u.reshape(B, S, H, W // H).float()
+    ub = partition.split_heads(u, H, W // H).float()
     r = torch.sigmoid(
         torch.einsum("bshw,hwv->bshv", ub, params["gate_a_w"].float())
         + params["gate_a_b"].float())
     i = torch.sigmoid(
         torch.einsum("bshw,hwv->bshv", ub, params["gate_x_w"].float())
         + params["gate_x_b"].float())
-    r = r.reshape(B, S, W)
-    i = i.reshape(B, S, W)
+    r = partition.merge_heads(r)
+    i = partition.merge_heads(i)
     lam = params["lam"].float()
     # log a_t = c * r_t * log sigmoid(Lambda)   (<= 0)
     log_a = -_C_CONST * r * F.softplus(-lam)
@@ -123,7 +124,8 @@ def rglru_state_decls(cfg: ArchConfig, batch: int, count: int,
     the reference declares them."""
     g = cfg.griffin
     return {
-        "h": ParamDecl((count, batch, g.lru_width), "zeros", torch.float32),
+        "h": ParamDecl((count, batch, g.lru_width), ("layer", "batch", "tp"),
+                       "zeros", torch.float32),
         "conv": ParamDecl((count, batch, g.conv_width - 1, g.lru_width),
-                          "zeros", dtype),
+                          ("layer", "batch", None, "tp"), "zeros", dtype),
     }

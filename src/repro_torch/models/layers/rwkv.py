@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.param import ParamDecl
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import partition
 
 
 def timemix_decls(cfg: ArchConfig):
@@ -39,32 +40,36 @@ def timemix_decls(cfg: ArchConfig):
     d = cfg.d_model
     H = d // r.head_dim
     return {
-        "mu_x": ParamDecl((d,), init="zeros"),
-        "mu": ParamDecl((5, d), init="zeros"),
-        "mix_w1": ParamDecl((d, 5 * r.mix_lora), scale=0.01),
-        "mix_w2": ParamDecl((5, r.mix_lora, d), scale=0.01),
-        "decay_base": ParamDecl((d,), init="uniform", scale=1.0),
-        "decay_w1": ParamDecl((d, r.decay_lora), scale=0.01),
-        "decay_w2": ParamDecl((r.decay_lora, d), scale=0.01),
-        "bonus": ParamDecl((H, r.head_dim), scale=0.1),
-        "w_r": ParamDecl((d, d)),
-        "w_k": ParamDecl((d, d)),
-        "w_v": ParamDecl((d, d)),
-        "w_g": ParamDecl((d, d)),
-        "w_o": ParamDecl((d, d)),
-        "gn_scale": ParamDecl((d,), init="ones"),
-        "gn_bias": ParamDecl((d,), init="zeros"),
+        "mu_x": ParamDecl((d,), ("norm",), init="zeros"),
+        "mu": ParamDecl((5, d), (None, "norm"), init="zeros"),
+        "mix_w1": ParamDecl((d, 5 * r.mix_lora), ("embed", None),
+                            scale=0.01),
+        "mix_w2": ParamDecl((5, r.mix_lora, d), (None, None, "embed"),
+                            scale=0.01),
+        "decay_base": ParamDecl((d,), ("norm",), init="uniform", scale=1.0),
+        "decay_w1": ParamDecl((d, r.decay_lora), ("embed", "lora"),
+                              scale=0.01),
+        "decay_w2": ParamDecl((r.decay_lora, d), ("lora", "embed"),
+                              scale=0.01),
+        "bonus": ParamDecl((H, r.head_dim), ("heads", None), scale=0.1),
+        "w_r": ParamDecl((d, d), ("embed", "qkv")),
+        "w_k": ParamDecl((d, d), ("embed", "qkv")),
+        "w_v": ParamDecl((d, d), ("embed", "qkv")),
+        "w_g": ParamDecl((d, d), ("embed", "qkv")),
+        "w_o": ParamDecl((d, d), ("qkv", "embed")),
+        "gn_scale": ParamDecl((d,), ("norm",), init="ones"),
+        "gn_bias": ParamDecl((d,), ("norm",), init="zeros"),
     }
 
 
 def chanmix_decls(cfg: ArchConfig):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu_k": ParamDecl((d,), init="zeros"),
-        "mu_r": ParamDecl((d,), init="zeros"),
-        "w_k": ParamDecl((d, f)),
-        "w_v": ParamDecl((f, d)),
-        "w_r": ParamDecl((d, d)),
+        "mu_k": ParamDecl((d,), ("norm",), init="zeros"),
+        "mu_r": ParamDecl((d,), ("norm",), init="zeros"),
+        "w_k": ParamDecl((d, f), ("embed", "ff")),
+        "w_v": ParamDecl((f, d), ("ff", "embed")),
+        "w_r": ParamDecl((d, d), ("embed", "qkv")),
     }
 
 
@@ -78,19 +83,19 @@ def _ddlerp(x, sx, mu_x, mu, w1, w2):
     """RWKV6 data-dependent mixing -> the 5 mixed inputs (w,k,v,r,g)."""
     xx = x + sx * mu_x                                      # (B,S,d)
     lo = torch.tanh(xx @ w1)
-    lo = lo.reshape(*lo.shape[:-1], 5, w2.shape[1])
+    lo = partition.split_heads(lo, 5, w2.shape[1])
     off = torch.einsum("bsml,mld->bsmd", lo, w2)            # (B,S,5,d)
     mixed = x[..., None, :] + sx[..., None, :] * (mu + off)
-    return [mixed[..., i, :] for i in range(5)]
+    return [partition.ac(mixed[..., i, :], "batch", None, None)
+            for i in range(5)]
 
 
 def _group_norm(o, scale, bias, H: int, eps: float = 64e-5):
     B, S, d = o.shape
-    x = o.reshape(B, S, H, d // H).float()
+    x = partition.split_heads(o, H, d // H).float()
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
-    x = (x - mu) * torch.rsqrt(var + eps)
-    x = x.reshape(B, S, d)
+    x = partition.merge_heads((x - mu) * torch.rsqrt(var + eps))
     return x * scale.float() + bias.float()
 
 
@@ -104,8 +109,10 @@ def _rkvw(params, x, x_prev):
     k = xk @ params["w_k"]
     v = xv @ params["w_v"]
     g = F.silu((xg @ params["w_g"]).float())
-    dec = params["decay_base"].float() + (
-        torch.tanh(xw @ params["decay_w1"]) @ params["decay_w2"]).float()
+    lo = partition.ac(torch.tanh(xw @ params["decay_w1"]), "batch", None,
+                      None)
+    dec = params["decay_base"].float() + partition.ac(
+        lo @ params["decay_w2"], "batch", None, None).float()
     log_w = -torch.exp(dec)                                 # <= 0, per channel
     return r, k, v, g, log_w, x[:, -1]
 
@@ -182,18 +189,27 @@ def timemix_apply(params, x, cfg: ArchConfig, state=None
     x_prev = (torch.zeros((B, d), dtype=x.dtype, device=x.device)
               if state is None else state["x_prev"].to(x.dtype))
     r, k, v, g, log_w, last_x = _rkvw(params, x, x_prev)
-    shp = (B, S, H, D)
-    r4, k4, v4 = (t.reshape(shp).float() for t in (r, k, v))
-    w4 = log_w.reshape(shp)
-    S0 = (torch.zeros((B, H, D, D), dtype=torch.float32, device=x.device)
-          if state is None else state["S"])
+    r4, k4, v4 = (partition.split_heads(t, H, D).float() for t in (r, k, v))
+    w4 = partition.split_heads(log_w, H, D)
     bonus = params["bonus"].float()
-    if S == 1:
-        o, S1 = wkv_sequential(r4, k4, v4, w4, bonus, S0)
-    else:
-        o, S1 = wkv_chunked(r4, k4, v4, w4, bonus, S0, r_cfg.chunk)
-    o = _group_norm(o.reshape(B, S, d), params["gn_scale"], params["gn_bias"],
-                    H)
+
+    def scan(r4, k4, v4, w4, bonus, S0):
+        if S0 is None:
+            S0 = torch.zeros((r4.shape[0], r4.shape[2], D, D),
+                             dtype=torch.float32, device=r4.device)
+        if S == 1:
+            return wkv_sequential(r4, k4, v4, w4, bonus, S0)
+        return wkv_chunked(r4, k4, v4, w4, bonus, S0, r_cfg.chunk)
+
+    S0 = None if state is None else state["S"]
+    # on DTensors, the scan runs on each rank's (batch, heads) shard
+    hl, sl = ("batch", None, "heads", None), ("batch", "heads", None, None)
+    o, S1 = partition.local_region(
+        scan, (r4, k4, v4, w4, bonus, S0),
+        (hl, hl, hl, hl, ("heads", None), sl), ((hl, r4.shape),
+                                               (sl, (B, H, D, D))))
+    o = _group_norm(partition.merge_heads(o), params["gn_scale"],
+                    params["gn_bias"], H)
     o = (o * g).to(x.dtype)
     return o @ params["w_o"], {"x_prev": last_x.float(), "S": S1}
 
@@ -221,7 +237,11 @@ def rwkv_state_decls(cfg: ArchConfig, batch: int, count: int = 1):
     H, D = d // r.head_dim, r.head_dim
     f32 = torch.float32
     return {
-        "att": {"x_prev": ParamDecl((count, batch, d), "zeros", f32),
-                "S": ParamDecl((count, batch, H, D, D), "zeros", f32)},
-        "ffn": {"x_prev": ParamDecl((count, batch, d), "zeros", f32)},
+        "att": {"x_prev": ParamDecl((count, batch, d),
+                                    ("layer", "batch", None), "zeros", f32),
+                "S": ParamDecl((count, batch, H, D, D),
+                               ("layer", "batch", "heads", None, None),
+                               "zeros", f32)},
+        "ffn": {"x_prev": ParamDecl((count, batch, d),
+                                    ("layer", "batch", None), "zeros", f32)},
     }

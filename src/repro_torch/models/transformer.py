@@ -92,6 +92,14 @@ whatever ``attention_impl`` says but ``"naive"`` (and in ``"oracle"``
 mode), as the reference's MLA branch does, and its decode is plain
 torch: no kernel. The RWKV and RG-LRU layers have no kernel in the
 reference and none here.
+
+On DTensors (the dry run's trace of a production mesh,
+``launch/steps.py``) the same code runs sharded: ``partition.ac``
+constrains activations where the reference's ``ac`` does, attention and
+the recurrent scans run on each rank's (batch, heads) shards
+(``partition.heads_local``, as a shard_map would), and the cache writes
+at a position write each rank's shard (``partition.write_local``). On
+plain tensors each of these is the plain call.
 """
 from __future__ import annotations
 
@@ -103,6 +111,8 @@ import torch.utils.checkpoint
 
 from repro_torch.common.param import ParamDecl, init_params, with_dtype
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import partition
+from repro_torch.distributed.partition import ac
 from repro_torch.models.layers import attention as attn_lib
 from repro_torch.models.layers import mla as mla_lib
 from repro_torch.models.layers import moe as moe_lib
@@ -227,13 +237,13 @@ def model_decls(cfg: ArchConfig):
     fp32)."""
     V, d = cfg.padded_vocab, cfg.d_model
     decls: Dict[str, Any] = {
-        "embed": ParamDecl((V, d), init="embed"),
+        "embed": ParamDecl((V, d), ("vocab", "embed"), init="embed"),
         "final_norm": norm_decls(cfg.norm, d),
         "segments": [[{str(i): layer_decls(cfg, spec)
                        for i, spec in enumerate(s.unit)}
                       for _ in range(s.count)]
                      for s in build_segments(cfg)],
-        "lm_head": ParamDecl((d, V)),
+        "lm_head": ParamDecl((d, V), ("embed", "vocab")),
     }
     if cfg.enc_dec:
         decls["encoder"] = {
@@ -242,7 +252,7 @@ def model_decls(cfg: ArchConfig):
             "final_norm": norm_decls(cfg.norm, d)}
     if cfg.mtp:
         decls["mtp"] = {
-            "proj": ParamDecl((2 * d, d)),
+            "proj": ParamDecl((2 * d, d), ("embed", None)),
             "norm_h": norm_decls(cfg.norm, d),
             "norm_e": norm_decls(cfg.norm, d),
             "layer": layer_decls(cfg, LayerSpec(
@@ -254,25 +264,30 @@ def model_decls(cfg: ArchConfig):
 def _layer_cache_decls(cfg: ArchConfig, spec: LayerSpec, count: int, B: int,
                        S: int, dtype: torch.dtype):
     F = cfg.n_kv_heads * cfg.hd
+    kv = ("layer", "batch", "kv_seq", "qkv")
     if spec.mixer == "attn":
-        c = {"k": ParamDecl((count, B, S, F), "zeros", dtype),
-             "v": ParamDecl((count, B, S, F), "zeros", dtype)}
+        c = {"k": ParamDecl((count, B, S, F), kv, "zeros", dtype),
+             "v": ParamDecl((count, B, S, F), kv, "zeros", dtype)}
         if spec.cross_attn:
             Se = cfg.n_enc_frames
-            c["xk"] = ParamDecl((count, B, Se, F), "zeros", dtype)
-            c["xv"] = ParamDecl((count, B, Se, F), "zeros", dtype)
+            x = ("layer", "batch", None, "qkv")
+            c["xk"] = ParamDecl((count, B, Se, F), x, "zeros", dtype)
+            c["xv"] = ParamDecl((count, B, Se, F), x, "zeros", dtype)
         return c
     if spec.mixer == "attn_local":
         W = min(cfg.griffin.window, S)
-        return {"k": ParamDecl((count, B, W, F), "zeros", dtype),
-                "v": ParamDecl((count, B, W, F), "zeros", dtype),
-                "pos": ParamDecl((count, W), "zeros", torch.int32)}
+        ring = ("layer", "batch", None, "qkv")
+        return {"k": ParamDecl((count, B, W, F), ring, "zeros", dtype),
+                "v": ParamDecl((count, B, W, F), ring, "zeros", dtype),
+                "pos": ParamDecl((count, W), ("layer", None), "zeros",
+                                 torch.int32)}
     if spec.mixer == "mla":
         m = cfg.mla
-        return {"ckv": ParamDecl((count, B, S, m.kv_lora_rank), "zeros",
-                                 dtype),
-                "kr": ParamDecl((count, B, S, m.qk_rope_head_dim), "zeros",
-                                dtype)}
+        lat = ("layer", "batch", "kv_seq", None)
+        return {"ckv": ParamDecl((count, B, S, m.kv_lora_rank), lat,
+                                 "zeros", dtype),
+                "kr": ParamDecl((count, B, S, m.qk_rope_head_dim), lat,
+                                "zeros", dtype)}
     if spec.mixer == "rec":
         return rglru_lib.rglru_state_decls(cfg, B, count, dtype)
     if spec.mixer == "rwkv_att":
@@ -292,23 +307,28 @@ def cache_decls(cfg: ArchConfig, B: int, S: int,
     ``enc_len`` (an int32 scalar: the frames the prefill wrote).
     ``dtype`` is the cache dtype; the declarations that name theirs (the
     fp32 states, int32 ``pos``) keep it."""
-    decls = {"len": ParamDecl((), init="zeros", dtype=torch.int32),
+    decls = {"len": ParamDecl((), (), init="zeros", dtype=torch.int32),
              "segments": [{str(i): _layer_cache_decls(cfg, spec, s.count,
                                                       B, S, dtype)
                            for i, spec in enumerate(s.unit)}
                           for s in build_segments(cfg)]}
     if cfg.enc_dec:
-        decls["enc_len"] = ParamDecl((), init="zeros", dtype=torch.int32)
+        decls["enc_len"] = ParamDecl((), (), init="zeros",
+                                     dtype=torch.int32)
     return decls
 
 
 # --------------------------------------------------------------- layers ----
 
 def _decode_attend(cfg: ArchConfig, q, k_cache, v_cache, valid):
-    if cfg.attention_impl == "pallas":
-        from repro_torch.kernels.decode_attention import ops
-        return ops.decode_attention_auto(q, k_cache, v_cache, valid)
-    return attn_lib.decode_attention(q, k_cache, v_cache, valid)
+    """q (B, 1, H, hd) against a cache layer's first ``valid`` entries;
+    the layer (B, Sc, KH*hd) as stored, on each rank's heads."""
+    def attend(q, kc, vc, valid):
+        if cfg.attention_impl == "pallas":
+            from repro_torch.kernels.decode_attention import ops
+            return ops.decode_attention_auto(q, kc, vc, valid)
+        return attn_lib.decode_attention(q, kc, vc, valid)
+    return partition.heads_local(attend, q, k_cache, v_cache, valid)
 
 
 def _apply_attn(cfg: ArchConfig, params, x, positions, mode, lc=None,
@@ -331,34 +351,43 @@ def _apply_attn(cfg: ArchConfig, params, x, positions, mode, lc=None,
         kc, vc = lc["k"][li], lc["v"][li]               # (B, Sc, KH*hd)
         Sc = kc.shape[1]
         at = (torch.remainder(cur_len, Sc) if local else cur_len)
-        at = at.reshape(1).long()
-        kc.index_copy_(1, at, k.reshape(B, 1, KH * hd).to(kc.dtype))
-        vc.index_copy_(1, at, v.reshape(B, 1, KH * hd).to(vc.dtype))
+        at = partition.to_local(at.reshape(1).long())
+        for buf, new in ((kc, k), (vc, v)):
+            partition.write_local(
+                lambda b, s: b.index_copy_(1, at, s.to(b.dtype)), buf,
+                new.reshape(B, 1, KH * hd), "batch", None, "qkv")
         if local:
             pos = lc["pos"][li]                         # position + 1
-            pos.index_copy_(0, at, (cur_len + 1).reshape(1).to(pos.dtype))
-            o = attn_lib.decode_attention_pos(
-                q, kc.view(B, Sc, KH, hd), vc.view(B, Sc, KH, hd), pos - 1,
-                cur_len, window)
+            partition.write_local(
+                lambda b, s: b.index_copy_(0, at, s.to(b.dtype)), pos,
+                (cur_len + 1).reshape(1), None)
+            o = partition.heads_local(
+                lambda q, kc, vc, pos, cur: attn_lib.decode_attention_pos(
+                    q, kc, vc, pos - 1, cur, window),
+                q, kc, vc, pos, cur_len)
         else:
-            o = _decode_attend(cfg, q, kc.view(B, Sc, KH, hd),
-                               vc.view(B, Sc, KH, hd), valid)
+            o = _decode_attend(cfg, q, kc, vc, valid)
     else:
         impl = cfg.attention_impl if mode != "oracle" else "naive"
-        o = attn_lib.attention(q, k, v, impl=impl, causal=True,
-                               window=window, q_chunk=cfg.q_chunk,
-                               kv_chunk=cfg.kv_chunk)
+        o = partition.heads_local(
+            lambda q, k, v: attn_lib.attention(
+                q, k, v, impl=impl, causal=True, window=window,
+                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk), q, k, v)
         if mode == "prefill":
             kf, vf = k.reshape(B, S, KH * hd), v.reshape(B, S, KH * hd)
             if local:
-                (kr, vr), ringpos = _ring_from_seq(kf, vf,
-                                                   lc["k"].shape[2])
-                lc["k"][li].copy_(kr)
-                lc["v"][li].copy_(vr)
-                lc["pos"][li].copy_(ringpos)
+                W = lc["k"].shape[2]
+                for name, t in (("k", kf), ("v", vf)):
+                    partition.write_local(
+                        lambda b, s: b.copy_(_ring_fold(s, W)),
+                        lc[name][li], t, "batch", None, "qkv")
+                partition.write_local(
+                    lambda b, s: b.copy_(s), lc["pos"][li],
+                    _ring_pos(S, W, x.device))
             else:
-                _fill_prefix(lc["k"][li], kf)
-                _fill_prefix(lc["v"][li], vf)
+                for name, t in (("k", kf), ("v", vf)):
+                    partition.write_local(_fill_prefix, lc[name][li], t,
+                                          "batch", None, "qkv")
     return _out_proj(params, o)
 
 
@@ -371,9 +400,11 @@ def _apply_mla(cfg: ArchConfig, params, x, positions, mode, lc=None,
     if mode == "decode":
         ckv, kr = lc["ckv"][li], lc["kr"][li]           # (B, Sc, R|rope)
         lat = mla_lib.latents(params, x, cfg, positions)
-        at = cur_len.reshape(1).long()
-        ckv.index_copy_(1, at, lat[2].to(ckv.dtype))
-        kr.index_copy_(1, at, lat[3].to(kr.dtype))
+        at = partition.to_local(cur_len.reshape(1).long())
+        for buf, new in ((ckv, lat[2]), (kr, lat[3])):
+            partition.write_local(
+                lambda b, s: b.index_copy_(1, at, s.to(b.dtype)), buf, new,
+                "batch", None, None)
         return mla_lib.mla_decode(params, x, cfg, ckv, kr, valid, positions,
                                   lat)
     impl = ("naive" if mode == "oracle" or cfg.attention_impl == "naive"
@@ -381,8 +412,9 @@ def _apply_mla(cfg: ArchConfig, params, x, positions, mode, lc=None,
     out, (c_kv, k_rope) = mla_lib.mla_prefill(params, x, cfg, positions,
                                               impl)
     if mode == "prefill":
-        _fill_prefix(lc["ckv"][li], c_kv)
-        _fill_prefix(lc["kr"][li], k_rope)
+        for name, t in (("ckv", c_kv), ("kr", k_rope)):
+            partition.write_local(_fill_prefix, lc[name][li], t, "batch",
+                                  None, None)
     return out
 
 
@@ -398,7 +430,7 @@ def _out_proj(params, o):
     """(B, S, H, D) attention output -> (B, S, d): ``w_o`` and, where
     declared, ``b_o``."""
     B, S = o.shape[:2]
-    out = o.reshape(B, S, -1) @ params["w_o"]
+    out = ac(o.reshape(B, S, -1) @ params["w_o"], "batch", None, None)
     if "b_o" in params:
         out = out + params["b_o"]
     return out
@@ -413,8 +445,10 @@ def _bidir_attend(cfg: ArchConfig, q, k, v, mode):
     attention."""
     impl = ("naive" if mode == "oracle"
             else "pallas" if cfg.attention_impl == "pallas" else "chunked")
-    return attn_lib.attention(q, k, v, impl=impl, causal=False,
-                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return partition.heads_local(
+        lambda q, k, v: attn_lib.attention(
+            q, k, v, impl=impl, causal=False, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk), q, k, v)
 
 
 def _apply_cross_attn(cfg: ArchConfig, params, x, mode, lc=None,
@@ -426,37 +460,51 @@ def _apply_cross_attn(cfg: ArchConfig, params, x, mode, lc=None,
     (a 0-d int32 tensor on the device) frames cached there."""
     B, S, _ = x.shape
     KH, hd = cfg.n_kv_heads, cfg.hd
-    q = (x @ params["w_q"]).reshape(B, S, cfg.n_heads, hd)
+    q = partition.split_heads(ac(x @ params["w_q"], "batch", None, "qkv"),
+                              cfg.n_heads, hd)
     if mode == "decode":
-        xk, xv = lc["xk"][li], lc["xv"][li]            # (B, Se, KH*hd)
-        Se = xk.shape[1]
-        o = _decode_attend(cfg, q, xk.view(B, Se, KH, hd),
-                           xv.view(B, Se, KH, hd), enc_len)
+        o = _decode_attend(cfg, q, lc["xk"][li], lc["xv"][li], enc_len)
     else:
         T = enc_out.shape[1]
-        k = (enc_out @ params["w_k"]).reshape(B, T, KH, hd)
-        v = (enc_out @ params["w_v"]).reshape(B, T, KH, hd)
+        k, v = (partition.split_heads(
+            ac(enc_out @ params[w], "batch", None, "qkv"), KH, hd)
+            for w in ("w_k", "w_v"))
         o = _bidir_attend(cfg, q, k, v, mode)
         if mode == "prefill":
-            _fill_prefix(lc["xk"][li], k.reshape(B, T, KH * hd))
-            _fill_prefix(lc["xv"][li], v.reshape(B, T, KH * hd))
+            for name, t in (("xk", k), ("xv", v)):
+                partition.write_local(_fill_prefix, lc[name][li],
+                                      t.reshape(B, T, KH * hd), "batch",
+                                      None, "qkv")
     return _out_proj(params, o)
 
 
-def _ring_from_seq(kf, vf, W: int):
-    """Fold the last W positions of (B,S,F) k/v into ring-buffer layout:
-    slot i holds the largest position p <= S-1 with p = i (mod W), or
-    nothing (zeros, ``pos`` 0) when S < W leaves it empty. Returns ((k, v)
-    (B,W,F), pos (W,) int32 = position + 1)."""
-    B, S, F = kf.shape
-    i = torch.arange(W, device=kf.device)
+def _ring_slots(S: int, W: int, device):
+    """Slot i of a W-slot ring after S positions holds the largest
+    position p <= S-1 with p = i (mod W), or nothing when S < W leaves it
+    empty: (p clamped into [0, S-1], whether the slot holds one)."""
+    i = torch.arange(W, device=device)
     p = i + torch.div(S - 1 - i, W, rounding_mode="floor") * W
-    valid = p >= 0
-    pc = torch.clamp(p, 0, S - 1)
-    kr = torch.where(valid[None, :, None], kf[:, pc], 0)
-    vr = torch.where(valid[None, :, None], vf[:, pc], 0)
-    pos = torch.where(valid, p + 1, 0).to(torch.int32)
-    return (kr, vr), pos
+    return torch.clamp(p, 0, S - 1), p >= 0
+
+
+def _ring_fold(t, W: int):
+    """(B,S,F) -> the ring's (B,W,F), zeros in an empty slot."""
+    pc, valid = _ring_slots(t.shape[1], W, t.device)
+    return torch.where(valid[None, :, None], t[:, pc], 0)
+
+
+def _ring_pos(S: int, W: int, device):
+    """The ring's (W,) int32 ``pos``: position + 1, 0 for an empty
+    slot."""
+    pc, valid = _ring_slots(S, W, device)
+    return torch.where(valid, pc + 1, 0).to(torch.int32)
+
+
+def _ring_from_seq(kf, vf, W: int):
+    """Fold the last W positions of (B,S,F) k/v into ring-buffer layout.
+    Returns ((k, v) (B,W,F), pos (W,) int32 = position + 1)."""
+    return ((_ring_fold(kf, W), _ring_fold(vf, W)),
+            _ring_pos(kf.shape[1], W, kf.device))
 
 
 def _stateful(apply, x, mode, lc, li: int):
@@ -477,6 +525,7 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
                  mode, lc=None, li: int = 0, cur_len=None, valid=None,
                  routes=None, enc_out=None, enc_len=None):
     """One layer -> (x, the MoE's aux loss, or None for another MLP)."""
+    x = ac(x, "batch", None, None)
     h = apply_norm(cfg.norm, params["norm1"], x, cfg.norm_eps)
     mp = params["mixer"]
     if spec.mixer in ("attn", "attn_local"):
@@ -492,7 +541,7 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
                        h, mode, None if lc is None else lc["att"], li)
     else:
         raise ValueError(f"unknown mixer {spec.mixer!r}")
-    x = x + mo
+    x = ac(x + mo, "batch", None, None)
     if spec.cross_attn:
         hx = apply_norm(cfg.norm, params["norm_x"], x, cfg.norm_eps)
         x = x + _apply_cross_attn(cfg, params["cross"], hx, mode, lc, li,
@@ -501,12 +550,14 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
     if spec.mlp == "moe":
         out, aux = moe_lib.moe_apply(params["mlp"], h2, cfg.moe,
                                      cfg.norm_eps, routes=routes)
-        return x + out, aux
+        return ac(x + out, "batch", None, None), aux
     if spec.mlp == "rwkv_ffn":
-        return x + _stateful(
+        out = _stateful(
             lambda t, st: rwkv_lib.chanmix_apply(params["mlp"], t, st), h2,
-            mode, None if lc is None else lc["ffn"], li), None
-    return x + mlp_apply(params["mlp"], h2, cfg.mlp), None
+            mode, None if lc is None else lc["ffn"], li)
+        return ac(x + out, "batch", None, None), None
+    return ac(x + mlp_apply(params["mlp"], h2, cfg.mlp),
+              "batch", None, None), None
 
 
 def _remat(cfg: ArchConfig, mode: str) -> bool:
@@ -635,7 +686,7 @@ class Model:
     # -- embedding / frontends / head -------------------------------------
     @staticmethod
     def _embed(params, tokens):
-        return params["embed"][tokens.long()]
+        return ac(params["embed"][tokens.long()], "batch", None, None)
 
     def _embed_inputs(self, params, batch):
         """Token embeddings (B,S,d); a patch-prefix config splices
@@ -645,7 +696,8 @@ class Model:
         x = self._embed(params, batch["tokens"])
         if self.cfg.n_patches and "patch_embeds" in batch:
             P = min(self.cfg.n_patches, x.shape[1])
-            x[:, :P] = batch["patch_embeds"][:, :P].to(x.dtype)
+            x = torch.cat([batch["patch_embeds"][:, :P].to(x.dtype),
+                           x[:, P:]], dim=1)
         return x
 
     def _encode(self, params, batch, mode="train"):
@@ -659,7 +711,8 @@ class Model:
         """(..., d) hidden -> (..., V) fp32 logits (the product in the
         weights' dtype, then cast, then ``cfg.logits_soft_cap``, as the
         reference)."""
-        return _soft_cap((h @ params["lm_head"]).float(),
+        lg = ("batch",) + (None,) * (h.dim() - 2) + ("vocab",)
+        return _soft_cap(ac(h @ params["lm_head"], *lg).float(),
                          self.cfg.logits_soft_cap)
 
     def _forward(self, params, batch, mode):
@@ -706,7 +759,14 @@ class Model:
             logits = self._logits(params, hh)              # (B, c, V) fp32
             lse = torch.logsumexp(logits, dim=-1)
             lbl = torch.clamp_min(ll, 0).long()
-            lbl_logit = torch.gather(logits, -1, lbl[..., None])[..., 0]
+            if partition.is_dtensor(logits):
+                # vocab-parallel: the label's logit as a masked sum over
+                # each rank's vocab shard (gather has no such strategy)
+                V = logits.shape[-1]
+                hit = torch.arange(V, device=lbl.device) == lbl[..., None]
+                lbl_logit = torch.where(hit, logits, 0.0).sum(-1)
+            else:
+                lbl_logit = torch.gather(logits, -1, lbl[..., None])[..., 0]
             w = (ll >= 0).float()
             return (torch.sum((lse - lbl_logit) * w),
                     torch.sum(torch.square(lse) * w), torch.sum(w))
@@ -738,7 +798,8 @@ class Model:
         z, _ = _apply_layer(cfg, spec, mp["layer"], z, positions, "train")
         z = apply_norm(cfg.norm, mp["final_norm"], z, cfg.norm_eps)
         labels2 = torch.roll(labels, -1, dims=1)
-        labels2[:, -2:] = -1
+        labels2 = torch.where(torch.arange(S, device=labels.device) >= S - 2,
+                              -1, labels2)
         return self._chunked_ce(params, z, labels2, 512)[0]
 
     # -- serving ----------------------------------------------------------

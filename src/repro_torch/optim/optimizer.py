@@ -111,7 +111,7 @@ def _groups(params, *others) -> List[tuple]:
 
 
 def _decl_of(p, n) -> ParamDecl:
-    return ParamDecl(tuple(p.shape), "zeros", p.dtype)
+    return ParamDecl(tuple(p.shape), init="zeros", dtype=p.dtype)
 
 
 def _device_of(params):
@@ -131,10 +131,12 @@ class AdamW:
 
     def state_decls(self, param_decls):
         def one(d: ParamDecl, n):
-            return {"m": ParamDecl(d.shape, "zeros", self.state_dtype),
-                    "v": ParamDecl(d.shape, "zeros", self.state_dtype)}
+            return {"m": ParamDecl(d.shape, d.logical, "zeros",
+                                   self.state_dtype),
+                    "v": ParamDecl(d.shape, d.logical, "zeros",
+                                   self.state_dtype)}
         return {"per_param": _map_leaves(one, param_decls),
-                "step": ParamDecl((), "zeros", torch.int32)}
+                "step": ParamDecl((), (), "zeros", torch.int32)}
 
     def init(self, params):
         return init_params(self.state_decls(_map_leaves(_decl_of, params)),
@@ -186,22 +188,29 @@ class Adafactor:
 
     def state_decls(self, param_decls):
         def one(d: ParamDecl, n):
-            st = {"m": ParamDecl(d.shape, "zeros", torch.bfloat16)}
+            st = {"m": ParamDecl(d.shape, d.logical, "zeros",
+                                 torch.bfloat16)}
             ref = ((n,) if n else ()) + tuple(d.shape)   # the stacked shape
+            log = (("layer",) if n else ()) + tuple(d.logical)
             ax = _factor_axes(ref)
             if ax is None:
-                st["v"] = ParamDecl(d.shape, "zeros", torch.float32)
+                st["v"] = ParamDecl(d.shape, d.logical, "zeros",
+                                    torch.float32)
                 return st
             r, c = ax
             row = tuple(s for i, s in enumerate(ref) if i != c)
             col = tuple(s for i, s in enumerate(ref) if i != r)
+            row_log = tuple(a for i, a in enumerate(log) if i != c)
+            col_log = tuple(a for i, a in enumerate(log) if i != r)
             if n:         # a unit's row of vr, and of vc but at r == 0
                 row, col = row[1:], (col if r == 0 else col[1:])
-            st["vr"] = ParamDecl(row, "zeros", torch.float32)
-            st["vc"] = ParamDecl(col, "zeros", torch.float32)
+                row_log = row_log[1:]
+                col_log = col_log if r == 0 else col_log[1:]
+            st["vr"] = ParamDecl(row, row_log, "zeros", torch.float32)
+            st["vc"] = ParamDecl(col, col_log, "zeros", torch.float32)
             return st
         return {"per_param": _map_leaves(one, param_decls),
-                "step": ParamDecl((), "zeros", torch.int32)}
+                "step": ParamDecl((), (), "zeros", torch.int32)}
 
     def init(self, params):
         return init_params(self.state_decls(_map_leaves(_decl_of, params)),

@@ -1,7 +1,7 @@
 """Port: ``checkpoint/manager.py``. Twins of ``tests/test_checkpoint.py``
 (roundtrip with bf16 and scalars, compressed, GC, async, a crashed save
-ignored; not the elastic restore across device counts, which waits for
-the tooling slice), and interop with repro's manager both ways:
+ignored; the elastic restore across device counts is held in
+``tests/test_torch_partition.py``), and interop with repro's manager both ways:
 
 * repro's manager saves a smoke model's params (bf16, the MoE router
   fp32); the port's manager reads them with bytes equal, ``bridge``

@@ -20,10 +20,12 @@ reference's relative to the leaf's largest magnitude.
 Two views of the 5 updates: each update started from the reference's
 params and state before it (both optimizers), and, for AdamW, the 5
 updates chained with the port carrying its own state. The gradients are
-multiples of 1/16 in [-1/2, 1/2], so that every sum of squares in the
-global norm is exact in any order and the clip's scale is the same bits
-in both (a fp32 norm summed in another order moves the scale by up to
-~1e-6 here, and AdamW's v with its square). The bars reached are 1.9e-7
+multiples of 1/16 in [-1/2, 1/2], so that the sums of squares in the
+global norm are exact in any order until a partial sum outgrows fp32's
+24 bits (a fp32 norm summed in another order moves the scale by up to
+~1e-6 here, and AdamW's v with its square); the norm itself is held
+within ``GRAD_NORM_REL`` of the reference's, as the two group a stacked
+leaf's sum differently. The bars reached are 1.9e-7
 (AdamW) and 3.7e-7 (Adafactor: the means of its factored moments sum in
 other orders); ``BARS`` holds both at 4e-7. Adafactor's m is bf16 in
 both: a bf16 rounding of two fp32 values an ulp apart can fall on either
@@ -62,6 +64,11 @@ BARS = {"adamw": 4e-7, "adafactor": 4e-7}
 # the share of a bf16 leaf's elements whose two fp32 values round to
 # neighbouring bf16 values
 BF16_APART = 1e-3
+# the global norm's relative bar: the port sums each unit of a stacked
+# segment as a leaf of its own, the reference the stacked leaf in one
+# sum, and two groupings of an fp32 sum agree to an ulp or so, not to the
+# bit (reached: 7.3e-8 on an AVX-512 host)
+GRAD_NORM_REL = 1e-6
 
 
 @pytest.fixture(autouse=True)
@@ -209,7 +216,8 @@ def _check_optimizer(model_tree, name):
         pp, ps, pm = opt.update(bridge.load_model(g, cfg), ps, pp)
         assert int(ps["step"]) == int(s1["step"]) == k + 1
         assert float(pm["lr"]) == float(rm["lr"])
-        assert float(pm["grad_norm"]) == float(rm["grad_norm"])
+        assert float(pm["grad_norm"]) == pytest.approx(
+            float(rm["grad_norm"]), rel=GRAD_NORM_REL)
         worst = max(worst, _compare(pp, p1, "params"),
                     _compare(ps["per_param"], s1["per_param"], "state"))
     if name == "adamw":
