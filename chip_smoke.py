@@ -86,7 +86,12 @@ Phases, one line each (any failure raises and exits non-zero):
             gated_greedy_round at 100 % and ~10 % live; uncertainty_stats
             at 16 and 4,096 rows; and a k-center round (``k_center_greedy``
             at the image and text pools' shapes): the device operations it
-            launches (torch.profiler) and its wall time.
+            launches (torch.profiler) and its wall time. Last, fig4b's
+            baseline: the unfused round (``ops.greedy_round_unfused``,
+            plain torch, no launch) held against B1 at R = 1 at 50,000 x
+            512 and 2,048 x 4,096 (min-dists within ATOL, the next index
+            equal on separated rows and on a planted exact tie), both
+            timed by CUDA events (``"phase": "fused_vs_unfused"``).
             ``python3 chip_smoke.py --kernels-only`` stops after this
             phase (no result lines).
 3. picker   the block picker on the card: ``autotune_blocks(50,000, 512,
@@ -156,6 +161,16 @@ Phases, one line each (any failure raises and exits non-zero):
             keys with the lane restarted. Logs jobs and re-embed rows/s
             through jobs against inline. Launch counts zeroed before,
             read after (the ``process`` path).
+   examples  the two example twins on the card as written:
+            ``repro_torch.examples.quickstart`` (400 images over TCP, lc
+            at budget 10, label + train_eval) and
+            ``repro_torch.examples.al_image_service`` (pools of 1,200 and
+            600; six fixed strategies at budget 120, then PSHEA at 600).
+            Every query returns ``budget`` distinct keys, every accuracy
+            is finite and in [0, 1], PSHEA's pick is one of its
+            candidates, the servers compute on cuda. Launch counts zeroed
+            before, read after (the ``examples`` path): B1 and B2 must
+            have launched, the attention kernels not at all.
 7. bitwise  the text encoder (qwen3-8b widths, 4 layers, flash kernel):
             features of 64 sequences bit-identical at block sizes 96, 128
             and 512 (on the card ``block`` reaches no kernel, so this holds
@@ -234,10 +249,10 @@ Phases, one line each (any failure raises and exits non-zero):
             NCCL, 2 and 4 over gloo, every rank on cuda:0, at the
             distributed-selection example's pool (65,536 x 64, 512
             classes, budget 128) and the image path's 50,000 x 512
-            (budget 1,000); k-center unweighted and weighted. Every B1
-            round of a second k-center run held against the plain round
-            on its inputs (``CheckedRounds``) and every rank's B4 scores
-            against the plain scores; indices equal across world sizes
+            (budget cut from 1,000 to 250); k-center unweighted and
+            weighted. Every B1 round of a second k-center run held
+            against the plain round on its inputs (``CheckedRounds``) and
+            every rank's B4 scores against the plain scores; indices equal across world sizes
             and to the checked run's, top-k equal to the unsharded B4
             scores' ``stable_top_k``, the sharded scores and the seed's
             min-dists equal to the unsharded rows bit for bit, B1
@@ -750,6 +765,63 @@ def time_kcenter(dev):
                      "by_kernel": {k_: v for k_, v in per_round.items() if v},
                      "wall_s": wall, "ms_per_round": wall / budget * 1e3}
         del x
+    return out
+
+
+def check_unfused(ops, dev):
+    """fig4b's baseline on the card: ``ops.greedy_round_unfused`` (plain
+    torch: the distance, minimum, scatter and argmax as separate ops)
+    held against B1 at R = 1 (``ops.greedy_round``) on the same inputs at
+    the image pool's 50,000 x 512 and the text pool's 2,048 x 4,096: new
+    min-dists within ATOL, the next index equal on separated rows (the
+    winner ahead of its runner-up by more than 2 ATOL) and on a planted
+    exact tie (two copies of a far row: the lower index); the unfused
+    round launches no kernel, B1 one a call. Then both rounds' CUDA-event
+    medians at each shape, on one line with the seconds it all took."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(26)
+    shapes = []
+    for n, d in ((POOL, D), (TEXT_POOL, WIDE)):
+        x = torch.from_numpy((rng.standard_normal((n, d)) * (
+            0.05 / np.sqrt(d / D))).astype(np.float32)).to(dev)
+        mind = torch.full((n,), 3.4e38, device=dev)
+        mind[::97] = -1.0                          # carried-in selections
+        c = n // 2 + 1
+        sel = torch.tensor([c], dtype=torch.int32, device=dev)
+        worst = 0.0
+        for case in ("separated", "ties"):
+            xc, tie = x, None
+            if case == "ties":
+                tie = (n // 3, n - 5)
+                xc = x.clone()
+                xc[tie[1]] = xc[tie[0]] = xc[tie[0]] * 4.0
+            ops.reset_launches()
+            un, ui, us = ops.greedy_round_unfused(xc, mind, xc[c], sel)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["greedy_round"] == 0, ops.LAUNCHES
+            kn, ki, ks = ops.greedy_round(xc, mind, xc[c:c + 1], sel)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["greedy_round"] == 1, ops.LAUNCHES
+            err = float((un - kn).abs().max())
+            assert err <= ATOL, (n, d, case, err)
+            assert int(ui) == int(ki), (n, d, case, int(ui), int(ki))
+            assert abs(float(us) - float(ks)) <= ATOL, (n, d, case)
+            if tie is not None:
+                assert int(ki) == tie[0], (n, d, int(ki))
+            else:
+                top2 = torch.topk(kn, 2).values
+                assert float(top2[0] - top2[1]) > 2 * ATOL, (n, d, top2)
+            worst = max(worst, err)
+        cen = x[c:c + 1].contiguous()
+        shapes.append({
+            "shape": [n, d, 1], "max_abs_err": worst,
+            "fused_ms": median_ms(lambda: ops.greedy_round(x, mind, cen, sel)),
+            "unfused_ms": median_ms(
+                lambda: ops.greedy_round_unfused(x, mind, cen[0], sel))})
+        del x
+    out = {"tolerance_abs": ATOL, "cases": 2 * len(shapes),
+           "shapes": shapes, "seconds": time.perf_counter() - t0}
+    log("fused_vs_unfused", **out, nvidia_smi=nvidia_smi())
     return out
 
 
@@ -2200,6 +2272,54 @@ def run_sharded(base, counters):
     return total, standing
 
 
+# -------------------------------------------------------------- examples --
+def run_examples(counters):
+    """The two example twins on the card as written:
+    ``repro_torch.examples.quickstart`` (400 images over TCP, lc, budget
+    10, label + train_eval) and ``repro_torch.examples.al_image_service``
+    (pools of 1,200 and 600; random/lc/mc/es/coreset/dbal at budget 120,
+    then PSHEA at budget 600, target accuracy 0.97). Checks: every query
+    returns ``budget`` distinct keys, every accuracy is finite and in
+    [0, 1], PSHEA's pick is one of its candidates, every server computed
+    on cuda, and B1 and B2 launched (coreset, DBAL and PSHEA run them;
+    counts zeroed just before, read just after), the attention kernels
+    never (a ResNet)."""
+    from repro_torch.examples import al_image_service, quickstart
+    for reset in counters:
+        reset()                                  # the examples' path starts
+    t = time.perf_counter()
+    qs = quickstart.run(device="cuda", log=False)
+    quick_s = time.perf_counter() - t
+    img = al_image_service.run(device="cuda", log=False)
+    seconds = time.perf_counter() - t
+    launches = path_launches(counters)
+    assert qs["device"].startswith("cuda") and \
+        img["device"].startswith("cuda"), (qs["device"], img["device"])
+    assert len(set(qs["keys"])) == len(qs["keys"]) == quickstart.BUDGET
+    accs = [qs["accuracy"], img["auto"]["accuracy"]]
+    for name, res in img["results"].items():
+        assert len(set(res["keys"])) == al_image_service.BUDGET, name
+        accs.append(res["accuracy"])
+    assert all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in accs), accs
+    auto = img["auto"]
+    assert auto["strategy"] in auto["candidates"], auto
+    for name in ("greedy_round", "pairwise_min_argmin"):
+        assert launches[name] > 0, (name, launches)
+    for name in ("flash_attention", "decode_attention"):
+        assert launches[name] == 0, launches
+    log("examples", quickstart={"indices": qs["indices"],
+                                "accuracy": qs["accuracy"],
+                                "seconds": quick_s},
+        image_service={s: {"accuracy": r["accuracy"],
+                           "seconds": r["seconds"]}
+                       for s, r in img["results"].items()},
+        pshea={k: auto[k] for k in ("strategy", "accuracy", "stop_reason",
+                                     "eliminated")},
+        best_fixed=img["best_fixed"], device=img["device"],
+        launches=launches, seconds=seconds)
+    return launches
+
+
 # --------------------------------------------------------------- process --
 # the process lanes' pool: cut from 50,000 to 8,192 images to stay in the
 # run's time (every artifact build re-embeds through the children)
@@ -3109,9 +3229,12 @@ def run_al_train(counters):
 
 # ---------------------------------------------------------------- mesh --
 # (name, N, d, classes, budget): the distributed-selection example's pool
-# and the image path's 50,000 x 512 features
+# and the image path's 50,000 x 512 features. The image shape's depth is
+# cut from the image path's budget (BUDGET, 1,000 rounds) to 250 to keep
+# the run's time; MESH_CUT keeps the uncut budget, and the log prints it
 MESH_SHAPES = (("example", 65_536, 64, 512, 128),
-               ("image", 50_000, 512, 10, 1_000))
+               ("image", 50_000, 512, 10, 250))
+MESH_CUT = {"image": BUDGET}
 MESH_WORLDS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
 
 
@@ -3309,6 +3432,7 @@ def run_mesh(counters, dev):
                 "b4_max_abs_err_vs_plain": max(r["b4_err"] for r in rs)}
         assert len(set(first["kc_unweighted"].tolist())) == budget
         log("mesh", shape=name, pool=[n_all, d], classes=c, budget=budget,
+            budget_uncut=MESH_CUT.get(name, budget),
             tolerance={"b1_rel": ATOL, "b4": UNC_TOL["fp32"]},
             worlds=summary, nvidia_smi=nvidia_smi())
     # the ranks' own launches (the parent's comparison above not counted)
@@ -3618,13 +3742,15 @@ def run(tune_dir, kernels_only=False) -> int:
     us_err, us_cases = check_uncertainty_split(unc, dev)
     g_times = time_round(ops, dev)
     kcenter = time_kcenter(dev)
+    unfused = check_unfused(ops, dev)
     log("kernels", tolerance_abs=ATOL,
         greedy_round={"cases": g_cases, "max_abs_err": g_err,
                       "r_block": r_block, "timed_shape": [POOL, D, 1],
                       "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
                       "bound_by": g_by, "fold_shape": g_fold,
                       "bytes_and_ties": g_bytes, "streams": g_streams,
-                      "timed": g_times, "kcenter": kcenter},
+                      "timed": g_times, "kcenter": kcenter,
+                      "fused_vs_unfused": unfused},
         pairwise_min_argmin={"max_abs_err": a_err, "index_rows": a_rows,
                              "timed_shape": [10 * BUDGET, BUDGET, D],
                              "ms": a_ms, "plain_ms": a_plain,
@@ -3677,6 +3803,7 @@ def run(tune_dir, kernels_only=False) -> int:
     process_launches = run_process(counters)
     gc.collect()
     torch.cuda.empty_cache()
+    examples_launches = run_examples(counters)
 
     cfg = ALServiceConfig.from_yaml(TEXT_YML)
     be = text_backend(cfg)
@@ -3704,6 +3831,7 @@ def run(tune_dir, kernels_only=False) -> int:
                    "sharded": sharded_launches.get(name, 0),
                    "standing": standing_launches[name],
                    "process": process_launches[name],
+                   "examples": examples_launches[name],
                    "text": text_launches[name]}
         by_path.update({"serve_" + arch: counts_[name]
                         for arch, counts_ in serve_launches.items()})

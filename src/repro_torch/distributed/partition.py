@@ -111,6 +111,13 @@ class AxisRules:
     def batch_axes(self) -> Tuple[str, ...]:
         return self._axes_for("batch")
 
+    def batch_size(self) -> int:
+        """The product of the mesh sizes of ``batch_axes()``."""
+        n = 1
+        for a in self.batch_axes():
+            n *= self.mesh_shape[a]
+        return n
+
 
 def spec_placements(spec: tuple, mesh_axes: Sequence[str]) -> tuple:
     """A pspec tuple -> (Shard(i) | Replicate()) for each mesh dim."""

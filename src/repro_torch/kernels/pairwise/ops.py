@@ -53,6 +53,10 @@ def reset_op_stats() -> None:
             _STATS[k] = 0
 
 
+def op_stats() -> dict:
+    with _STATS_LOCK:
+        return dict(_STATS)
+
 
 @contextlib.contextmanager
 def track_ops():
@@ -264,6 +268,10 @@ def pairwise_min_and_argmin(x, c, impl: str = "auto", plan=None):
     return ref.pairwise_min_and_argmin_ref(x, c)
 
 
+def pairwise_min_dist(x, c, impl: str = "auto"):
+    return pairwise_min_and_argmin(x, c, impl)[0]
+
+
 def pairwise_argmin(x, c, impl: str = "auto"):
     return pairwise_min_and_argmin(x, c, impl)[1]
 
@@ -277,8 +285,7 @@ def pairwise_sq_dists(x, c):
 
 def sq_dist_to_center(x, center):
     _record(x, emb_reads=1, vec_streams=1)
-    diff = x.float() - center.float()[None, :]
-    return torch.sum(diff * diff, dim=-1)
+    return ref.diff_sq_dists_ref(x, center)
 
 
 # ---------------------------------------------- fused greedy selection ----
@@ -424,6 +431,21 @@ def greedy_round(x, mind, centers, sel_idx, weights=None,
     if not centers.is_floating_point():
         centers = torch.index_select(x, 0, centers.to(x.device).long())
     return ref.greedy_round_ref(x, mind, centers, sel_idx, weights)
+
+
+def greedy_round_unfused(x, mind, center, sel_idx):
+    """The pre-fusion round (distance pass, minimum pass, scatter, argmax
+    pass as separate torch ops), kept as the microbenchmark baseline of
+    the fused round. Plain torch on the tensors' device: it stands in for
+    no kernel and adds nothing to ``LAUNCHES``. ``center`` is one (d,)
+    row, ``sel_idx`` the index (or indices) to mask with -1.
+    -> (new_mind (N,) f32, next_idx () i32, next_score () f32); the
+    argmax goes to the first maximum."""
+    _record(x, emb_reads=1, vec_streams=6)
+    nm = torch.minimum(mind.float(), ref.diff_sq_dists_ref(x, center))
+    nm[torch.as_tensor(sel_idx, device=nm.device).long()] = -1.0
+    nxt = torch.argmax(nm).to(torch.int32)
+    return nm, nxt, nm[nxt]
 
 
 # Rows a tile of the gated round: powers of two up to the most the

@@ -50,6 +50,15 @@ def pairwise_sq_dists_ref(x, c):
     return torch.clamp_min(x2 + c2[None, :] - 2.0 * dot, 0.0)
 
 
+def pairwise_min_dist_ref(x, c):
+    return torch.min(pairwise_sq_dists_ref(x, c), dim=-1).values
+
+
+def pairwise_argmin_ref(x, c):
+    """Per-row argmin; ties go to the lowest center index."""
+    return torch.argmin(pairwise_sq_dists_ref(x, c), dim=-1).to(torch.int32)
+
+
 def diff_sq_dists_ref(x, center):
     """(N,) squared L2 distances to one center in the difference form."""
     diff = x.float() - center.float()[None, :]

@@ -1280,6 +1280,12 @@ class ALServer:
                     injector=self.failure_injector)
             return self._shard_runtime
 
+    def shard_executor(self) -> Optional[ShardWorkerPool]:
+        """``shard_runtime()`` under the reference server's other name
+        for it: the worker pool duck-types ``executor.map`` (default
+        phase, no recovery hook)."""
+        return self.shard_runtime()
+
     def shard_scoped(self, phase: str, on_death: Optional[Callable] = None,
                      shard_of: Optional[Callable] = None):
         """Phase-scoped executor facade for ``replica_map`` fan-outs: a

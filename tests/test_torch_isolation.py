@@ -3,6 +3,7 @@ nor anything of the repro package, the package imports and serves a CPU
 query with JAX made unimportable, and entry points default to the GPU
 (raising where there is none) unless the caller asks for the CPU."""
 import ast
+import inspect
 import os
 import pathlib
 import subprocess
@@ -12,6 +13,7 @@ import textwrap
 import pytest
 import torch
 
+from repro_torch.examples import al_image_service, quickstart
 from repro_torch.service.config import ALServiceConfig
 from repro_torch.service.server import ALServer
 
@@ -80,6 +82,12 @@ def test_device_defaults_to_cuda_and_cpu_is_explicit():
         "active_learning:\n  device: CPU\n")
     assert cfg.device == "CPU"
     assert str(ALServer(cfg).device) == "cpu"
+    for example in (quickstart, al_image_service):
+        assert example.parser().parse_args([]).device == "cuda"
+        assert example.parser().parse_args(
+            ["--device", "cpu"]).device == "cpu"
+        assert inspect.signature(
+            example.run).parameters["device"].default == "cuda"
 
 
 def test_cuda_server_raises_without_a_gpu():

@@ -251,6 +251,123 @@ def test_op_accounting_counts_pool_reads():
     assert st["hbm_bytes"] == 4 * (96 * 16 + 2 * 96)
 
 
+def _unfused_case(n, d, sel_rows, ties):
+    """A pool (squared distances O(1) at every d), carried-in min-dists
+    (some rows already selected), a center and the rows to mask. With
+    ``ties`` two rows far from the rest are exact copies (their new
+    min-dists are the same bits in both packages), so the lowest-index
+    rule alone decides the argmax."""
+    rng = np.random.default_rng(n + d + sel_rows)
+    x = (rng.normal(size=(n, d)) * (0.8 / np.sqrt(d))).astype(np.float32)
+    if ties:
+        x[n - 5] = x[n // 3] = x[n // 3] * 4.0
+    mind = np.full((n,), ref.BIG, np.float32)
+    mind[rng.choice(n // 4, 7, replace=False)] = -1.0
+    c = int(rng.integers(n // 2, n - 10))
+    sel = np.asarray([c] + list(rng.choice(np.arange(n // 4, n // 3),
+                                           sel_rows - 1, replace=False)),
+                     np.int32)
+    return x, mind, c, sel, (n // 3 if ties else None)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("sel_rows", [1, 4])
+@pytest.mark.parametrize("n,d", [(257, 16), (1_000, 64)])
+def test_greedy_round_unfused_matches_reference(rops, n, d, sel_rows, ties):
+    """The pre-fusion round op for op: new min-dists within 1e-5 of their
+    max, the next index equal (the lowest on planted ties), the score the
+    min-dist at it; plain torch, no launch counted."""
+    x, mind, c, sel, tie = _unfused_case(n, d, sel_rows, ties)
+    ops.reset_launches()
+    pn, pi, ps = ops.greedy_round_unfused(
+        torch.from_numpy(x), torch.from_numpy(mind), torch.from_numpy(x[c]),
+        torch.from_numpy(sel))
+    rn, ri, rs = rops.greedy_round_unfused(_j(x), _j(mind), _j(x[c]),
+                                           _j(sel))
+    rn = np.asarray(rn)
+    np.testing.assert_allclose(pn.numpy(), rn, rtol=0,
+                               atol=1e-5 * np.abs(rn).max())
+    assert pi.dtype == torch.int32 and pi.shape == ()
+    assert ps.dtype == torch.float32 and ps.shape == ()
+    assert int(pi) == int(ri)
+    assert float(ps) == float(pn[int(pi)])
+    np.testing.assert_allclose(float(ps), float(rs), rtol=1e-6)
+    assert (pn.numpy()[sel] == -1.0).all()
+    if tie is not None:
+        assert int(pi) == tie
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
+def test_greedy_round_unfused_takes_a_scalar_index_as_fig4b_calls_it(rops):
+    """fig4b's baseline passes the center's own index as a scalar; the
+    unfused and fused rounds then pick the same rows on the CPU."""
+    x, _, _, _, _ = _unfused_case(257, 16, 1, False)
+    xt = torch.from_numpy(x)
+    mind_u = mind_f = torch.full((257,), ref.BIG)
+    i_u = i_f = torch.tensor(3, dtype=torch.int32)
+    for _ in range(12):
+        mind_u, i_u, _ = ops.greedy_round_unfused(xt, mind_u, xt[i_u], i_u)
+        mind_f, i_f, _ = ops.greedy_round(xt, mind_f, xt[i_f][None, :],
+                                          i_f[None])
+        assert int(i_u) == int(i_f)
+    rn, ri, _ = rops.greedy_round_unfused(_j(x), _j(np.full(257, ref.BIG,
+                                                            np.float32)),
+                                          _j(x[3]), _j(np.int32(3)))
+    pn, pi, _ = ops.greedy_round_unfused(xt, torch.full((257,), ref.BIG),
+                                         xt[3], torch.tensor(3))
+    assert int(pi) == int(ri)
+    _close(pn, rn)
+
+
+@pytest.mark.parametrize("case", ["separated", "ties"])
+def test_pairwise_min_dist_and_refs_match_reference(rops, case):
+    """``pairwise_min_dist`` (the min half of one B2 pass) and the two
+    plain helpers against the reference's; argmin ties go to the lowest
+    center."""
+    from repro.kernels.pairwise import ref as rref
+    x, c = _pool(21, n=131), _pool(22, n=9)
+    if case == "ties":
+        c[6] = c[2]
+        x[:5] = c[2] + 1e-3
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    _close(ops.pairwise_min_dist(xt, ct),
+           rops.pairwise_min_dist(_j(x), _j(c), impl="ref"))
+    _close(ref.pairwise_min_dist_ref(xt, ct),
+           rref.pairwise_min_dist_ref(_j(x), _j(c)))
+    am = ref.pairwise_argmin_ref(xt, ct)
+    assert am.dtype == torch.int32
+    np.testing.assert_array_equal(am.numpy(), np.asarray(
+        rref.pairwise_argmin_ref(_j(x), _j(c))))
+    if case == "ties":
+        assert (am.numpy()[:5] == 2).all()
+
+
+def test_op_stats_match_reference_after_the_same_calls(rops):
+    """``op_stats()`` after the unfused round, the fused round,
+    ``pairwise_min_dist`` and ``pairwise_argmin`` under ``track_ops``
+    equals the reference's, and is a copy."""
+    x, mind, c, sel, _ = _unfused_case(257, 16, 1, False)
+    cs = _pool(23, n=5)
+
+    def calls(o, a):
+        o.greedy_round_unfused(a(x), a(mind), a(x[c]), a(sel))
+        o.greedy_round(a(x), a(mind), a(x[c][None, :]), a(sel))
+        o.pairwise_min_dist(a(x), a(cs))
+        o.pairwise_argmin(a(x), a(cs))
+
+    with ops.track_ops():
+        calls(ops, torch.from_numpy)
+    with rops.track_ops():
+        calls(rops, _j)
+    got = ops.op_stats()
+    assert got == rops.op_stats()
+    assert got == {"embedding_reads": 4, "vector_streams": 12,
+                   "hbm_bytes": 4 * (4 * 257 * 16 + 12 * 257),
+                   "pool_rows": 4 * 257}
+    got["pool_rows"] = -1
+    assert ops.op_stats()["pool_rows"] == 4 * 257
+
+
 @pytest.mark.parametrize("n,m", [(2_048, 256), (10_000, 1_000), (1, 1),
                                  (257, 65), (10_001, 1_001), (50_000, 1)])
 @pytest.mark.parametrize("sms", [ops.H100_SMS, 8])
@@ -357,6 +474,28 @@ def test_cuda_greedy_round_matches_plain(cuda, r, weighted):
     torch.testing.assert_close(kn, pn, rtol=0, atol=ATOL)
     assert int(ki) == int(pi)
     torch.testing.assert_close(ks, ps, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("n,d", [(5_003, 96), (2_048, 4_096)])
+def test_cuda_greedy_round_unfused_matches_b1(cuda, n, d, ties):
+    """The unfused round (plain torch on the card) against B1 at R = 1 on
+    the same inputs: min-dists within ATOL, the same next index (the
+    lowest on planted ties); B1 launched once, the unfused round never."""
+    x, mind, c, sel, tie = _unfused_case(n, d, 1, ties)
+    xt, mt = torch.from_numpy(x).to(cuda), torch.from_numpy(mind).to(cuda)
+    st = torch.from_numpy(sel).to(cuda)
+    ops.reset_launches()
+    un, ui, _ = ops.greedy_round_unfused(xt, mt, xt[c], st)
+    assert ops.LAUNCHES["greedy_round"] == 0
+    kn, ki, _ = ops.greedy_round(xt, mt, xt[c][None, :], st)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["greedy_round"] == 1
+    torch.testing.assert_close(un, kn, rtol=0, atol=ATOL)
+    assert int(ui) == int(ki)
+    if tie is not None:
+        assert int(ki) == tie
 
 
 @pytest.mark.cuda

@@ -60,6 +60,22 @@ def _rules(axes=("data", "model"), shape=(16, 16)):
     return partition.make_rules(_PortMesh(axes, shape))
 
 
+@pytest.mark.parametrize("mesh", [*MESHES, "data2x2", "model_only"])
+def test_batch_size_matches_reference(mesh):
+    """``AxisRules.batch_size``: the product of the mesh sizes of the batch
+    axes, equal to the reference's on the production meshes and on meshes
+    that hold some or none of them."""
+    pytest.importorskip("jax")
+    from repro.distributed import partition as ref_partition
+    axes, shape = {**MESHES, "data2x2": (("data", "model"), (2, 2)),
+                   "model_only": (("model",), (4,))}[mesh]
+    rules = partition.make_rules(_PortMesh(axes, shape))
+    want = ref_partition.make_rules(_RefMesh(axes, shape)).batch_size()
+    assert rules.batch_size() == want
+    assert want == int(np.prod([dict(zip(axes, shape))[a]
+                                for a in rules.batch_axes()]))
+
+
 def test_pspec_basic():
     assert _rules().pspec(("embed", "ff"), (256, 1024)) == ("data", "model")
 

@@ -272,3 +272,24 @@ def test_sharded_async_ingest_and_tiny_cache():
             roomy.query(budget=6, strategy=strategy)["keys"]
     for srv in (roomy, tiny):
         srv.close()
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_shard_executor_is_the_shard_runtime(replicas):
+    """``shard_executor`` is the back-compat alias of ``shard_runtime``:
+    the same pool at ``replicas: 2``, None at ``replicas: 1`` as the
+    reference's."""
+    srv = _mlp_server(replicas)
+    try:
+        assert srv.shard_executor() is srv.shard_runtime()
+        if replicas == 1:
+            pytest.importorskip("jax")
+            from repro.service.config import ALServiceConfig as RefConfig
+            from repro.service.server import ALServer as RefServer
+            ref = RefServer(RefConfig(replicas=1))
+            assert srv.shard_executor() is None
+            assert ref.shard_executor() is None
+        else:
+            assert srv.shard_executor() is not None
+    finally:
+        srv.close()
