@@ -41,6 +41,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.common.spans import span
 from repro_torch.configs import ArchConfig, get_config, get_smoke_config
 from repro_torch.data.synthetic import lm_pool
 from repro_torch.kernels.uncertainty import ops as unc_ops
@@ -59,15 +60,17 @@ def serve_steps(model: Model, params, cache, logits, steps: int, feed=None):
     logits, or, with ``feed`` ((steps, B) ints: teacher forcing, a replay),
     ``feed[t]``. Returns (scores (4, steps, B) fp32 = lc/mc/rc/es of every
     step's logits, fed tokens (steps, B) int32), both on the device; the
-    cache is updated in place."""
+    cache is updated in place. Each step is a ``serve.step`` span
+    (``common/spans.py``)."""
     hist, fed = [], []
     for t in range(steps):
-        tok = (torch.argmax(logits, -1).to(torch.int32) if feed is None
-               else feed[t].to(device=logits.device, dtype=torch.int32))
-        fed.append(tok)
-        logits, cache = model.decode_step(params, cache, tok[:, None])
-        # the paper's technique in the serving path: fused scores per step
-        hist.append(unc_ops.uncertainty_stats(logits))
+        with span("serve.step"):
+            tok = (torch.argmax(logits, -1).to(torch.int32) if feed is None
+                   else feed[t].to(device=logits.device, dtype=torch.int32))
+            fed.append(tok)
+            logits, cache = model.decode_step(params, cache, tok[:, None])
+            # the paper's technique in the serving path: fused scores
+            hist.append(unc_ops.uncertainty_stats(logits))
     scores = torch.stack([torch.stack([s[k] for k in unc_ops.KINDS])
                           for s in hist], 1)
     return scores, torch.stack(fed)

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.param import ParamDecl
+from repro_torch.common.spans import span
 from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed import partition
 from repro_torch.distributed.partition import ac
@@ -306,20 +307,23 @@ def moe_apply(params, x, mo: MoEConfig, norm_eps: float = 1e-6, *,
     E, C = mo.n_routed, capacity(mo, gs)
     at = (_Shards if partition.is_dtensor(x) else _Whole)(x, gs, E)
     xt = at.tokens.reshape(-1, gs, d)
-    r, topv, probs = _route(at.local(params["router"], None, None), xt, mo,
-                            routes)
+    with span("moe.route"):
+        r, topv, probs = _route(at.local(params["router"], None, None), xt,
+                                mo, routes)
+        # load-balance aux loss (Switch-style):
+        # E * sum(frac_tokens * frac_probs)
+        frac_probs, frac_tokens = map(at.mean, _balance_fracs(probs, r, mo))
+        aux = E * torch.sum(frac_probs * frac_tokens) * mo.aux_loss_alpha
 
-    # load-balance aux loss (Switch-style): E * sum(frac_tokens * frac_probs)
-    frac_probs, frac_tokens = map(at.mean, _balance_fracs(probs, r, mo))
-    aux = E * torch.sum(frac_probs * frac_tokens) * mo.aux_loss_alpha
-
-    g = torch.arange(xt.shape[0], device=x.device)[:, None, None]
-    ein = at.experts(_dispatch(xt, r, g, E, C, at.lo, at.hi),
-                     (E, G * C, d))
+    with span("moe.dispatch"):
+        g = torch.arange(xt.shape[0], device=x.device)[:, None, None]
+        ein = at.experts(_dispatch(xt, r, g, E, C, at.lo, at.hi),
+                         (E, G * C, d))
     eout = mlp_apply(params, ein, "swiglu", lead=("expert", at.lead))
-    out = _combine(at.local(eout, at.part, at.lead, None), r, topv, g, C,
-                   x.dtype, lo=at.lo if at.part else None)
-    out = at.tokens_out(out.reshape(-1, S, d), x.dtype)
+    with span("moe.combine"):
+        out = _combine(at.local(eout, at.part, at.lead, None), r, topv, g, C,
+                       x.dtype, lo=at.lo if at.part else None)
+        out = at.tokens_out(out.reshape(-1, S, d), x.dtype)
     if "shared" in params:
         out = out + mlp_apply(params["shared"], x, "swiglu")
     return out, aux

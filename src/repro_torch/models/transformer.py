@@ -110,6 +110,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.common.param import ParamDecl, init_params, with_dtype
+from repro_torch.common.spans import span
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import partition
 from repro_torch.distributed.partition import ac
@@ -526,38 +527,42 @@ def _apply_layer(cfg: ArchConfig, spec: LayerSpec, params, x, positions,
                  routes=None, enc_out=None, enc_len=None):
     """One layer -> (x, the MoE's aux loss, or None for another MLP)."""
     x = ac(x, "batch", None, None)
-    h = apply_norm(cfg.norm, params["norm1"], x, cfg.norm_eps)
-    mp = params["mixer"]
-    if spec.mixer in ("attn", "attn_local"):
-        mo = _apply_attn(cfg, mp, h, positions, mode, lc, li, cur_len, valid,
-                         local=spec.mixer == "attn_local")
-    elif spec.mixer == "mla":
-        mo = _apply_mla(cfg, mp, h, positions, mode, lc, li, cur_len, valid)
-    elif spec.mixer == "rec":
-        mo = _stateful(lambda t, st: rglru_lib.rglru_block_apply(
-            mp, t, cfg, st), h, mode, lc, li)
-    elif spec.mixer == "rwkv_att":
-        mo = _stateful(lambda t, st: rwkv_lib.timemix_apply(mp, t, cfg, st),
-                       h, mode, None if lc is None else lc["att"], li)
-    else:
-        raise ValueError(f"unknown mixer {spec.mixer!r}")
-    x = ac(x + mo, "batch", None, None)
-    if spec.cross_attn:
-        hx = apply_norm(cfg.norm, params["norm_x"], x, cfg.norm_eps)
-        x = x + _apply_cross_attn(cfg, params["cross"], hx, mode, lc, li,
-                                  enc_out, enc_len)
-    h2 = apply_norm(cfg.norm, params["norm2"], x, cfg.norm_eps)
-    if spec.mlp == "moe":
-        out, aux = moe_lib.moe_apply(params["mlp"], h2, cfg.moe,
-                                     cfg.norm_eps, routes=routes)
-        return ac(x + out, "batch", None, None), aux
-    if spec.mlp == "rwkv_ffn":
-        out = _stateful(
-            lambda t, st: rwkv_lib.chanmix_apply(params["mlp"], t, st), h2,
-            mode, None if lc is None else lc["ffn"], li)
-        return ac(x + out, "batch", None, None), None
-    return ac(x + mlp_apply(params["mlp"], h2, cfg.mlp),
-              "batch", None, None), None
+    with span("layer.mixer"):
+        h = apply_norm(cfg.norm, params["norm1"], x, cfg.norm_eps)
+        mp = params["mixer"]
+        if spec.mixer in ("attn", "attn_local"):
+            mo = _apply_attn(cfg, mp, h, positions, mode, lc, li, cur_len,
+                             valid, local=spec.mixer == "attn_local")
+        elif spec.mixer == "mla":
+            mo = _apply_mla(cfg, mp, h, positions, mode, lc, li, cur_len,
+                            valid)
+        elif spec.mixer == "rec":
+            mo = _stateful(lambda t, st: rglru_lib.rglru_block_apply(
+                mp, t, cfg, st), h, mode, lc, li)
+        elif spec.mixer == "rwkv_att":
+            mo = _stateful(
+                lambda t, st: rwkv_lib.timemix_apply(mp, t, cfg, st), h,
+                mode, None if lc is None else lc["att"], li)
+        else:
+            raise ValueError(f"unknown mixer {spec.mixer!r}")
+        x = ac(x + mo, "batch", None, None)
+        if spec.cross_attn:
+            hx = apply_norm(cfg.norm, params["norm_x"], x, cfg.norm_eps)
+            x = x + _apply_cross_attn(cfg, params["cross"], hx, mode, lc, li,
+                                      enc_out, enc_len)
+    with span("layer.ffn"):
+        h2 = apply_norm(cfg.norm, params["norm2"], x, cfg.norm_eps)
+        if spec.mlp == "moe":
+            out, aux = moe_lib.moe_apply(params["mlp"], h2, cfg.moe,
+                                         cfg.norm_eps, routes=routes)
+            return ac(x + out, "batch", None, None), aux
+        if spec.mlp == "rwkv_ffn":
+            out = _stateful(
+                lambda t, st: rwkv_lib.chanmix_apply(params["mlp"], t, st),
+                h2, mode, None if lc is None else lc["ffn"], li)
+            return ac(x + out, "batch", None, None), None
+        return ac(x + mlp_apply(params["mlp"], h2, cfg.mlp),
+                  "batch", None, None), None
 
 
 def _remat(cfg: ArchConfig, mode: str) -> bool:
@@ -809,22 +814,24 @@ class Model:
         ``batch["frames"]`` (B, T, d), T <= n_enc_frames, for an enc-dec
         config and optionally ``batch["patch_embeds"]`` for a patch-prefix
         one; returns (cache, last-position fp32 logits (B,V))."""
-        x = self._embed_inputs(params, batch)
-        B, S, _ = x.shape
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        enc_out = self._encode(params, batch)
-        if enc_out is not None:
-            T = enc_out.shape[1]
-            if T > self.cfg.n_enc_frames:
-                raise ValueError(f"{T} frames exceed the cache's "
-                                 f"n_enc_frames {self.cfg.n_enc_frames}")
-            cache["enc_len"] = torch.full((), T, dtype=torch.int32,
-                                          device=x.device)
-        h, _ = apply_backbone(self.cfg, params, x, positions, "prefill",
-                              cache=cache, routes=self.routes,
-                              enc_out=enc_out)
-        cache["len"] = torch.full((), S, dtype=torch.int32, device=x.device)
-        return cache, self._logits(params, h[:, -1])
+        with span("model.prefill"):
+            x = self._embed_inputs(params, batch)
+            B, S, _ = x.shape
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+            enc_out = self._encode(params, batch)
+            if enc_out is not None:
+                T = enc_out.shape[1]
+                if T > self.cfg.n_enc_frames:
+                    raise ValueError(f"{T} frames exceed the cache's "
+                                     f"n_enc_frames {self.cfg.n_enc_frames}")
+                cache["enc_len"] = torch.full((), T, dtype=torch.int32,
+                                              device=x.device)
+            h, _ = apply_backbone(self.cfg, params, x, positions, "prefill",
+                                  cache=cache, routes=self.routes,
+                                  enc_out=enc_out)
+            cache["len"] = torch.full((), S, dtype=torch.int32,
+                                      device=x.device)
+            return cache, self._logits(params, h[:, -1])
 
     @torch.inference_mode()
     def decode_step(self, params, cache, token):
