@@ -1,12 +1,14 @@
 """Spans at the layer boundaries of the scoring path, on the profiler's clock.
 
 ``span(name)`` is a context manager around one part of the path
-(``model.prefill``, ``serve.step``, ``layer.mixer``, ``layer.ffn``,
-``moe.route``, ``moe.dispatch``, ``moe.combine``). It records only while
-a ``torch.profiler`` profile records, read from the flag that torch's
-profiler sets for the whole process on start and clears on stop; there
-is no other switch. Off, it returns one shared object whose enter and
-exit do nothing: no clock read, no allocation.
+(``model.prefill``, ``serve.step``, ``decode.graph`` (a step's body
+replayed from CUDA graphs, ``models/decode_graphs.py``),
+``layer.mixer``, ``layer.ffn``, ``moe.route``, ``moe.dispatch``,
+``moe.combine``). It records only while a ``torch.profiler`` profile
+records, read from the flag that torch's profiler sets for the whole
+process on start and clears on stop; there is no other switch. Off, it
+returns one shared object whose enter and exit do nothing: no clock
+read, no allocation.
 
 On, a span keeps a ``Record``: its name, start and end from
 ``time.time_ns()`` (the clock of the profiler's host events, so a

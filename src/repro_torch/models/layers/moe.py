@@ -164,19 +164,21 @@ def slot_table(r: Routes, n_routed: int, C: int) -> torch.Tensor:
     return table[:, :n_routed * C].reshape(G, n_routed, C)
 
 
-def _route(router, xt, mo: MoEConfig, routes: Optional[RouteTape]):
-    """(G, gs, d) tokens -> (routes, normalised top-k weights, router
-    probabilities)."""
+def own_routes(router, xt, mo: MoEConfig):
+    """(G, gs, d) tokens -> (the router's own routes, its probabilities
+    (G, gs, E) fp32)."""
     logits = xt.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     C = capacity(mo, xt.shape[1])
     r = top_k(probs, mo.top_k)[1]
-    r = Routes(r, route(r, mo.n_routed, C))
-    if routes is not None:
-        r = routes.route(r)
+    return Routes(r, route(r, mo.n_routed, C)), probs
+
+
+def route_weights(probs, r: Routes):
+    """The combine weights: each choice's router probability, normalised
+    over the token's top-k."""
     topv = probs.gather(2, r.topi)
-    topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
-    return r, topv, probs
+    return topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
 
 
 def _balance_fracs(probs, r: Routes, mo: MoEConfig):
@@ -293,40 +295,78 @@ class _Shards:
         return ac(out, "batch", None, None).to(dtype)
 
 
+class MoECall:
+    """One ``moe_apply`` call over x (B,S,d) in its parts: ``route`` (the
+    router's own routes), ``experts`` (dispatch and the experts'
+    SwiGLU), ``mix`` (combine and the shared experts). ``moe_apply`` runs
+    them with the routes seam between the first two; a replayed decode
+    step (``models/decode_graphs.py``) captures each part in a graph of
+    its own."""
+
+    def __init__(self, params, x, mo: MoEConfig):
+        B, S, d = x.shape
+        T = B * S
+        gs = min(mo.group_size, T)
+        if T % gs:
+            raise ValueError(f"tokens {T} not divisible by group {gs}")
+        self.params, self.x, self.mo = params, x, mo
+        self.E, self.C, self.S = mo.n_routed, capacity(mo, gs), S
+        self.G = T // gs                # the groups of all ranks
+        self.at = (_Shards if partition.is_dtensor(x) else _Whole)(
+            x, gs, self.E)
+        self.xt = self.at.tokens.reshape(-1, gs, d)
+
+    def route(self) -> Tuple[Routes, torch.Tensor]:
+        return own_routes(self.at.local(self.params["router"], None, None),
+                          self.xt, self.mo)
+
+    def aux(self, probs, r: Routes):
+        """The load-balance aux loss (Switch-style): E * sum(frac_tokens *
+        frac_probs)."""
+        frac_probs, frac_tokens = map(self.at.mean,
+                                      _balance_fracs(probs, r, self.mo))
+        return self.E * torch.sum(frac_probs * frac_tokens) * \
+            self.mo.aux_loss_alpha
+
+    def experts(self, r: Routes):
+        """-> (the group indices (G, 1, 1), the experts' outputs (E',
+        G*C, d))."""
+        at, xt, E, C = self.at, self.xt, self.E, self.C
+        with span("moe.dispatch"):
+            g = torch.arange(xt.shape[0], device=xt.device)[:, None, None]
+            ein = at.experts(_dispatch(xt, r, g, E, C, at.lo, at.hi),
+                             (E, self.G * C, xt.shape[2]))
+        return g, mlp_apply(self.params, ein, "swiglu",
+                            lead=("expert", at.lead))
+
+    def mix(self, eout, r: Routes, topv, g):
+        """-> out (B,S,d) in x.dtype."""
+        at, x = self.at, self.x
+        with span("moe.combine"):
+            out = _combine(at.local(eout, at.part, at.lead, None), r, topv,
+                           g, self.C, x.dtype,
+                           lo=at.lo if at.part else None)
+            out = at.tokens_out(out.reshape(-1, self.S, x.shape[2]),
+                                x.dtype)
+        if "shared" in self.params:
+            out = out + mlp_apply(self.params["shared"], x, "swiglu")
+        return out
+
+
 def moe_apply(params, x, mo: MoEConfig, norm_eps: float = 1e-6, *,
               routes: Optional[RouteTape] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (out (B,S,d) in x.dtype, aux loss, a 0-d fp32). On
     DTensors the same body runs between ``_Shards``' edges."""
-    B, S, d = x.shape
-    T = B * S
-    gs = min(mo.group_size, T)
-    G = T // gs
-    if G * gs != T:
-        raise ValueError(f"tokens {T} not divisible by group {gs}")
-    E, C = mo.n_routed, capacity(mo, gs)
-    at = (_Shards if partition.is_dtensor(x) else _Whole)(x, gs, E)
-    xt = at.tokens.reshape(-1, gs, d)
+    call = MoECall(params, x, mo)
     with span("moe.route"):
-        r, topv, probs = _route(at.local(params["router"], None, None), xt,
-                                mo, routes)
-        # load-balance aux loss (Switch-style):
-        # E * sum(frac_tokens * frac_probs)
-        frac_probs, frac_tokens = map(at.mean, _balance_fracs(probs, r, mo))
-        aux = E * torch.sum(frac_probs * frac_tokens) * mo.aux_loss_alpha
-
-    with span("moe.dispatch"):
-        g = torch.arange(xt.shape[0], device=x.device)[:, None, None]
-        ein = at.experts(_dispatch(xt, r, g, E, C, at.lo, at.hi),
-                         (E, G * C, d))
-    eout = mlp_apply(params, ein, "swiglu", lead=("expert", at.lead))
-    with span("moe.combine"):
-        out = _combine(at.local(eout, at.part, at.lead, None), r, topv, g, C,
-                       x.dtype, lo=at.lo if at.part else None)
-        out = at.tokens_out(out.reshape(-1, S, d), x.dtype)
-    if "shared" in params:
-        out = out + mlp_apply(params["shared"], x, "swiglu")
-    return out, aux
+        r, probs = call.route()
+        if routes is not None:
+            r = routes.route(r)
+        topv = route_weights(probs, r)
+        aux = call.aux(probs, r)
+    g, eout = call.experts(r)
+    return call.mix(eout, r, topv, g), aux
 
 
 def router_entropy(params, x, mo: MoEConfig):

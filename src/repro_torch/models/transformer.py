@@ -332,6 +332,34 @@ def _decode_attend(cfg: ArchConfig, q, k_cache, v_cache, valid):
     return partition.heads_local(attend, q, k_cache, v_cache, valid)
 
 
+def _qkv(cfg: ArchConfig, params, x, positions):
+    """q (B,S,H,hd), k, v (B,S,KH,hd) of x, rope on q and k."""
+    q, k, v = attn_lib.project_qkv(params, x, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.hd, cfg.qk_norm, cfg.norm_eps)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _write_step(cfg: ArchConfig, lc, li: int, k, v, cur_len, local=False):
+    """A decode step's K/V (B,1,KH,hd) written in place at ``cur_len``
+    into layer ``li`` of the stacked cache ``lc`` (local attention: ring
+    slot ``cur_len % W``, with the position + 1 in ``pos``). Returns the
+    layer's (B, Sc, KH*hd) K and V."""
+    B = k.shape[0]
+    kc, vc = lc["k"][li], lc["v"][li]
+    at = (torch.remainder(cur_len, kc.shape[1]) if local else cur_len)
+    at = partition.to_local(at.reshape(1).long())
+    for buf, new in ((kc, k), (vc, v)):
+        partition.write_local(
+            lambda b, s: b.index_copy_(1, at, s.to(b.dtype)), buf,
+            new.reshape(B, 1, cfg.n_kv_heads * cfg.hd), "batch", None, "qkv")
+    if local:
+        partition.write_local(
+            lambda b, s: b.index_copy_(0, at, s.to(b.dtype)), lc["pos"][li],
+            (cur_len + 1).reshape(1), None)
+    return kc, vc
+
+
 def _apply_attn(cfg: ArchConfig, params, x, positions, mode, lc=None,
                 li: int = 0, cur_len=None, valid=None, *, local=False):
     """The ``attn`` and ``attn_local`` mixers. ``lc`` is the segment's
@@ -344,24 +372,11 @@ def _apply_attn(cfg: ArchConfig, params, x, positions, mode, lc=None,
     B, S, _ = x.shape
     KH, hd = cfg.n_kv_heads, cfg.hd
     window = cfg.griffin.window if local else None
-    q, k, v = attn_lib.project_qkv(params, x, cfg.n_heads, KH, hd,
-                                   cfg.qk_norm, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(cfg, params, x, positions)
     if mode == "decode":
-        kc, vc = lc["k"][li], lc["v"][li]               # (B, Sc, KH*hd)
-        Sc = kc.shape[1]
-        at = (torch.remainder(cur_len, Sc) if local else cur_len)
-        at = partition.to_local(at.reshape(1).long())
-        for buf, new in ((kc, k), (vc, v)):
-            partition.write_local(
-                lambda b, s: b.index_copy_(1, at, s.to(b.dtype)), buf,
-                new.reshape(B, 1, KH * hd), "batch", None, "qkv")
+        kc, vc = _write_step(cfg, lc, li, k, v, cur_len, local)
         if local:
             pos = lc["pos"][li]                         # position + 1
-            partition.write_local(
-                lambda b, s: b.index_copy_(0, at, s.to(b.dtype)), pos,
-                (cur_len + 1).reshape(1), None)
             o = partition.heads_local(
                 lambda q, kc, vc, pos, cur: attn_lib.decode_attention_pos(
                     q, kc, vc, pos - 1, cur, window),
@@ -662,9 +677,12 @@ class Model:
     only)."""
 
     def __init__(self, cfg: ArchConfig, *, routes=None):
+        from repro_torch.models import decode_graphs   # imports this
         require_ported(cfg)
         self.cfg = cfg
         self.routes = routes
+        self._graphs = (decode_graphs.DecodeGraphs()
+                        if decode_graphs.graphable(cfg) else None)
 
     # -- declarations --------------------------------------------------
     def param_decls(self):
@@ -836,7 +854,15 @@ class Model:
     @torch.inference_mode()
     def decode_step(self, params, cache, token):
         """One serving step. token: (B,1) int. Returns (fp32 logits (B,V),
-        cache)."""
+        cache). With the token on a CUDA device, a stack of global
+        attention and MLP or MoE layers replays the step from CUDA graphs
+        (``models/decode_graphs.py``), bit for bit this eager step."""
+        if self._graphs is not None and type(token) is torch.Tensor and \
+                token.is_cuda:
+            return self._graphs.step(self, params, cache, token)
+        return self._decode_eager(params, cache, token)
+
+    def _decode_eager(self, params, cache, token):
         cur_len = cache["len"]
         x = self._embed(params, token)
         B = x.shape[0]
