@@ -1,8 +1,33 @@
-"""One module a ``model_type`` of the configuration files: ``port_config
-(conf)`` turns a file into the port's ``ArchConfig`` as the file states
-it, with the kernels on (``attention_impl="pallas"``), and refuses what
-the port cannot run as stated. ``decoder_fields`` holds what the
-decoder-only stacks share."""
+"""One module a ``model_type`` of the configuration files, the one place
+that holds what is particular to an architecture. The harness finds it
+by the configuration's ``model_type`` (``harness.Layout.arch``), so a new
+architecture comes as new files: this module, and where no reference
+here computes it, its plain reference under ``bench/reference/``. It
+declares:
+
+- ``port_config(conf)``: the configuration file as the port's
+  ``ArchConfig``, as the file states it, with the kernels on
+  (``attention_impl="pallas"``); it refuses what the port cannot run as
+  stated;
+- ``REFERENCE``: the name of its plain float32 reference,
+  ``bench/reference/<REFERENCE>.py``, which has ``forward(conf, params,
+  tokens, prompt_len, *, precision, routing)`` and ``Routing`` (for a
+  MoE, ``capacity`` and ``slots`` too, which the route faults use), and
+  imports nothing of the port;
+- ``batch_work(conf, traffic)``: the work of one batch, counted from the
+  file's published shapes whatever implements them: ``tokens``,
+  ``model_flops()`` and the least time of each kernel the cell's path
+  runs (``flash_bound_s()``, ``decode_attn_bound_s()``,
+  ``unc_bound_s()``), which the metric readers take;
+- ``SPREAD_LEAVES``: the names of the weights that make the attention's
+  queries and keys, which carry sqrt(``qk_logit_std``) (``weights.make``);
+- ``KERNEL_CHECKS``: the kernel numbers its path can give
+  (``compare.kernels``: ``flash`` where the prefill calls B3,
+  ``decode_attn`` where each step calls B6); a cell's limits file names
+  them with the numbers every cell has, and the attention tape keeps
+  what those need.
+
+``decoder_fields`` holds what the decoder-only stacks share."""
 from __future__ import annotations
 
 

@@ -4,6 +4,11 @@ from __future__ import annotations
 from repro_torch.configs.base import ArchConfig
 
 from bench.archs import decoder_fields
+from bench.work import batch_work  # noqa: F401  (the GQA / MHA count)
+
+REFERENCE = "transformer"
+SPREAD_LEAVES = ("w_q", "w_k")
+KERNEL_CHECKS = ("flash", "decode_attn")
 
 
 def port_config(conf: dict) -> ArchConfig:

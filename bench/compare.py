@@ -33,12 +33,13 @@ checked by itself:
   the port's choices.
 
 Two more hold the attention kernels to plain float32 attention over
-the inputs each was handed in the sampled batch, at one layer drawn from
-the seed (``tape.AttentionTape``), since a tile of keys dropped among
-32,768 barely moves the last logits: ``flash`` (B3, the prefill's, at a
-sample of query positions) and ``decode_attn`` (B6, every step's), each
-the worst row's RMS error over the RMS of the plain output, over heads
-and head dims.
+the inputs each was handed in the sampled batch, at its scale, at one
+layer drawn from the seed (``tape.AttentionTape``), since a tile of keys
+dropped among 32,768 barely moves the last logits: ``flash`` (B3, the
+prefill's, at a sample of query positions) and ``decode_attn`` (B6,
+every step's), each the worst row's RMS error over the RMS of the plain
+output, over heads and head dims. An architecture declares which of the
+two its path has (``archs/<model_type>.py`` ``KERNEL_CHECKS``).
 
 A cell's limits file names the numbers it compares.
 """
@@ -90,28 +91,36 @@ def _row_error(out, ref):
 
 
 def kernels(rec, precision: str = "fp32") -> dict:
-    """``flash`` and ``decode_attn`` of a ``tape.Record``: the kernels'
-    outputs against plain attention in float32 over the same inputs.
-    ``precision="fp8"``: the control's instead, plain attention with
-    float8 operands in the kernels' place."""
+    """The kernel numbers of a ``tape.Record`` (None: none): each kernel's
+    output against plain attention in float32 over the same inputs at
+    the call's scale. ``precision="fp8"``: the control's instead, plain
+    attention with float8 operands in the kernels' place."""
     from bench.reference import transformer as reference
+    if rec is None:
+        return {}
     exact = reference.Products()
     low = reference.Products(precision)
-    S = rec.prompt_len
-    k, v = rec.k[:, :S], rec.v[:, :S]
-    ref = reference.attend(exact, rec.q, rec.pos, k, v)
-    got = (rec.out if precision == "fp32"
-           else reference.attend(low, rec.q, rec.pos, k, v))
-    out = {"flash": _row_error(got, ref)}
-    worst = 0.0
-    for q, o, valid in rec.steps:
-        n = int(valid)
-        pos = torch.tensor([n - 1], device=q.device)
-        ref = reference.attend(exact, q, pos, rec.k[:, :n], rec.v[:, :n])
-        got = (o if precision == "fp32"
-               else reference.attend(low, q, pos, rec.k[:, :n], rec.v[:, :n]))
-        worst = max(worst, _row_error(got, ref))
-    out["decode_attn"] = worst
+
+    def error(out, q, pos, k, v, scale):
+        ref = reference.attend(exact, q, pos, k, v, scale=scale)
+        got = (out if precision == "fp32"
+               else reference.attend(low, q, pos, k, v, scale=scale))
+        return _row_error(got, ref)
+
+    out = {}
+    f = rec.flash
+    if f is not None:
+        out["flash"] = error(f.out, f.q, f.pos, f.k.to(f.q.device),
+                             f.v.to(f.q.device), f.scale)
+    d = rec.decode
+    if d is not None:
+        worst = 0.0
+        for q, o, valid, scale in d.steps:
+            n = int(valid)
+            pos = torch.tensor([n - 1], device=q.device)
+            worst = max(worst, error(o, q, pos, d.k[:, :n], d.v[:, :n],
+                                     scale))
+        out["decode_attn"] = worst
     return out
 
 

@@ -6,11 +6,12 @@ limits: the program's and the control's, over many seeds, in one process.
 
 For each seed this sets the cell up as a run does (the weights and the
 documents from the seed), runs one batch of the window through the timed
-path at the cell's own sizes, and compares it with the float32 reference
-(``compare.readings``): the program's reading. With ``--control`` it also
-reads the control: the reference put in the program's place and computed
-one precision below the configuration's bfloat16, every product's
-operands in float8 e4m3 (``reference.transformer.Products``), scored with
+path at the cell's own sizes, and compares it with the architecture's
+float32 reference (``compare.readings``): the program's reading. With
+``--control`` it also reads the control: the reference put in the
+program's place and computed one precision below the configuration's
+bfloat16, every product's operands in float8 e4m3 (``precision="fp8"``;
+``reference.transformer.Products``), scored with
 the plain scores one precision below the scoring kernel's float32, in
 bfloat16, and plain attention with float8 operands in the attention
 kernels' place. With ``--faults`` it reads each fault of
@@ -34,25 +35,26 @@ for p in (ROOT / "src", ROOT):
 
 
 def _batch(sweep, prompts, fed, sync):
-    """One batch through the timed path: (logits (B, 1 + steps, V'),
+    """One batch through the timed path: (logits (B, 1 + steps, V') on
+    the host, so that the runs of a seed do not add up on the card,
     scores, routes, one layer's attention)."""
     import torch
     logits, steps, scores = sweep.run_batch(prompts, fed, sync)
     sync()
-    return (torch.stack([logits] + list(steps), 1), scores, sweep.routes(),
-            sweep.attn)
+    return (torch.stack([logits] + list(steps), 1).cpu(), scores,
+            sweep.routes(), sweep.attn)
 
 
 def readings(layout, workload: str, seed: int, control: bool,
              faults: bool = False, device="cuda", model: bool = True) -> dict:
     import torch
     from bench import compare, faults as faults_lib, harness
-    from bench.reference import transformer as reference
     from bench.reference.scores import KINDS, scores as plain_scores
 
     cell = layout.cell(workload)
     t0 = time.perf_counter()
     sweep = harness.Sweep(layout, cell, seed, device)
+    reference = sweep.arch.reference
     t = sweep.traffic
     toks, prompts, fed = sweep.inputs(0)
 
@@ -97,7 +99,8 @@ def readings(layout, workload: str, seed: int, control: bool,
             continue
         t2 = time.perf_counter()
         ref, routing = ref_following(routes)
-        out[name].update(compare.readings(port, scores, ref, routing))
+        out[name].update(compare.readings(port.to(ref.device), scores,
+                                          ref, routing))
         if routing is not None:
             out[name + "_flips"] = routing.flips
         sync()
@@ -112,11 +115,11 @@ def readings(layout, workload: str, seed: int, control: bool,
         return out
     if faults and routes is not None:
         args = (t.scored_steps, sweep.conf["n_routed_experts"],
-                sweep.conf["assumed"]["capacity_factor"])
+                sweep.conf["assumed"]["capacity_factor"], reference)
         for plant in (faults_lib.wrong_expert, faults_lib.wrong_slot):
             ref, routing = ref_following(plant(routes, *args))
-            out[plant.__name__] = compare.readings(port, scores, ref,
-                                                   routing)
+            out[plant.__name__] = compare.readings(port.to(ref.device),
+                                                   scores, ref, routing)
             out[plant.__name__].update(compare.kernels(attn))
     if control:
         t2 = time.perf_counter()

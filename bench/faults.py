@@ -21,23 +21,44 @@ that undoes it.
   current token's own key with it.
 
 For a MoE, ``wrong_expert`` and ``wrong_slot`` plant wrong choices in
-routes the port recorded, for the reference to follow.
+routes the port recorded, for the reference to follow; the capacity and
+the slot rule are those of the architecture's reference (``ref``).
 """
 from __future__ import annotations
 
 import torch
 
-from bench.reference import transformer as reference
-
 TILE = 128      # keys: the decode kernel's split and the flash kernel's tile
 
 
-def _clone(tree):
+def _leaves(tree) -> list:
     if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
+        return [x for v in tree.values() for x in _leaves(v)]
     if isinstance(tree, list):
-        return [_clone(v) for v in tree]
-    return tree.clone()
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _shell(tree):
+    """``tree``'s containers copied, holding the same leaves."""
+    if isinstance(tree, dict):
+        return {k: _shell(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_shell(v) for v in tree]
+    return tree
+
+
+def _rebind(tree, shell):
+    """``tree``'s containers made to hold ``shell``'s entries again."""
+    items = shell.items() if isinstance(shell, dict) else enumerate(shell)
+    if isinstance(tree, dict):
+        for k in set(tree) - set(shell):
+            del tree[k]
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            _rebind(tree[k], v)
+        else:
+            tree[k] = v
 
 
 class _Wrap:
@@ -61,8 +82,21 @@ def _wrap_steps(sweep, step):
 
 
 def state_unchanged(sweep):
+    # the cache is saved on the host, where a copy of it fits beside the
+    # batch's, and written back after the step: its writes undone
+    host = []
+
     def step(real, params, cache, token):
-        logits, _ = real.decode_step(params, _clone(cache), token)
+        shell, leaves = _shell(cache), _leaves(cache)
+        if not host:
+            host.extend(torch.empty(t.shape, dtype=t.dtype,
+                                    pin_memory=t.is_cuda) for t in leaves)
+        for h, t in zip(host, leaves):
+            h.copy_(t)
+        logits, _ = real.decode_step(params, cache, token)
+        for h, t in zip(host, leaves):
+            t.copy_(h)
+        _rebind(cache, shell)
         return logits, cache
     return _wrap_steps(sweep, step)
 
@@ -168,7 +202,8 @@ def _planted_call(routes, steps: int) -> int:
     return len(routes) // (1 + steps) // 2
 
 
-def wrong_expert(routes, steps: int, experts: int, capacity_factor: float):
+def wrong_expert(routes, steps: int, experts: int, capacity_factor: float,
+                 ref):
     """``routes`` with one token in each dispatch group of the call moving
     its first choice to an expert it did not choose (half the experts
     along), the groups' slots then given by the dispatch rule, so only
@@ -178,7 +213,7 @@ def wrong_expert(routes, steps: int, experts: int, capacity_factor: float):
     out = [(i.clone(), s.clone()) for i, s in routes]
     idx, slot = out[_planted_call(routes, steps)]
     G, g, k = idx.shape
-    C = reference.capacity(g, k, experts, capacity_factor)
+    C = ref.capacity(g, k, experts, capacity_factor)
     for grp in range(G):
         tok = g // 2
         chosen = set(idx[grp, tok].tolist())
@@ -188,19 +223,19 @@ def wrong_expert(routes, steps: int, experts: int, capacity_factor: float):
             if cand not in chosen:
                 break
         idx[grp, tok, 0] = cand
-        slot[grp] = reference.slots(idx[grp].long(), experts,
-                                    C).to(slot.dtype)
+        slot[grp] = ref.slots(idx[grp].long(), experts, C).to(slot.dtype)
     return out
 
 
-def wrong_slot(routes, steps: int, experts: int, capacity_factor: float):
+def wrong_slot(routes, steps: int, experts: int, capacity_factor: float,
+               ref):
     """``routes`` with the slots of two tokens that one expert took, in
     the same group and rank, exchanged: each choice in the other's place
     in the expert's buffer."""
     out = [(i.clone(), s.clone()) for i, s in routes]
     idx, slot = out[_planted_call(routes, steps)]
     g, k = idx.shape[1], idx.shape[2]
-    C = reference.capacity(g, k, experts, capacity_factor)
+    C = ref.capacity(g, k, experts, capacity_factor)
     e0 = idx[0, :, 0]
     for e in e0.unique().tolist():
         rows = ((e0 == e) & (slot[0, :, 0] < C)).nonzero()[:, 0]

@@ -19,43 +19,64 @@ one's completion.
 The check: one batch of the window, drawn from the seed (reservoir
 sampling, so any batch is as likely), keeps its prefill logits, every
 step's logits and scores, for a MoE the routes its router chose, and one
-layer's attention calls (``tape.AttentionTape``); once the window has
-closed and the peak memory is read, the cache is freed and
-``reference.transformer.forward`` runs over the batch's tokens in
-float32 (``compare.readings``), and plain attention over the kernels'
-own inputs (``compare.kernels``). Every batch's scores must also be
-finite.
+layer's attention calls, as far as the cell's kernel numbers need them
+(``tape.AttentionTape``); once the window has closed and the peak memory
+is read, the cache is freed and the architecture's plain reference runs
+over the batch's tokens in float32 (``compare.readings``), and plain
+attention over the kernels' own inputs (``compare.kernels``). Every
+batch's scores must also be finite.
+
+What is particular to an architecture comes from its module,
+``bench/archs/<model_type>.py``, found by the configuration's
+``model_type`` (``Layout.arch``; the contract is in ``bench/archs``'s
+docstring): the port's configuration (``port_config``), the plain
+reference (``REFERENCE``, a module under ``bench/reference/``), the work
+count the metric readers take (``batch_work``), the weights that carry
+the cell's logit spread (``SPREAD_LEAVES``) and the kernel numbers its
+path can give (``KERNEL_CHECKS``). So a new architecture is new files
+and entries, and no file here changes.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib.util
 import json
+import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from bench import compare, trace as trace_lib, weights
 from bench.tape import AttentionTape
-from bench.reference import transformer as reference
 from bench.traffic import Documents, ScoreSweep, seed_entropy
-from bench.work import batch_work
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+
+
+@dataclasses.dataclass
+class Arch:
+    """What one ``model_type`` brings (``bench/archs/<model_type>.py``):
+    ``reference`` is the module its ``REFERENCE`` names."""
+    port_config: Callable[[dict], object]
+    reference: object
+    batch_work: Callable[[dict, ScoreSweep], object]
+    spread_leaves: Tuple[str, ...]
+    kernel_checks: Tuple[str, ...]
 
 
 class Layout:
     """The benchmark's files under ``root`` (a checkout, or a copy of its
     layout): ``BENCHMARK.json`` and ``bench/{configs,traffic,metrics,
-    limits,archs}``."""
+    limits,archs,reference}``."""
 
     def __init__(self, root):
         self.root = Path(root)
         self.bench = self.root / "bench"
         self.spec = json.loads((self.root / "BENCHMARK.json").read_text())
+        self._archs: Dict[str, Arch] = {}
 
     def cell(self, name: str) -> dict:
         for cell in self.spec["workloads"]:
@@ -95,11 +116,23 @@ class Layout:
         if spec is None or not path.exists():
             raise FileNotFoundError(f"no {kind} module {path}")
         mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod      # as an import would (dataclasses)
         spec.loader.exec_module(mod)
         return mod
 
-    def port_config(self, conf: dict):
-        return self._module("archs", conf["model_type"]).port_config(conf)
+    def arch(self, conf: dict) -> Arch:
+        """The architecture of ``conf``, by its ``model_type``, loaded once
+        a layout."""
+        name = conf["model_type"]
+        if name not in self._archs:
+            mod = self._module("archs", name)
+            self._archs[name] = Arch(
+                port_config=mod.port_config,
+                reference=self._module("reference", mod.REFERENCE),
+                batch_work=mod.batch_work,
+                spread_leaves=tuple(mod.SPREAD_LEAVES),
+                kernel_checks=tuple(mod.KERNEL_CHECKS))
+        return self._archs[name]
 
     def metrics(self, cell: str, trace: bool) -> List[dict]:
         """The cell's metrics for the run's mode: end-to-end with tracing
@@ -125,7 +158,7 @@ class Context:
     """What a metric reader reads."""
     conf: dict
     traffic: ScoreSweep
-    work: object                      # work.BatchWork of one batch
+    work: object                      # the arch's batch_work of one batch
     setup_s: float
     window_s: float
     batches: List[BatchTimes]
@@ -174,8 +207,9 @@ class Sweep:
         self.serve_steps = serve.serve_steps
         self.device = torch.device(device)
         self.conf = layout.config(cell["config"])
+        self.arch = layout.arch(self.conf)
         self.traffic = ScoreSweep.from_file(layout.traffic(cell["traffic"]))
-        cfg = layout.port_config(self.conf)
+        cfg = self.arch.port_config(self.conf)
         # the port's own seam: in a batch the check may read, it records
         # each MoE call's routes, which the reference then follows
         if cfg.moe is not None and max(cfg.moe.n_routed,
@@ -187,11 +221,14 @@ class Sweep:
         self.docs = Documents(self.traffic, self.conf["vocab_size"], seed)
         self.params = weights.make(self.model.param_decls(),
                                    self.conf["vocab_size"], seed, self.device,
-                                   layout.qk_logit_std(cell["name"]))
+                                   layout.qk_logit_std(cell["name"]),
+                                   self.arch.spread_leaves)
         t = self.traffic
         self.cache = self.model.init_cache(t.batch, t.positions, self.device)
-        self.tape = AttentionTape(self.conf["num_hidden_layers"], t.batch,
-                                  t.prompt_len, seed, self.device)
+        limits = layout.limits(cell["name"])
+        self.tape = AttentionTape(
+            self.conf["num_hidden_layers"], t.batch, t.prompt_len, seed,
+            self.device, [n for n in self.arch.kernel_checks if n in limits])
         self.tape.install()
         self.attn = None
 
@@ -398,8 +435,8 @@ def _measure(sweep: Sweep, cell: dict, metrics, limits, seed: int,
     peak = dev["memory_peak_bytes"] if cuda else None
 
     trace_obj = trace_lib.read(profiler) if profiler is not None else None
-    ctx = Context(sweep.conf, t, batch_work(sweep.conf, t), setup_s,
-                  window_s, times, peak, trace_obj)
+    ctx = Context(sweep.conf, t, sweep.arch.batch_work(sweep.conf, t),
+                  setup_s, window_s, times, peak, trace_obj)
     values = {}
     for m in metrics:
         v = m["read"](ctx)
@@ -415,6 +452,7 @@ def _measure(sweep: Sweep, cell: dict, metrics, limits, seed: int,
     del logits, steps, scores
     if cuda:
         torch.cuda.empty_cache()
+    reference = sweep.arch.reference
     routing = (None if kept.routes is None
                else reference.Routing(forced=kept.routes))
     ref = reference.forward(

@@ -1,5 +1,5 @@
-"""decode_attn_roofline: B6's least time (``work.BatchWork
-.decode_attn_bound_s``, the live K/V, q and output bytes at the H100's
+"""decode_attn_roofline: B6's least time (the arch's ``batch_work``
+``decode_attn_bound_s``, the live K/V, q and output bytes at the H100's
 HBM peak) over the device time of B6's split and merge kernels, in the
 traced batches, in %."""
 KERNELS = ("decode_attention_split_kernel", "decode_attention_merge_kernel")

@@ -1,7 +1,7 @@
-"""unc_roofline: B4's least time (``work.BatchWork.unc_bound_s``, the fp32
-logits read once and the scores written, at the H100's HBM peak) over
-the device time of B4's split and merge kernels, in the traced batches,
-in %."""
+"""unc_roofline: B4's least time (the arch's ``batch_work``
+``unc_bound_s``, the fp32 logits read once and the scores written, at
+the H100's HBM peak) over the device time of B4's split and merge
+kernels, in the traced batches, in %."""
 KERNELS = ("uncertainty_stats_split_kernel", "uncertainty_stats_merge_kernel")
 
 

@@ -4,7 +4,9 @@ configurations the benchmark runs (a dense GQA stack, InternLM2; a
 fine-grained MoE stack, DeepSeekMoE) and the serving port's stated
 dispatch rule. It imports nothing of the port and takes nothing the port
 made: only the configuration file, the weights and tokens the benchmark
-made, and the prompt length.
+made, and the prompt length. ``archs/internlm2.py`` and
+``archs/deepseek.py`` name it; another architecture's reference may reuse
+its ``Products``, ``rmsnorm``, ``rope``, ``attention`` and ``swiglu``.
 
 Per layer: RMSNorm, attention (GQA, rotate-half rope over fp32 phases,
 causal, softmax in fp32), residual; RMSNorm, a SwiGLU MLP ``silu(x @
@@ -109,18 +111,19 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
 
-def attention(pr: Products, q, k, v, q_block: int):
-    """Causal GQA attention. q (B, T, H, hd), k and v (B, T, KH, hd), all
-    float32 -> (B, T, H * hd). Query head h reads KV head h // (H / KH)."""
+def attention(pr: Products, q, k, v, q_block: int, scale: float = None):
+    """Causal GQA attention. q and k (B, T, H | KH, hd), v (B, T, KH, dv),
+    all float32 -> (B, T, H * dv). Query head h reads KV head h // (H /
+    KH). ``scale``: the softmax's, hd ** -0.5 where None."""
     B, T, H, hd = q.shape
-    KH = k.shape[2]
+    KH, dv = k.shape[2], v.shape[-1]
     G = H // KH
     qg = q.reshape(B, T, KH, G, hd).permute(0, 2, 3, 1, 4)   # B,KH,G,T,hd
     kt = k.permute(0, 2, 3, 1)[:, :, None]                  # B,KH,1,hd,T
-    vv = v.permute(0, 2, 1, 3)[:, :, None]                  # B,KH,1,T,hd
-    out = torch.empty((B, KH, G, T, hd), dtype=torch.float32,
+    vv = v.permute(0, 2, 1, 3)[:, :, None]                  # B,KH,1,T,dv
+    out = torch.empty((B, KH, G, T, dv), dtype=torch.float32,
                       device=q.device)
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     for i0 in range(0, T, q_block):
         i1 = min(T, i0 + q_block)
         s = pr.mm(qg[:, :, :, i0:i1], kt[..., :i1]) * scale  # ..., blk, i1
@@ -131,31 +134,34 @@ def attention(pr: Products, q, k, v, q_block: int):
         del s
         out[:, :, :, i0:i1] = pr.mm(p, vv[:, :, :, :i1])
         del p
-    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H * hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H * dv)
 
 
-def attend(pr: Products, q, pos, k, v, row_block: int = 32):
+def attend(pr: Products, q, pos, k, v, row_block: int = 32,
+           scale: float = None):
     """Causal GQA attention of query rows at positions ``pos``: q (N, R,
-    H, hd), pos (R,) int, k and v (N, T, KH, hd) -> (N, R, H, hd) float32;
-    row r reads keys 0 .. pos[r]."""
+    H, hd), pos (R,) int, k (N, T, KH, hd) and v (N, T, KH, dv) -> (N, R,
+    H, dv) float32; row r reads keys 0 .. pos[r]. ``scale``: the
+    softmax's, hd ** -0.5 where None."""
     N, R, H, hd = q.shape
-    KH = k.shape[2]
+    KH, dv = k.shape[2], v.shape[-1]
     G = H // KH
+    scale = hd ** -0.5 if scale is None else scale
     kt = k.float().permute(0, 2, 3, 1)[:, :, None]          # N,KH,1,hd,T
-    vv = v.float().permute(0, 2, 1, 3)[:, :, None]          # N,KH,1,T,hd
+    vv = v.float().permute(0, 2, 1, 3)[:, :, None]          # N,KH,1,T,dv
     kpos = torch.arange(k.shape[1], device=q.device)
-    out = torch.empty((N, R, H, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty((N, R, H, dv), dtype=torch.float32, device=q.device)
     with exact_fp32():
         for r0 in range(0, R, row_block):
             r1 = min(R, r0 + row_block)
             qg = q[:, r0:r1].float().reshape(N, r1 - r0, KH, G, hd) \
                 .permute(0, 2, 3, 1, 4)                       # N,KH,G,r,hd
-            s = pr.mm(qg, kt) * hd ** -0.5                   # N,KH,G,r,T
+            s = pr.mm(qg, kt) * scale                        # N,KH,G,r,T
             s.masked_fill_(kpos[None, :] > pos[r0:r1, None].long(),
                            float("-inf"))
-            o = pr.mm(torch.softmax(s, dim=-1), vv)          # N,KH,G,r,hd
+            o = pr.mm(torch.softmax(s, dim=-1), vv)          # N,KH,G,r,dv
             out[:, r0:r1] = o.permute(0, 3, 1, 2, 4).reshape(N, r1 - r0, H,
-                                                             hd)
+                                                             dv)
     return out
 
 

@@ -17,8 +17,9 @@ import torch
 from bench import control, faults, harness, testing
 
 ROOT = testing.ROOT
-CELLS = {"internlm2-20b": "score_long.internlm2-20b",
-         "deepseek-moe-16b": "score_docs.deepseek-moe-16b"}
+CELLS = testing.TOY_LIMITS
+CARD_CELLS = [w["name"] for w in json.loads(
+    (ROOT / "BENCHMARK.json").read_text())["workloads"]]
 SEED = 2 ** 31 + 11
 ROUTE_FAULTS = ("wrong_expert", "wrong_slot")
 
@@ -88,7 +89,7 @@ def test_control_fails_at_toy_widths(tmp_path, config):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", sorted(CELLS.values()))
+@pytest.mark.parametrize("cell", CARD_CELLS)
 def test_control_fails_at_cell_size(cell):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the cell's own size")
@@ -101,7 +102,7 @@ def test_control_fails_at_cell_size(cell):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", sorted(CELLS.values()))
+@pytest.mark.parametrize("cell", CARD_CELLS)
 def test_faults_fail_at_cell_size(cell):
     """Each fault the cell can have, planted at the cell's own sizes,
     reads above a limit (the readings: ``limits/<cell>.json``)."""

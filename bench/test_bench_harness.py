@@ -1,8 +1,10 @@
 """The harness is driven by data: ``BENCHMARK.json`` keeps to its
 contract, every name in it has its file, and a toy configuration,
-traffic mix and per-layer metric added as new files and new entries in a
-copy of the layout are listed, loaded and run on the CPU with no file
-that was there edited."""
+traffic mix and per-layer metric, or a toy architecture of a new
+``model_type`` (its arch module, reference, work count, spread leaves and
+kernel checks), added as new files and new entries in a copy of the
+layout are listed, loaded and run on the CPU with no file that was there
+edited."""
 import hashlib
 import json
 import os
@@ -63,17 +65,28 @@ def test_every_name_has_its_file(cell):
     layout = harness.Layout(ROOT)
     w = layout.cell(cell)
     conf = layout.config(w["config"])
-    cfg = layout.port_config(conf)
+    arch = layout.arch(conf)
+    cfg = arch.port_config(conf)
     assert cfg.attention_impl == "pallas" and cfg.d_model == \
         conf["hidden_size"]
     assert layout.traffic(w["traffic"])["kind"] == "score_sweep"
-    names = {"logits", "scores", "flash", "decode_attn"} | (
+    assert callable(arch.reference.forward) and callable(arch.batch_work)
+    names = {"logits", "scores"} | set(arch.kernel_checks) | (
         {"routes"} if "n_routed_experts" in conf else set())
     assert set(layout.limits(cell)) == names
     assert layout.qk_logit_std(cell) > 1.0      # attention the check sees
     for trace in (False, True):
         assert all(callable(m["read"]) for m in layout.metrics(cell, trace))
-    assert len(layout.metrics(cell, True)) == len(SPEC["per_layer"])
+    cells = {c["name"] for c in SPEC["workloads"]}
+    assert all(set(m.get("workloads", [])) <= cells
+               for m in SPEC["per_layer"] + SPEC["end_to_end"])
+    reported = {m["name"] for m in layout.metrics(cell, True)}
+    assert reported == {m["name"] for m in SPEC["per_layer"]
+                        if cell in m.get("workloads", [cell])}
+    # the roofline of every kernel the cell's path runs: B4 each step,
+    # B3 and B6 where the arch's kernel checks name them
+    runs = {"unc_roofline"} | {f"{k}_roofline" for k in arch.kernel_checks}
+    assert runs & {m["name"] for m in SPEC["per_layer"]} <= reported
 
 
 @pytest.mark.parametrize("config", sorted(testing.TOY_WIDTHS))
@@ -98,6 +111,49 @@ def test_toy_cell_added_as_files_runs(tmp_path, config):
     line = json.loads(r.line())
     assert list(line) == ["correct", "attempted", "failed", "metrics",
                           "device", "checks"]
+
+
+def test_architecture_added_as_files_runs(tmp_path):
+    """A toy ``model_type`` (MLA: no B3, no B6) comes as new files only;
+    the harness takes its port config, its own reference and work count,
+    its spread leaves, and judges the cell on the numbers its limits
+    name."""
+    root = testing.copy_layout(tmp_path)
+    before = _digest(root)
+    cell = testing.add_toy_arch(root)
+    after = _digest(root)
+    assert all(after[k] == v for k, v in before.items())
+    assert set(after) - set(before) == {
+        "bench/archs/toy_mla.py", "bench/reference/toy_mla.py",
+        "bench/configs/toy-mla.json", "bench/traffic/toy_mix.json",
+        f"bench/limits/{cell}.json"}
+    layout = harness.Layout(root)
+    assert set(layout.limits(cell)) == {"logits", "scores"}
+    arch = layout.arch(layout.config(layout.cell(cell)["config"]))
+    assert arch.kernel_checks == () and arch.spread_leaves == ("w_uq",
+                                                               "w_uk")
+    calls = []
+    forward, batch_work = arch.reference.forward, arch.batch_work
+
+    def spy_forward(conf, params, *args, **kw):
+        calls.append(("reference", params))
+        return forward(conf, params, *args, **kw)
+
+    def spy_work(conf, traffic):
+        calls.append(("work", traffic))
+        return batch_work(conf, traffic)
+    arch.reference.forward, arch.batch_work = spy_forward, spy_work
+    for trace in (False, True):
+        calls.clear()
+        r = harness.run(layout, cell, 2 ** 31 + 7, 0.3, trace, device="cpu")
+        assert r.correct and r.attempted > 0 and r.failed == 0, r.checks
+        assert set(r.checks) == {"logits", "scores"}
+        assert [c for c, _ in calls] == ["work", "reference"]
+    assert r.metrics["score_mfu"]["value"] > 0
+    mixer = next(iter(calls[1][1]["segments"][0][0].values()))["mixer"]
+    # fan-in 32 (q_lora_rank), qk_logit_std 2: std sqrt(2 / 32)
+    assert abs(float(mixer["w_uq"].float().std()) / 0.25 - 1) < 0.1
+    assert abs(float(mixer["w_dq"].float().std()) / 0.125 - 1) < 0.1
 
 
 def test_same_seed_same_inputs_and_weights():
@@ -128,12 +184,44 @@ def test_query_and_key_weights_carry_the_cells_logit_spread():
     from bench import weights
     from repro_torch.models.transformer import Model
     conf = testing.toy_config("internlm2-20b")
-    model = Model(harness.Layout(ROOT).port_config(conf))
+    arch = harness.Layout(ROOT).arch(conf)
+    model = Model(arch.port_config(conf))
     flat, peaked = (weights.make(model.param_decls(), conf["vocab_size"],
-                                 3, "cpu", qk_logit_std=s) for s in (1, 4))
+                                 3, "cpu", qk_logit_std=s,
+                                 spread_leaves=arch.spread_leaves)
+                    for s in (1, 4))
     a, b = (next(iter(p["segments"][0][0].values()))["mixer"]
             for p in (flat, peaked))
     for name, ratio in (("w_q", 2.0), ("w_k", 2.0), ("w_v", 1.0),
                         ("w_o", 1.0)):
         assert torch.allclose(b[name].float(), a[name].float() * ratio,
                               rtol=1e-2, atol=1e-6), name
+
+
+def _std_before(path, decl, qk_logit_std):
+    """``weights._std`` as it was with ``w_q`` and ``w_k`` built in."""
+    import math
+    if decl.init == "embed":
+        return 0.02
+    std = 1.0 / math.sqrt(decl.shape[-2] if len(decl.shape) > 1 else 1)
+    if path[-1] in ("w_q", "w_k"):
+        std *= math.sqrt(qk_logit_std)
+    return std
+
+
+@pytest.mark.parametrize("config", sorted(testing.TOY_WIDTHS))
+def test_spread_leaves_give_the_weights_as_before(config):
+    """The accepted configurations' spread leaves scale every leaf as the
+    built-in names did, so ``weights.make`` gives the same tensors."""
+    from bench import weights
+    from repro_torch.models.transformer import Model
+    conf = testing.toy_config(config)
+    arch = harness.Layout(ROOT).arch(conf)
+    decls = Model(arch.port_config(conf)).param_decls()
+    leaves = [(p, d) for p, d in weights._leaves(decls)
+              if d.init in ("embed", "normal")]
+    assert any(p[-1] == "w_q" for p, _ in leaves)
+    for s in (1.0, 2.0, 2.5):
+        for path, decl in leaves:
+            assert weights._std(path, decl, s, arch.spread_leaves) == \
+                _std_before(path, decl, s), path

@@ -15,7 +15,10 @@ from bench import harness, testing
 
 ROOT = testing.ROOT
 BENCH_FILES = sorted((ROOT / "bench").rglob("*.py"))
-REFERENCE_FILES = sorted((ROOT / "bench" / "reference").rglob("*.py"))
+# the toy architecture's reference becomes bench/reference/toy_mla.py in
+# the copies of the layout the tests make
+REFERENCE_FILES = sorted((ROOT / "bench" / "reference").rglob("*.py")) + [
+    ROOT / "bench" / "toy_mla" / "reference.py"]
 
 
 def _imports(path):

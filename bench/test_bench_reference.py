@@ -1,6 +1,8 @@
-"""The plain reference against the port at toy widths on the CPU, both in
+"""The plain references against the port at toy widths on the CPU, both in
 float32: the prefill's last logits and every scored step's through the
-cache, the four scores, and the MoE's routes (capacity drops included)."""
+cache, the four scores, and the MoE's routes (capacity drops included);
+each architecture's own reference (the toy MLA's beside the GQA and MoE
+stacks')."""
 import pytest
 import torch
 
@@ -20,17 +22,27 @@ def _f32(tree):
     return tree.float()
 
 
-def _port_run(config, seed, capacity_factor=None):
+def _toy(tmp_path, config):
+    """(layout, conf) of a toy configuration: the accepted stacks' from the
+    repository's layout, the toy MLA from a copy that takes it as files."""
+    if config == "toy-mla":
+        root = testing.copy_layout(tmp_path)
+        cell = testing.add_toy_arch(root)
+        layout = harness.Layout(root)
+        return layout, layout.config(layout.cell(cell)["config"])
+    return harness.Layout(testing.ROOT), testing.toy_config(config)
+
+
+def _port_run(layout, conf, seed, capacity_factor=None):
     """The port in float32 over one toy batch: (conf, weights, tokens,
     logits (B, 1 + STEPS, V), scores (4, STEPS, B), routes)."""
     from repro_torch.launch.serve import serve_steps
     from repro_torch.models.layers.moe import RouteTape
     from repro_torch.models.transformer import Model
-    conf = testing.toy_config(config)
     if capacity_factor is not None:
         conf["assumed"] = dict(conf["assumed"],
                                capacity_factor=capacity_factor)
-    cfg = harness.Layout(testing.ROOT).port_config(conf)
+    cfg = layout.arch(conf).port_config(conf)
     tape = RouteTape() if cfg.moe is not None else None
     model = Model(cfg, routes=tape)
     params = _f32(weights.make(model.param_decls(), conf["vocab_size"],
@@ -51,11 +63,13 @@ def _port_run(config, seed, capacity_factor=None):
 
 
 @pytest.mark.parametrize("seed", [1, 2])
-@pytest.mark.parametrize("config", sorted(testing.TOY_WIDTHS))
-def test_reference_matches_port_in_fp32(config, seed):
-    conf, params, toks, port, scores, routes = _port_run(config, seed)
-    routing = reference.Routing()
-    ref = reference.forward(conf, params, toks, S, routing=routing)
+@pytest.mark.parametrize("config", sorted(testing.TOY_WIDTHS) + ["toy-mla"])
+def test_reference_matches_port_in_fp32(tmp_path, config, seed):
+    layout, conf = _toy(tmp_path, config)
+    conf, params, toks, port, scores, routes = _port_run(layout, conf, seed)
+    own = layout.arch(conf).reference
+    routing = own.Routing()
+    ref = own.forward(conf, params, toks, S, routing=routing)
     assert ref.shape == (B, 1 + STEPS, conf["vocab_size"])
     assert (port[..., :ref.shape[-1]] - ref).abs().max() <= \
         2e-5 * ref.abs().max()
@@ -74,8 +88,9 @@ def test_moe_capacity_drops_and_followed_routes():
     """At capacity factor 0.75 choices are dropped; the reference, handed
     the port's routes, reads no gap and no bad slot, and a planted wrong
     expert or slot shows."""
-    conf, params, toks, port, _, routes = _port_run("deepseek-moe-16b", 3,
-                                                    capacity_factor=0.75)
+    conf, params, toks, port, _, routes = _port_run(
+        harness.Layout(testing.ROOT), testing.toy_config("deepseek-moe-16b"),
+        3, capacity_factor=0.75)
     C = reference.capacity(64, 2, 8, 0.75)
     assert any(bool((s == C).any()) for _, s in routes)
     routing = reference.Routing(forced=routes)

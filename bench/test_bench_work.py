@@ -54,3 +54,21 @@ def test_decode_and_scoring_bytes():
     assert w.unc_bound_s() == pytest.approx(
         8 * 16 * (102_400 + 4) * 4 / 3.35e12)
     assert w.tokens == 16 * (4096 + 8)
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in json.loads(
+    (testing.ROOT / "BENCHMARK.json").read_text())["workloads"]])
+def test_arch_work_count_is_the_shapes_count(cell):
+    """The accepted configurations' arch modules count a batch's work as
+    ``work.batch_work`` does from the published shapes, field for field."""
+    from bench import harness
+    layout = harness.Layout(testing.ROOT)
+    w = layout.cell(cell)
+    conf = layout.config(w["config"])
+    t = ScoreSweep.from_file(layout.traffic(w["traffic"]))
+    got, want = layout.arch(conf).batch_work(conf, t), work.batch_work(conf, t)
+    assert got == want
+    for name in ("model_flops", "flash_bound_s", "decode_attn_bound_s",
+                 "unc_bound_s"):
+        assert getattr(got, name)() == getattr(want, name)(), name
+    assert got.tokens == want.tokens == t.batch * t.positions

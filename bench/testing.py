@@ -1,6 +1,7 @@
 """Helpers for the benchmark's CPU tests: toy configurations of the two
-stacks at the widths the port's smoke configs use, and a temporary copy
-of the benchmark's layout with a toy cell added as files and entries."""
+stacks at the widths the port's smoke configs use, a temporary copy of
+the benchmark's layout with a toy cell added as files and entries, and a
+toy architecture (``toy_mla/``) that such a copy takes as new files."""
 from __future__ import annotations
 
 import json
@@ -8,6 +9,7 @@ import shutil
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+TOY_ARCH = ROOT / "bench" / "toy_mla"
 
 # the widths of the port's internlm2-smoke and dsmoe-smoke
 TOY_WIDTHS = {
@@ -22,6 +24,9 @@ TOY_WIDTHS = {
                              first_k_dense_replace=1),
 }
 TOY_GROUP = 64
+# the accepted cell whose limits each toy configuration's runs are held to
+TOY_LIMITS = {"internlm2-20b": "score_long.internlm2-20b",
+              "deepseek-moe-16b": "score_docs.deepseek-moe-16b"}
 
 
 def toy_config(name: str) -> dict:
@@ -59,15 +64,43 @@ def add_toy_cell(root: Path, config: str, *, traffic: dict = None,
     ``metric``, a per-layer metric of that name whose reader returns the
     number of batches. Returns the toy cell's name."""
     bench = root / "bench"
-    conf = toy_config(config)
-    (bench / "configs" / f"{conf['name']}.json").write_text(
-        json.dumps(conf))
-    (bench / "traffic" / "toy_mix.json").write_text(
-        json.dumps(traffic or toy_traffic()))
-    cell = f"toy_mix.{conf['name']}"
     limits = ({"limits": {"logits": 1.0, "scores": 1.0}} if limits_from is None
               else json.loads((bench / "limits" / f"{limits_from}.json")
                               .read_text()))
+    cell = _add_cell(root, toy_config(config), traffic or toy_traffic(),
+                     limits)
+    if metric is not None:
+        (bench / "metrics" / f"{metric}.py").write_text(
+            "def read(ctx):\n    return len(ctx.batches)\n")
+        spec = json.loads((root / "BENCHMARK.json").read_text())
+        spec["per_layer"].append({"name": metric, "unit": "count",
+                                  "better": "higher",
+                                  "source": "program_counter",
+                                  "layer": "toy", "moves": "score_tokens_s"})
+        (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return cell
+
+
+def add_toy_arch(root: Path) -> str:
+    """Add to the layout under ``root``, as new files and new entries
+    only, the toy MLA architecture of ``bench/toy_mla/`` (its arch module
+    and its reference module under their ``model_type``, its
+    configuration, its limits) and a toy cell of it. Returns the cell's
+    name."""
+    bench = root / "bench"
+    shutil.copy(TOY_ARCH / "arch.py", bench / "archs" / "toy_mla.py")
+    shutil.copy(TOY_ARCH / "reference.py", bench / "reference" / "toy_mla.py")
+    return _add_cell(root, json.loads((TOY_ARCH / "config.json").read_text()),
+                     toy_traffic(),
+                     json.loads((TOY_ARCH / "limits.json").read_text()))
+
+
+def _add_cell(root: Path, conf: dict, traffic: dict, limits: dict) -> str:
+    bench = root / "bench"
+    (bench / "configs" / f"{conf['name']}.json").write_text(
+        json.dumps(conf))
+    (bench / "traffic" / "toy_mix.json").write_text(json.dumps(traffic))
+    cell = f"toy_mix.{conf['name']}"
     (bench / "limits" / f"{cell}.json").write_text(json.dumps(limits))
     spec = json.loads((root / "BENCHMARK.json").read_text())
     spec["configs"].append({"name": conf["name"], "source": "toy",
@@ -76,12 +109,5 @@ def add_toy_cell(root: Path, config: str, *, traffic: dict = None,
     spec["workloads"].append({"name": cell, "config": conf["name"],
                               "traffic": "toy_mix", "chips": 1,
                               "why": "toy"})
-    if metric is not None:
-        (bench / "metrics" / f"{metric}.py").write_text(
-            "def read(ctx):\n    return len(ctx.batches)\n")
-        spec["per_layer"].append({"name": metric, "unit": "count",
-                                  "better": "higher",
-                                  "source": "program_counter",
-                                  "layer": "toy", "moves": "score_tokens_s"})
     (root / "BENCHMARK.json").write_text(json.dumps(spec))
     return cell

@@ -6,16 +6,18 @@ device in chunks, then each leaf a view of it, scaled in place.
 A matrix gets std 1/sqrt(fan_in), fan_in being its second-to-last axis
 (a weight maps rows of that size; an expert axis in front does not add to
 it); the embedding std 0.02; declarations of ones and zeros (norm scales,
-biases) are ones and zeros. The attention's query and key matrices
-(``w_q``, ``w_k``) get sqrt(``qk_logit_std``) times that, so that the
-attention logits q.k/sqrt(head_dim) spread with that std: at 1 the
-softmax over thousands of keys is all but flat (some 12,000 effective
-keys of 32,768), an attention output is a near-constant mean of the
-values, and a check of the logits cannot see a key dropped or a position
-shifted; a trained model's attention is peaked. Too peaked over random
-keys, the stack turns chaotic and rounding alone swamps the check, so
-each cell sets its own (``bench/limits/<cell>.json``). Rows of the embedding and columns of the LM
-head past the published vocabulary (the port's padding) are zero, as a
+biases) are ones and zeros. The leaves that make the attention's
+queries and keys, which each architecture names (``archs/<model_type>.py``
+``SPREAD_LEAVES``: ``w_q`` and ``w_k`` for a GQA or MHA stack), get
+sqrt(``qk_logit_std``) times that, so that the attention logits
+q.k/sqrt(head_dim) spread with that std: at 1 the softmax over thousands
+of keys is all but flat (some 12,000 effective keys of 32,768), an
+attention output is a near-constant mean of the values, and a check of
+the logits cannot see a key dropped or a position shifted; a trained
+model's attention is peaked. Too peaked over random keys, the stack turns
+chaotic and rounding alone swamps the check, so each cell sets its own
+(``bench/limits/<cell>.json``). Rows of the embedding and columns of the
+LM head past the published vocabulary (the port's padding) are zero, as a
 padded checkpoint holds them.
 """
 from __future__ import annotations
@@ -47,20 +49,21 @@ def _rebuild(tree, views, path=()):
     return views[path]
 
 
-def _std(path, decl, qk_logit_std: float) -> float:
+def _std(path, decl, qk_logit_std: float, spread_leaves) -> float:
     if decl.init == "embed":
         return 0.02
     if decl.init == "normal":
         std = 1.0 / math.sqrt(decl.shape[-2] if len(decl.shape) > 1 else 1)
-        if path[-1] in ("w_q", "w_k"):
+        if path[-1] in spread_leaves:
             std *= math.sqrt(qk_logit_std)
         return std
     raise ValueError(f"no rule for init {decl.init!r}")
 
 
-def make(decls, vocab: int, seed: int, device,
-         qk_logit_std: float = 1.0) -> dict:
-    """The weight tree of ``decls`` on ``device`` from ``seed``."""
+def make(decls, vocab: int, seed: int, device, qk_logit_std: float = 1.0,
+         spread_leaves=()) -> dict:
+    """The weight tree of ``decls`` on ``device`` from ``seed``; the leaves
+    named in ``spread_leaves`` carry sqrt(``qk_logit_std``)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed) % 2 ** 64)
     leaves = list(_leaves(decls))
@@ -83,7 +86,7 @@ def make(decls, vocab: int, seed: int, device,
             elif decl.init == "ones":
                 view.fill_(1.0)
             else:
-                view.mul_(_std(path, decl, qk_logit_std))
+                view.mul_(_std(path, decl, qk_logit_std, spread_leaves))
             views[path] = view
     params = _rebuild(decls, views)
     params["embed"][vocab:].zero_()

@@ -1,7 +1,9 @@
 """Work counts from a configuration file's published shapes alone, so that
 they count the same work whatever implements it: model FLOPs, the causal
 attention's FLOPs and bytes (kernel B3), the decode attention's bytes (B6)
-and the uncertainty scoring's bytes (B4), and the H100's peaks.
+and the uncertainty scoring's bytes (B4), and the H100's peaks. This is
+the count of the GQA and MHA stacks, with or without a MoE; an
+architecture names its count in ``archs/<model_type>.py``.
 
 Model FLOPs are 2 per active matmul parameter and token, where the active
 parameters leave out the embedding rows and count the LM head only where
